@@ -8,7 +8,8 @@ their plain PyTorch versions, which is how the tests hold the port against
 the JAX package.
 
 PyTorch runs eagerly, so the JAX package's on-device ``lax.while_loop``
-frame loop becomes a host loop over substeps.  ``dt``, ``next_dt``,
+frame loop becomes a host loop over substeps.  Several materials share one
+pool: each model's transfer accumulates into the same next pool.  ``dt``, ``next_dt``,
 ``max_vel`` and ``t`` stay 0-d device tensors that the kernels read through
 pointers.  The host synchronises with the device at exactly these points:
 
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..models.boundary import check_analytic
 from ..models.materials import Material
 from ..ops import g2p2g_kernel, grid_kernel
 from . import grid as grid_ops
@@ -126,11 +128,15 @@ def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
 
 
 def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
-                 state: SimState, frame_end: torch.Tensor):
-    """One explicit MPM substep.  Returns (new_state, rebuilt: bool)."""
+                 state: SimState, frame_end: torch.Tensor, collider_table=None):
+    """One explicit MPM substep.  Returns (new_state, rebuilt: bool).
+
+    The colliders are posed at the substep's start time ``state.t``;
+    ``collider_table`` is their packed form for the CUDA grid kernel
+    (``grid_kernel.pack_colliders``), built once per engine."""
     dt = state.dt
     pool_v, max_vel_sqr = grid_kernel.grid_update(
-        cfg, state.grid, state.partition, dt, colliders)
+        cfg, state.grid, state.partition, dt, colliders, state.t, collider_table)
     t_after = state.t + dt
     next_dt = grid_ops.compute_dt(cfg, max_vel_sqr, t_after, frame_end)
 
@@ -184,7 +190,8 @@ class MPMEngine:
 
     ``device`` has no default: a CUDA device runs the kernels, a CPU device
     their plain PyTorch versions, and asking for CUDA without a card raises.
-    ``rebuilds`` counts the substeps that rebucketed.
+    Colliders are the analytic ones (``models/boundary.py``); an SDF
+    collider raises.  ``rebuilds`` counts the substeps that rebucketed.
     """
 
     def __init__(self, cfg: SimConfig, materials: Sequence[Material],
@@ -192,8 +199,7 @@ class MPMEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        if colliders:
-            raise NotImplementedError("colliders are not ported yet")
+        check_analytic(colliders)
         if cfg.defrag_every != 1:
             raise ValueError(
                 "defrag_every must be 1: the incremental mover path is not "
@@ -205,6 +211,9 @@ class MPMEngine:
         self.cfg = cfg
         self.materials = tuple(materials)
         self.colliders = tuple(colliders)
+        self._collider_table = (
+            grid_kernel.pack_colliders(self.colliders, self.device)
+            if self.colliders and self.device.type == "cuda" else None)
         self.tile_chunk = tile_chunk
         self.rebuilds = 0
         self._num_tiles: List[int] = []
@@ -259,7 +268,8 @@ class MPMEngine:
     def substep(self, state: SimState, frame_end) -> SimState:
         state, rebuilt = substep_impl(self.cfg, self.materials, self.colliders,
                                       self.tile_chunk, state,
-                                      self._frame_end(frame_end))
+                                      self._frame_end(frame_end),
+                                      self._collider_table)
         self.rebuilds += int(rebuilt)
         return state
 

@@ -3,17 +3,21 @@
 ``grid_update`` is the plain PyTorch version of the grid kernel
 (``ops/grid_kernel.py``, ``csrc/grid_update.cu``) and a straight port of
 ``claymore_tpu/core/grid.py``: momentum -> velocity, per-axis sticky domain
-slab, gravity after the clamp, and the global max |v|^2 with NaN mapped to
-inf.  Colliders come in a later change.
+slab, gravity after the clamp, the analytic colliders, and the global max
+|v|^2 with NaN mapped to inf.  Colliders are resolved through
+``resolve_soa``, the component form the JAX package runs inside its grid
+kernel (``claymore_tpu/ops/pallas_grid.py:74-90``), so this version and the
+CUDA kernel share one definition of the math.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..config import SimConfig
+from ..models.boundary import check_analytic
 from .octpool import oct_coord
 from .types import Partition
 
@@ -42,16 +46,30 @@ def _cell_coords(cfg: SimConfig, partition: Partition):
     return cx, cy[None, None, :], cz[None, None, :], bx, by, bz
 
 
+def cell_positions(cfg: SimConfig, partition: Partition):
+    """World-space x, y, z of every pool cell, each f32[O+1, 4, 128]."""
+    cx, cy, cz, bx, by, bz = _cell_coords(cfg, partition)
+    bs = cfg.block_size
+    x = ((bx[:, None, None] * bs + cx).to(torch.float32) * cfg.dx)
+    y = ((by[:, None, None] * bs + cy).to(torch.float32) * cfg.dx)
+    z = ((bz * bs + cz).to(torch.float32) * cfg.dx)
+    shape = (bx.shape[0], 4, 128)
+    return tuple(a.expand(shape) for a in (x, y, z))
+
+
 def grid_update(
     cfg: SimConfig,
     pool: torch.Tensor,
     partition: Partition,
     dt: torch.Tensor,
     colliders: Sequence = (),
+    collider_time: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(m, mom) pool -> (m, v) pool and max |v|^2, both in the oct layout."""
-    if colliders:
-        raise NotImplementedError("colliders are not ported yet")
+    """(m, mom) pool -> (m, v) pool and max |v|^2, both in the oct layout.
+
+    ``collider_time`` is the time the colliders are posed at, a 0-d tensor
+    (the substep's start time; 0 when omitted)."""
+    check_analytic(colliders)
     o1 = pool.shape[0]
     m = pool[:, 0:4]                                      # [O+1, 4, 128]
     mom = pool[:, 4:16].reshape(o1, 3, 4, 128)
@@ -74,6 +92,16 @@ def grid_update(
 
     gvec = torch.tensor(cfg.gravity, dtype=v.dtype, device=v.device)
     v = v + gvec[None, :, None, None] * dt
+
+    if colliders:
+        t = (collider_time if collider_time is not None
+             else torch.zeros((), dtype=torch.float32, device=pool.device))
+        x3 = cell_positions(cfg, partition)
+        v3 = (v[:, 0], v[:, 1], v[:, 2])
+        for col in colliders:
+            v3 = col.resolve_soa(x3, v3, t)
+        v = torch.stack(v3, dim=1)
+
     v = torch.where(has_mass[:, None], v, 0.0)
 
     vel_sqr = (v * v).sum(dim=1)                          # [O+1, 4, 128]

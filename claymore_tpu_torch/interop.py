@@ -16,6 +16,7 @@ import torch
 
 from .config import SimConfig
 from .core.types import Partition, ParticleModel, SimState, TileMap
+from .models import boundary
 from .models.materials import MATERIALS, Material
 from .utils.debug import to_numpy
 
@@ -55,10 +56,36 @@ def config_from_jax(d: Mapping[str, Any]) -> SimConfig:
 def material_from_jax(name: str, params: Mapping[str, Any]) -> Material:
     """Material by its JAX ``name`` from ``dataclasses.asdict`` of it."""
     if name not in MATERIALS:
-        raise NotImplementedError(f"material {name!r} is not ported yet")
+        raise ValueError(f"unknown material {name!r}")
     cls = MATERIALS[name]
     fields = {f.name for f in dataclasses.fields(cls)} - {"name", "field_specs"}
     return cls(**{k: v for k, v in params.items() if k in fields})
+
+
+def collider_from_jax(col) -> boundary.ColliderBase:
+    """A JAX ``HalfSpace``, ``Sphere`` or ``Box`` (read by its attributes)
+    -> the port's collider with the same geometry, kind, friction and
+    ``RigidMotion``.  The half-space normal is carried over as stored, not
+    normalised again."""
+    mo = col.motion
+    motion = boundary.RigidMotion(
+        trans=tuple(float(c) for c in mo.trans),
+        trans_vel=tuple(float(c) for c in mo.trans_vel),
+        omega=tuple(float(c) for c in mo.omega),
+        scale=float(mo.scale), dsdt=float(mo.dsdt))
+    kind, friction = col.kind, col.friction
+    name = type(col).__name__
+    if name == "HalfSpace":
+        out = boundary.HalfSpace(col.origin, col.normal, kind, friction, motion)
+        out.normal = tuple(float(c) for c in col.normal)
+        return out
+    if name == "Sphere":
+        return boundary.Sphere(col.center, col.radius, kind, friction, motion)
+    if name == "Box":
+        return boundary.Box(col.lo, col.hi, kind, friction, motion)
+    raise NotImplementedError(
+        f"{name} is not ported (analytic HalfSpace/Sphere/Box only; SDF "
+        "colliders are ROADMAP Queue 1)")
 
 
 def _get(obj, name):

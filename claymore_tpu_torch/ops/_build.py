@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library lands in
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/claymore_tpu_torch/`` at the repository root and is rebuilt when the
 SHA-256 of the sources changes.  Import this module only where a kernel is
 about to launch: machines without ``nvcc`` import the package fine.
@@ -24,17 +25,22 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "claymore_tpu_torch"
 LIB_NAME = "libcm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
+_G2P2G = [_P] * 17 + [_I] * 6 + [_F] * 4 + [_P, _I, _P]
 SIGNATURES = {
     "cm_grid_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
-    "cm_g2p2g_fixed_corotated": (
-        [_P] * 15 + [_I] * 6 + [_F] * 7 + [_P]),
+    "cm_grid_update_colliders": (
+        [_P] * 6 + [_I, _P] + [_I] * 6 + [_F] * 4 + [_P]),
+    "cm_g2p2g_fixed_corotated": _G2P2G,
+    "cm_g2p2g_jfluid": _G2P2G,
+    "cm_g2p2g_sand": _G2P2G,
+    "cm_g2p2g_nacc": _G2P2G,
 }
 
 
@@ -62,7 +68,8 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library for the current sources exists.
+    """Compile the kernels unless a library for the current sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns the library path; raises with nvcc's stderr on failure."""
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
@@ -70,20 +77,34 @@ def build(verbose: bool = False) -> Path:
     if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        sys.stderr.write(proc.stderr)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        sys.stdout.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, cu.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            objs.append(obj)
+            procs.append((cu.name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{err}")
+            elif verbose:
+                sys.stdout.write(f"--- {name}\n{out}{err}")
+        if failed:
+            sys.stderr.write("\n".join(failed))
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            sys.stderr.write(link.stderr)
+            raise RuntimeError(f"link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, lib)
     stamp.write_text(digest + "\n")
     return lib
 

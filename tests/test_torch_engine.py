@@ -21,7 +21,8 @@ from claymore_tpu_torch.interop import config_from_jax
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
 from claymore_tpu_torch.utils.debug import check_partition, check_tiles, pool_to_dense
 
-from tests.torch_port_helpers import CPU, configs, fixed_corotated_pair, pid_matched, to_np
+from tests.torch_port_helpers import (CPU, configs, fixed_corotated_pair, material_pair,
+                                      pid_matched, to_np)
 
 
 @pytest.mark.parametrize("auto", [False, True])
@@ -71,6 +72,73 @@ def test_substeps_match_jax(auto):
     assert dp["model0_active"] == pos.shape[0]
     check_partition(cfg, s.partition)
     check_tiles(cfg, s)
+
+
+_SCENES = {
+    # name: (materials, boxes, velocities, colliders)
+    "jfluid": (["jfluid"], [([0.40, 0.40, 0.42], [0.56, 0.58, 0.55])],
+               [(1.0, -3.0, 0.5)], False),
+    "sand": (["sand"], [([0.40, 0.40, 0.42], [0.56, 0.58, 0.55])],
+             [(1.5, -4.0, 0.5)], False),
+    "nacc": (["nacc"], [([0.40, 0.40, 0.42], [0.56, 0.58, 0.55])],
+             [(1.5, -4.0, 0.5)], False),
+    "multimat": (["fixed_corotated", "jfluid", "sand"],
+                 [([0.30, 0.50, 0.30], [0.40, 0.60, 0.40]),
+                  ([0.45, 0.36, 0.45], [0.57, 0.46, 0.57]),
+                  ([0.60, 0.50, 0.30], [0.70, 0.60, 0.40])],
+                 [(2.0, -3.0, 1.0), (-1.0, -2.0, 0.5), (0.5, -3.0, 1.0)], False),
+    "jfluid_halfspace": (["jfluid"], [([0.40, 0.28, 0.42], [0.56, 0.44, 0.55])],
+                         [(1.0, -4.0, 0.5)], True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SCENES))
+def test_material_substeps_match_jax(name):
+    """Every material, several materials in one pool, and a frictional
+    half-space ramp: the same substeps in both packages, pid-matched."""
+    from claymore_tpu.models.boundary import HalfSpace
+    from claymore_tpu_torch.interop import collider_from_jax
+
+    mats, boxes, v0, ramp = _SCENES[name]
+    jcfg, cfg = configs(domain_bits=5, max_active_blocks=256, default_dt=2e-3,
+                        rebucket_auto=True)
+    pairs = [material_pair(jcfg, m) for m in mats]
+    pos = [sample_uniform_box_world(cfg.dx, lo, hi, cfg.ppc) for lo, hi in boxes]
+    jcols = ((HalfSpace((0.0, 0.3, 0.0), (0.25, 1.0, 0.0), kind="slip",
+                        friction=0.2),) if ramp else ())
+    jeng = cmt.MPMEngine(jcfg, [j for j, _ in pairs], colliders=jcols, tile_chunk=4)
+    eng = ct.MPMEngine(cfg, [m for _, m in pairs], tile_chunk=4, device=CPU,
+                       colliders=tuple(collider_from_jax(c) for c in jcols))
+    js, s = jeng.init_state(pos, v0), eng.init_state(pos, v0)
+    for _ in range(5):
+        js = jeng.substep(js, jnp.float32(1.0))
+        s = eng.substep(s, 1.0)
+    assert eng.rebuilds >= 1
+
+    jm, jmom = jax_pool_to_dense(jcfg, js)
+    m, mom = pool_to_dense(cfg, s)
+    np.testing.assert_allclose(m, jm, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(mom, jmom, atol=1e-5, rtol=1e-4)
+    for i, (jmat, _) in enumerate(pairs):
+        a, b = pid_matched(s.models[i], js.models[i], "pos")
+        assert np.max(np.abs(a - b)) < 1e-6, i
+        for k, _ in jmat.field_specs:
+            a, b = pid_matched(s.models[i], js.models[i], k)
+            assert np.max(np.abs(a - b)) <= 1e-5 * max(1.0, np.max(np.abs(b))), (i, k)
+    dj, dp = jeng.diagnostics(js), eng.diagnostics(s)
+    for k in dj:
+        if k.startswith("model") or k in ("active_octs", "block_overflow", "step"):
+            assert dp[k] == dj[k], k
+    expected = sum(p.shape[0] * mat.mass for p, (_, mat) in zip(pos, pairs))
+    assert abs(m.sum() - expected) / expected < 1e-6
+    assert dp["null_block_mass"] == 0.0
+    for i, p in enumerate(pos):
+        assert dp[f"model{i}_active"] == p.shape[0]
+    check_partition(cfg, s.partition)
+    eng.check_health(s, strict=True)
+    if ramp:
+        # the ramp stops the fall: no cell below the plane keeps moving into it
+        assert np.min(eng.get_positions(s)[:, 1]) > 0.2
 
 
 def test_run_frames_keep_invariants():
@@ -142,7 +210,10 @@ def test_unported_settings_raise(kw):
 
 def test_import_leaves_jax_out():
     code = ("import sys, claymore_tpu_torch, claymore_tpu_torch.interop, "
-            "claymore_tpu_torch.ops.g2p2g_kernel, claymore_tpu_torch.ops.grid_kernel;"
+            "claymore_tpu_torch.ops.g2p2g_kernel, claymore_tpu_torch.ops.grid_kernel, "
+            "claymore_tpu_torch.io.scene, claymore_tpu_torch.models.boundary, "
+            "claymore_tpu_torch.__main__, claymore_tpu_torch.io.checkpoint, "
+            "claymore_tpu_torch.utils.timers;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'claymore_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -98,7 +98,7 @@ def test_wrapper_runs_plain_version_on_cpu():
     keys, pool = _random_pool(cfg, n_active=20, seed=4)
     part, _ = _partitions(cfg, keys)
     dt = torch.tensor(2e-4)
-    before = grid_kernel.grid_update.launches
+    before = dict(grid_kernel.grid_update.launches)
     a = grid_kernel.grid_update(cfg, torch.from_numpy(pool), part, dt)
     b = grid.grid_update(cfg, torch.from_numpy(pool), part, dt)
     assert grid_kernel.grid_update.launches == before       # no kernel on CPU

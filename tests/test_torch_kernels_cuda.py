@@ -33,12 +33,28 @@ def test_grid_kernel_matches_plain(card):
     card.check_grid_kernel(cfg, n_active=cfg.num_oct_keys, time_it=False)
 
 
-def test_g2p2g_kernel_matches_plain(card):
+def test_grid_colliders_kernel_matches_plain(card):
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=5000)
+    card.check_grid_colliders_kernel(cfg, n_active=cfg.num_oct_keys, t=0.37,
+                                     time_it=False)
+
+
+def _material(name, vol):
+    return {"fixed_corotated": lambda: ct.FixedCorotated(volume=vol, e=5e3, nu=0.4),
+            "jfluid": lambda: ct.JFluid(volume=vol),
+            "sand": lambda: ct.Sand(volume=vol, e=1e4, rho=1500.0),
+            "nacc": lambda: ct.NACC(volume=vol, e=1e4)}[name]()
+
+
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid", "sand", "nacc"])
+def test_g2p2g_kernel_matches_plain(card, name):
     cfg = ct.SimConfig(domain_bits=7, max_active_blocks=2048, default_dt=2e-4,
                        particle_tile=512)
     pos = sample_uniform_box_world(cfg.dx, [0.3, 0.45, 0.35], [0.55, 0.6, 0.5], cfg.ppc)
     cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.25))
-    mat = ct.FixedCorotated(volume=cfg.default_volume(), e=5e3, nu=0.4)
+    mat = _material(name, cfg.default_volume())
     eng = ct.MPMEngine(cfg, [mat], tile_chunk=8, device="cuda")
     state = eng.init_state([pos], [(0.3, -0.5, 0.2)])
     card.check_g2p2g_kernel(cfg, mat, state, tile_chunk=8, time_it=False)
+    # a sheared, compressed velocity field takes the return maps' branches
+    card.check_g2p2g_kernel(cfg, mat, card.stir(state), tile_chunk=8, time_it=False)

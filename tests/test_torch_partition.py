@@ -67,6 +67,29 @@ def test_sort_permute_matches_jax():
     assert tk.dtype == torch.int32 and int(dr[0]) == 0
 
 
+@pytest.mark.parametrize("layout", [("J",), ("F", "logJp")])
+def test_sort_permute_moves_scalar_fields_like_jax(layout):
+    """JFluid's J [S] and Sand/NACC's logJp [S] move with the particles."""
+    import dataclasses
+
+    jcfg, cfg, jm, m, nt = _raw_models(seed=3)
+    rng = np.random.default_rng(4)
+    s_cap = m.pos.shape[1]
+    fields = {k: (rng.normal(size=(9, s_cap)) if k == "F"
+                  else rng.uniform(0.5, 1.5, s_cap)).astype(np.float32)
+              for k in layout}
+    m = dataclasses.replace(m, fields={k: torch.from_numpy(v) for k, v in fields.items()})
+    jm = jm._replace(fields={k: jnp.asarray(v) for k, v in fields.items()})
+    jpm, jtk, _ = jpart.sort_permute(jcfg, jm, nt)
+    pm, tk, _ = partition.sort_permute(cfg, m, nt)
+    assert set(pm.fields) == set(layout)
+    for k in layout:
+        assert pm.fields[k].shape == m.fields[k].shape
+        _eq(pm.fields[k], jpm.fields[k], k)
+    _eq(pm.pid, jpm.pid, "pid")
+    _eq(tk, jtk, "tile keys")
+
+
 def test_sort_permute_counts_dropped_like_jax():
     # too few tiles for the cloud: both drop the same particles
     jcfg, cfg, jm, m, nt = _raw_models(seed=3, n_tiles=8)

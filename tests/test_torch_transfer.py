@@ -20,12 +20,14 @@ from claymore_tpu_torch.io.sampler import sample_uniform_box_world
 from claymore_tpu_torch.ops import g2p2g_kernel
 from claymore_tpu_torch.utils.debug import pool_to_dense
 
-from tests.torch_port_helpers import CPU, configs, fixed_corotated_pair, jax_state, pid_matched
+from tests.torch_port_helpers import (CPU, configs, fixed_corotated_pair, jax_state,
+                                      material_pair, pid_matched)
 
 
-def _scene():
+def _scene(name="fixed_corotated"):
     jcfg, cfg = configs(domain_bits=5, max_active_blocks=256, default_dt=1e-3)
-    jmat, mat = fixed_corotated_pair(jcfg)
+    jmat, mat = (fixed_corotated_pair(jcfg) if name == "fixed_corotated"
+                 else material_pair(jcfg, name))
     rng = np.random.default_rng(7)
     pos = sample_uniform_box_world(cfg.dx, [0.40, 0.43, 0.41], [0.58, 0.60, 0.57],
                                    cfg.ppc)
@@ -89,10 +91,40 @@ def test_g2p2g_matches_jax(tile_chunk):
     assert np.max(np.abs(a - b)) > 0.0
 
 
+@pytest.mark.parametrize("name", ["jfluid", "sand", "nacc"])
+def test_g2p2g_material_matches_jax(name):
+    """Each material's transfer: grids, positions and every field, paired
+    by pid (JFluid's J [S]; Sand's and NACC's F [9, S] and logJp [S])."""
+    jcfg, cfg, jmat, mat, pos, s = _scene(name)
+    # a velocity field with shear and compression, so J, F and the return
+    # maps move (the rasterized v0 is uniform: A would vanish)
+    rng = np.random.default_rng(9)
+    grid = s.grid.clone()
+    m = grid[:, 0:4].reshape(-1, 1, 4, 128)
+    noise = torch.from_numpy(rng.normal(0.0, 2.0, size=(grid.shape[0], 3, 4, 128))
+                             .astype(np.float32))
+    grid[:, 4:16] += (noise * m).reshape(-1, 12, 128)
+    s = dataclasses.replace(s, grid=grid)
+    (m1, pool1), (jm1, jpool1), js = _one_transfer(jcfg, cfg, jmat, mat, s)
+    m, mom = pool_to_dense(cfg, dataclasses.replace(s, grid=pool1))
+    jm, jmom = jax_pool_to_dense(jcfg, js._replace(grid=jpool1))
+    np.testing.assert_allclose(m, jm, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(mom, jmom, atol=1e-5, rtol=1e-4)
+    a, b = pid_matched(m1, jm1, "pos")
+    assert np.max(np.abs(a - b)) < 1e-6
+    assert set(m1.fields) == {k for k, _ in jmat.field_specs}
+    for k in m1.fields:
+        assert m1.fields[k].shape == s.models[0].fields[k].shape
+        a, b = pid_matched(m1, jm1, k)
+        assert np.max(np.abs(a - b)) <= 1e-5 * max(1.0, np.max(np.abs(b))), k
+    a, b = pid_matched(m1, s.models[0], "J" if name == "jfluid" else "F")
+    assert np.max(np.abs(a - b)) > 0.0
+
+
 def test_g2p2g_wrapper_runs_plain_version_on_cpu():
     jcfg, cfg, jmat, mat, pos, s = _scene()
     pool_v, mv = grid.grid_update(cfg, s.grid, s.partition, s.dt)
-    before = g2p2g_kernel.g2p2g.launches
+    before = dict(g2p2g_kernel.g2p2g.launches)
     a, pa = g2p2g_kernel.g2p2g(cfg, mat, pool_v, s.partition.table, s.models[0],
                                s.dt, s.dt, torch.zeros_like(s.grid), 4)
     b, pb = transfer.g2p2g_model(cfg, mat, pool_v, s.partition.table, s.models[0],

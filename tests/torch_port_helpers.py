@@ -35,6 +35,21 @@ def fixed_corotated_pair(jcfg, e=1e4, nu=0.3):
     return jmat, material_from_jax(jmat.name, dataclasses.asdict(jmat))
 
 
+def material_pair(jcfg, name):
+    """The JAX material ``name`` at bench-like parameters and its port."""
+    import claymore_tpu as cmt
+    from claymore_tpu_torch.interop import material_from_jax
+
+    vol = jcfg.default_volume()
+    jmat = {
+        "fixed_corotated": lambda: cmt.FixedCorotated(volume=vol, e=1e4, nu=0.3),
+        "jfluid": lambda: cmt.JFluid(volume=vol),
+        "sand": lambda: cmt.Sand(volume=vol, e=1e4, rho=1500.0),
+        "nacc": lambda: cmt.NACC(volume=vol, e=1e4),
+    }[name]()
+    return jmat, material_from_jax(jmat.name, dataclasses.asdict(jmat))
+
+
 def jax_state(np_state):
     """The port's ``state_to_numpy`` output -> a JAX SimState."""
     import jax.numpy as jnp
@@ -79,4 +94,4 @@ def pid_matched(model_a, model_b, field):
     def get(m):
         return to_np(m.pos if field == "pos" else m.fields[field])
 
-    return get(model_a)[:, sa], get(model_b)[:, sb]
+    return get(model_a)[..., sa], get(model_b)[..., sb]
