@@ -13,11 +13,19 @@ through ``MPMEngine`` with their invariants checked:
 * the bench-size ``sand``, ``nacc``, ``multimat`` and ``dambreak_hs``
   scenes (Sand, NACC, three materials in one pool, a frictional half-space
   ramp resolved inside the grid kernel);
-* the CLI, ``python -m claymore_tpu_torch -f scenes/dambreak.json``.
+* ``dambreak_sdf``, 4.3M JFluid particles against ``bench.py``'s 128^3 SDF
+  dome, driven until the fluid has reached the dome (the SDF collider is
+  sampled inside the grid kernel);
+* the CLI, ``python -m claymore_tpu_torch -f scenes/dambreak.json``, and the
+  CLI on a scene built from SDF assets it writes itself (an ``.obj`` turned
+  into an ``.sdf`` model, an ``sdf`` and an ``sdf_file`` collider) with a
+  checkpoint after every frame and a resume from the first.
 
 Every phase raises on failure.  The line before the last is a JSON object
-with one entry per kernel; the last line is ``{"ok": true, "device":
-{...}}``.  Needs one CUDA device and ``nvcc``.
+with one entry per kernel (its launches on its main path, its error
+against its plain version, its time, the plain version's time and its
+bound on this card); the last line is ``{"ok": true, "device": {...}}``.
+Needs one CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 SEED = 0
 DEVICE = "cuda"
+SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
 
 
 def log(msg: str) -> None:
@@ -62,6 +71,95 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+# --------------------------------------------------------------------------
+# bounds: the least time an H100 SXM could take for a kernel's work, the
+# larger of its bytes over 3.35 TB/s and its float32 operations over
+# 67 TFLOP/s (the published peaks at 700 W).  Bytes: each input read once,
+# each output written once.  Operations: additions, multiplications,
+# divisions, square roots and transcendentals counted one each, per cell or
+# particle as the kernel source does them, for the work these inputs need.
+# --------------------------------------------------------------------------
+
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+# K2 per massive cell: 1/m, 3 momenta x 1/m, 3 gravity adds, |v|^2 (5)
+K2_OPS = 12
+# per collider and massive cell: world -> material (3 subtractions, 3
+# divisions; 15 more for a rotation) and the SDF of its type
+# (csrc/grid_update.cu: sdf_normal, sdf_grid); the projection of the cells
+# that hit is data-dependent and not counted
+K2_SDF_OPS = {"HalfSpace": 8, "Sphere": 14, "Box": 35,
+              "SignedDistanceCollider": 109}
+# K1 per active particle (csrc/g2p2g.cu): two stencils 132, G2P 783,
+# advection 6, P2G 876; and each material's update
+K1_OPS = 1797
+K1_MATERIAL_OPS = {"fixed_corotated": 576, "jfluid": 42, "sand": 1216, "nacc": 1251}
+K1_FIELD_FLOATS = {"fixed_corotated": 9, "jfluid": 1, "sand": 10, "nacc": 10}
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def grid_bound(cfg, pool, partition, colliders=(), t: float = 0.0) -> dict:
+    """K2's bound on ``pool``: the pool read and written, the keys and the
+    collider tables read once; K2_OPS per massive cell plus each collider's
+    transform and SDF, the SDF grid's only where the cell lies in its band
+    (the kernel samples nothing elsewhere)."""
+    from claymore_tpu_torch.core import grid
+    from claymore_tpu_torch.models.boundary import SignedDistanceCollider
+
+    massive = pool[:, 0:4] > 0.0
+    n_mass = int(massive.sum())
+    nbytes = 2 * pool.numel() * 4 + cfg.max_active_octs * 4 + len(colliders) * 96
+    ops = K2_OPS * n_mass
+    x3 = None
+    for c in colliders:
+        per = 6 + (15 if c.motion.rotating else 0)
+        name = type(c).__name__
+        if isinstance(c, SignedDistanceCollider):
+            nbytes += c.values.size * 16
+            if x3 is None:
+                x3 = tuple(a[massive] for a in grid.cell_positions(cfg, partition))
+            ops += per * n_mass + K2_SDF_OPS[name] * sdf_band_cells(c, x3, t)
+        else:
+            ops += (per + K2_SDF_OPS[name]) * n_mass
+    return bound(nbytes, ops)
+
+
+def sdf_band_cells(col, x3, t: float) -> int:
+    """How many of the world positions ``x3`` lie in the SDF collider's
+    interior band once posed at time ``t``."""
+    tt = torch.tensor(t, dtype=torch.float32, device=x3[0].device)
+    _, x_mat, _ = col.pose(x3, tt)
+    lo, hi = col.band
+    inside = torch.ones_like(x_mat[0], dtype=torch.bool)
+    for c in x_mat:
+        inside &= (c >= lo) & (c < hi)
+    return int(inside.sum())
+
+
+def g2p2g_bound(cfg, mat, state, model_idx: int = 0) -> dict:
+    """K1's bound on ``state``: every slot's position, fields, active flag
+    and id read and written, the tiles' coordinates and flags read, the
+    velocity rows of the active octs read and their 16 rows written;
+    K1_OPS plus the material's update per active particle."""
+    model = state.models[model_idx]
+    slots = model.pos.shape[1]
+    tiles = model.tiles.block.shape[0]
+    octs = int(state.partition.count[0])
+    n_act = int(model.active.sum())
+    nf = K1_FIELD_FLOATS[mat.name]
+    nbytes = (2 * slots * (12 + 4 * nf + 1 + 4) + tiles * 13
+              + octs * (12 + 16) * 512)
+    return bound(nbytes, n_act * (K1_OPS + K1_MATERIAL_OPS[mat.name]))
 
 
 # --------------------------------------------------------------------------
@@ -133,6 +231,7 @@ def check_grid_kernel(cfg, n_active: int, time_it: bool = True) -> dict:
     if time_it:
         out["ms"] = cuda_ms(lambda: grid_kernel.grid_update(cfg, pool, part, dt))
         out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt))
+        out.update(grid_bound(cfg, pool, part))
     return out
 
 
@@ -226,6 +325,7 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         out["ms"] = cuda_ms(lambda: kernel(acc.zero_()), reps=reps)
         out["plain_ms"] = cuda_ms(lambda: plain(acc.zero_()), reps=max(3, reps // 4),
                                   warmup=1)
+        out.update(g2p2g_bound(cfg, mat, state, model_idx))
     return out
 
 
@@ -278,6 +378,80 @@ def check_grid_colliders_kernel(cfg, n_active: int, t: float = 0.37,
                                                             tt, table))
         out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols,
                                                            tt), reps=5, warmup=1)
+        out.update(grid_bound(cfg, pool, part, cols, t))
+    return out
+
+
+def sdf_dome():
+    """bench.py's dambreak_sdf collider (bench.py:133-140): a solid dome
+    (sphere cap) on the floor, 128^3 nodes at 1/128, slip, friction 0.1."""
+    from claymore_tpu_torch.models.boundary import SignedDistanceCollider
+
+    res, sdx = 128, 1.0 / 128
+    ax = (np.arange(res, dtype=np.float32) + 0.5) * sdx
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    sdf = np.sqrt((X - 0.55) ** 2 + (Y - 0.02) ** 2 + (Z - 0.35) ** 2) - 0.12
+    return SignedDistanceCollider(sdf, sdx, kind="slip", friction=0.1)
+
+
+def sdf_spinner():
+    """An animated SDF collider: a 96x80x64 ellipsoid grid at 1/96 that
+    translates and rotates, separate with friction 0.3."""
+    from claymore_tpu_torch.models.boundary import RigidMotion, SignedDistanceCollider
+
+    dx = 1.0 / 96
+    ax = [np.arange(n, dtype=np.float32) * dx for n in (96, 80, 64)]
+    X, Y, Z = np.meshgrid(*ax, indexing="ij")
+    sdf = (np.sqrt(((X - 0.45) / 0.25) ** 2 + ((Y - 0.4) / 0.15) ** 2
+                   + ((Z - 0.33) / 0.2) ** 2) - 1.0) * 0.15
+    return SignedDistanceCollider(
+        sdf, dx, kind="separate", friction=0.3, bound_cells=4,
+        motion=RigidMotion(trans=(0.03, 0.05, 0.1), trans_vel=(0.1, 0.0, -0.05),
+                           omega=(0.4, 1.2, -0.3)))
+
+
+def check_grid_sdf_kernel(cfg, n_active: int, t: float = 0.37,
+                          time_it: bool = True) -> dict:
+    """K2 with SDF colliders (the static dome, the animated spinner and a
+    half-space between them) against core.grid.grid_update on the card, at
+    collider time ``t``: mass rows bit-equal, velocities within rtol 1e-5 /
+    atol 1e-7 (the bound of the analytic check: same IEEE operations in the
+    same order, sinf/cosf/sqrtf possibly an ulp apart), max |v|^2 within
+    1e-6 relative, and the SDF colliders changed cells."""
+    from claymore_tpu_torch.core import grid
+    from claymore_tpu_torch.models.boundary import HalfSpace
+    from claymore_tpu_torch.ops import grid_kernel
+
+    part, pool = random_grid_inputs(cfg, n_active)
+    cols = (sdf_dome(), HalfSpace((0.0, 0.3, 0.0), (0.1, 1.0, 0.0), kind="slip",
+                                  friction=0.3), sdf_spinner())
+    table = grid_kernel.pack_colliders(cols, DEVICE)
+    ptrs = grid_kernel.sdf_table_pointers(cols, DEVICE)
+    dt = torch.tensor(3e-4, dtype=torch.float32, device=DEVICE)
+    tt = torch.tensor(t, dtype=torch.float32, device=DEVICE)
+
+    def kernel():
+        return grid_kernel.grid_update(cfg, pool, part, dt, cols, tt, table, ptrs)
+
+    kv, km = kernel()
+    pv, pm = grid.grid_update(cfg, pool, part, dt, cols, tt)
+    half, _ = grid.grid_update(cfg, pool, part, dt, cols[1:2], tt)
+    torch.cuda.synchronize()
+    if not torch.equal(kv[:, 0:4], pv[:, 0:4]):
+        raise AssertionError("grid SDF kernel: mass rows differ")
+    torch.testing.assert_close(kv[:, 4:16], pv[:, 4:16], rtol=1e-5, atol=1e-7)
+    km, pm = float(km), float(pm)
+    if not (pm > 0.0 and abs(km - pm) <= 1e-6 * pm):
+        raise AssertionError(f"grid SDF kernel: max|v|^2 {km} vs {pm}")
+    hit = int((pv[:, 4:16] != half[:, 4:16]).sum())
+    if hit == 0:
+        raise AssertionError("grid SDF kernel: no cell met an SDF collider")
+    out = {"max_abs_err": float((kv - pv).abs().max()), "cells_changed": hit}
+    if time_it:
+        out["ms"] = cuda_ms(kernel)
+        out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols,
+                                                           tt), reps=3, warmup=1)
+        out.update(grid_bound(cfg, pool, part, cols, t))
     return out
 
 
@@ -313,6 +487,17 @@ def scene(name: str):
         mats = [ct.JFluid(volume=vol)]
         parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.4, 0.7, 0.6], cfg.ppc)]
         v0s = [(2.0, -2.0, 0.0)]
+        slack = 2.5
+    elif name == "dambreak_sdf":
+        # the column moves at 1 m/s and collapses onto bench.py's dome
+        # (bench.py:118-140); slack 2.5, not bench.py's 1.25, as for
+        # dambreak12m: the capacity must cover the spread state after
+        # 1750 substeps (2.5 kept every particle for 3000)
+        cfg = dataclasses.replace(cfg, max_active_blocks=24576)
+        mats = [ct.JFluid(volume=vol)]
+        parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.3, 0.5, 0.5], cfg.ppc)]
+        v0s = [(1.0, 0.0, 0.0)]
+        colliders = (sdf_dome(),)
         slack = 2.5
     elif name in ("dambreak_hs", "sand", "nacc"):
         if name == "dambreak_hs":
@@ -367,12 +552,23 @@ def read_counts() -> dict:
     return {**grid_kernel.grid_update.launches, **g2p2g_kernel.g2p2g.launches}
 
 
-def drive(name: str, steps: int, facts: str, tile_chunk: int = 64) -> dict:
+def grid_kernel_name(colliders) -> str:
+    """The grid kernel's launch key for a collider list."""
+    from claymore_tpu_torch.models.boundary import SignedDistanceCollider
+
+    if any(isinstance(c, SignedDistanceCollider) for c in colliders):
+        return "grid_update_sdf"
+    return "grid_update_colliders" if colliders else "grid_update"
+
+
+def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
+          on_step=None) -> dict:
     """One main path: build the bench scene ``name``, zero the launch
     counts, init, one warm-up substep and ``steps`` timed substeps (each
     ended by a synchronise, so rebuilding substeps are timed apart), read
-    the counts, and check the invariants.  Returns the metrics, the engine
-    and the final state."""
+    the counts, and check the invariants.  ``on_step(i, engine, state)``
+    runs after timed substep ``i``, outside the timing and the peak memory,
+    and must launch no counted kernel.  Returns the metrics, the engine and the final state."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.ops.g2p2g_kernel import _LAYOUT
 
@@ -390,17 +586,22 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64) -> dict:
     fe = np.float32(1e9)
     state = eng.substep(state, fe)
     torch.cuda.synchronize()
-    plain_ms, rebuild_ms = [], []
-    for _ in range(steps):
+    plain_ms, rebuild_ms, peak = [], [], 0
+    for i in range(steps):
         before = eng.rebuilds
         t0 = time.perf_counter()
         state = eng.substep(state, fe)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         (rebuild_ms if eng.rebuilds > before else plain_ms).append(ms)
+        if on_step is not None:
+            # the hook's temporaries stay out of the path's peak memory
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            on_step(i, eng, state)
+            torch.cuda.reset_peak_memory_stats()
     launches = read_counts()
     substeps = 1 + steps
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = max(peak, torch.cuda.max_memory_allocated()) / 2**30
 
     d = eng.diagnostics(state)
     mass = float(state.grid[:-1, 0:4].double().sum())
@@ -408,7 +609,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64) -> dict:
     mass_err = abs(mass - expected) / expected
     disp = min(float(np.abs(probe(state, n_probe[i], i) - p0[i]).max())
                for i in range(len(mats)))
-    grid_name = "grid_update_colliders" if cols else "grid_update"
+    grid_name = grid_kernel_name(cols)
     used = [grid_name] + [_LAYOUT[type(m)][0] for m in mats]
     checks = {
         "mass": mass_err < 1e-5,
@@ -418,7 +619,8 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64) -> dict:
         "overflow": d["block_overflow"] == 0,
         "finite": bool(np.isfinite(d["t"]) and np.isfinite(float(state.max_vel))),
         "moves": disp > 0.0,
-        "launches": min(launches[k] for k in used) >= substeps,
+        "launches": (launches[grid_name] == substeps
+                     and min(launches[k] for k in used) >= substeps),
         "steps": d["step"] == substeps,
     }
     total_ms = sum(plain_ms) + sum(rebuild_ms)
@@ -444,16 +646,21 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64) -> dict:
     return {"metrics": out, "engine": eng, "state": state, "cfg": cfg, "mats": mats}
 
 
-def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64) -> dict:
+def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
+                    colliders=()) -> dict:
     """Median CUDA-event milliseconds of each stage of a substep on
-    ``state`` (single model): K2, the CFL step, K1, the drift check with
-    its host read, and the three parts of a rebuild.  Not counted."""
+    ``state`` (single model): K2 (with ``colliders``), the CFL step, K1, the
+    drift check with its host read, and the three parts of a rebuild.  Not
+    counted."""
     from claymore_tpu_torch.core import grid, partition
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     mat, model = mats[0], state.models[0]
     fe = torch.tensor(1e9, device=DEVICE)
-    pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
+    table = grid_kernel.pack_colliders(colliders, DEVICE) if colliders else None
+    ptrs = grid_kernel.sdf_table_pointers(colliders, DEVICE)
+    pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt,
+                                          colliders, state.t, table, ptrs)
     next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt, fe)
     acc = torch.zeros_like(state.grid)
     nt = model.tiles.block.shape[0]
@@ -461,7 +668,7 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64) -> d
     part, _ = partition.rebuild(cfg, state.grid, state.partition, (tk,))
     stages = {
         "K2 grid_update": lambda: grid_kernel.grid_update(
-            cfg, state.grid, state.partition, state.dt),
+            cfg, state.grid, state.partition, state.dt, colliders, state.t, table, ptrs),
         "compute_dt": lambda: grid.compute_dt(cfg, mvs, state.t + state.dt, fe),
         "K1 g2p2g": lambda: g2p2g_kernel.g2p2g(
             cfg, mat, pool_v, state.partition.table, model, state.dt, next_dt,
@@ -515,6 +722,177 @@ def run_cli(facts: str) -> dict:
     return {"particles": n, "wall_s": wall}
 
 
+def sdf_contact(cfg, state, colliders, plain: bool = False) -> int:
+    """Cells with mass whose velocity the colliders change: the grid update
+    of ``state`` with and without them (the plain version when ``plain``,
+    so that a probe inside a counted run launches no kernel)."""
+    from claymore_tpu_torch.core import grid
+    from claymore_tpu_torch.ops import grid_kernel
+
+    update = grid.grid_update if plain else grid_kernel.grid_update
+    a, _ = update(cfg, state.grid, state.partition, state.dt, colliders, state.t)
+    b, _ = update(cfg, state.grid, state.partition, state.dt)
+    o1 = a.shape[0]
+    changed = (a[:, 4:16] != b[:, 4:16]).reshape(o1, 3, 4, 128).any(dim=1)
+    return int((changed & (state.grid[:, 0:4] > 0.0)).sum())
+
+
+# the CLI phase's resumed frame against the uninterrupted one, particles
+# paired by id: K1 sums with float atomics, so two runs on the card differ
+# in the last bits and the difference grows over a frame (417 substeps)
+RESUME_POS_BOUND = 1e-5
+
+
+def write_sdf_assets(out: Path, fps: int = 24) -> dict:
+    """The SDF assets of the CLI phase: a closed cube ``.obj`` turned into
+    an ``.sdf`` model by the port's ``obj_to_sdf_file``, a 48^3 ball
+    written with ``write_sdf_file`` (an ``sdf`` collider) and a tilted
+    floor at 128^3 in the reference's raw format (an ``sdf_file``
+    collider, whose dx defaults to the grid's 1/128)."""
+    from claymore_tpu_torch.io.meshsdf import obj_to_sdf_file
+    from claymore_tpu_torch.io.sdf import write_sdf_file
+
+    obj = out / "cube.obj"
+    verts = [(x, y, z) for x in (0.0, 1.0) for y in (0.0, 1.0) for z in (0.0, 1.0)]
+    quads = [(1, 3, 4, 2), (5, 6, 8, 7), (1, 2, 6, 5), (3, 7, 8, 4), (1, 5, 7, 3),
+             (2, 4, 8, 6)]
+    obj.write_text("".join(f"v {x} {y} {z}\n" for x, y, z in verts)
+                   + "".join("f " + " ".join(map(str, q)) + "\n" for q in quads))
+    obj_to_sdf_file(str(obj), str(out / "cube.sdf"), dx=0.05)
+
+    dx = 1.0 / 48
+    ax = np.arange(48) * dx
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    ball = np.sqrt((X - 0.45) ** 2 + (Y - 0.32) ** 2 + (Z - 0.45) ** 2) - 0.07
+    write_sdf_file(str(out / "ball.sdf"), ball, (0.0, 0.0, 0.0), dx)
+
+    ax = np.arange(128, dtype=np.float32) / 128
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    floor = ((Y - 0.33) + 0.25 * (X - 0.5)) / np.float32(np.sqrt(1.0625))
+    prefix = out / "floor"
+    floor.astype(np.float32).reshape(-1).tofile(f"{prefix}_sdf.bin")
+    for c, g in enumerate(np.gradient(floor, 1.0 / 128)):
+        g.astype(np.float32).reshape(-1).tofile(f"{prefix}_grad_{c}.bin")
+
+    doc = {
+        "simulation": {"default_dt": 1e-4, "fps": fps, "frames": 2},
+        "grid": {"domain_bits": 7, "max_active_blocks": 4096},
+        "models": [{"constitutive": "jfluid", "file": "cube.sdf",
+                    "offset": [0.35, 0.36, 0.35], "span": [0.2, 0.2, 0.2],
+                    "velocity": [0.2, 0.0, 0.1]}],
+        "colliders": [
+            {"type": "sdf", "file": str(out / "ball.sdf"), "kind": "separate",
+             "friction": 0.2},
+            {"type": "sdf_file", "prefix": str(prefix), "resolution": [128, 128, 128],
+             "kind": "slip", "friction": 0.1},
+        ],
+    }
+    path = out / "sdf_scene.json"
+    path.write_text(json.dumps(doc))
+    return {"scene": path, "doc": doc}
+
+
+def run_cli_sdf(facts: str, fps: int = 24) -> dict:
+    """The CLI on a scene of SDF assets: two frames with a checkpoint after
+    each, then the last frame again from the first checkpoint.  Every
+    particle is read back from each ``.bgeo``; the state loaded from a
+    checkpoint equals the saved arrays bit for bit; the uninterrupted and
+    the resumed frame-2 states keep mass and particles and agree, paired by
+    id, within RESUME_POS_BOUND."""
+    import shutil
+
+    from claymore_tpu_torch.io import bgeo
+    from claymore_tpu_torch.io import checkpoint as ckpt
+    from claymore_tpu_torch.io.scene import load_scene
+    from claymore_tpu_torch.utils.debug import to_numpy
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "smoke_sdf_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    assets = write_sdf_assets(work, fps)
+    assets_s = time.perf_counter() - t0
+    scene_file = assets["scene"]
+    full, part = work / "full", work / "resumed"
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "claymore_tpu_torch", "-f", str(scene_file),
+             "--device", DEVICE, "--checkpoint-every", "1", *args],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exited {proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        return proc.stdout, time.perf_counter() - t0
+
+    out_full, wall_full = cli("-o", str(full))
+    out_part, wall_part = cli("-o", str(part), "--frames", "1", "--resume",
+                              str(full / "ckpt_0000.npz"))
+    if "resumed from" not in out_part:
+        raise AssertionError(f"the resumed run did not resume:\n{out_part}")
+
+    sc = load_scene(str(scene_file), device=DEVICE, tile_chunk=64)   # the CLI's default
+    n = sc.positions[0].shape[0]
+    for d, frames in ((full, (-1, 0, 1)), (part, (-1, 0))):
+        for f in frames:
+            pos, _ = bgeo.read_bgeo(str(d / f"model0_frame{f:04d}.bgeo"))
+            if pos.shape != (n, 3) or not np.all(np.isfinite(pos)):
+                raise AssertionError(f"{d.name} frame {f}: {pos.shape} positions, "
+                                     f"scene has {n}")
+    # loaded = saved, bit for bit
+    saved = full / "ckpt_0000.npz"
+    loaded = ckpt.load_state(str(saved), sc.state)
+    with np.load(saved) as data:
+        for i, leaf in enumerate(ckpt.leaves(loaded)):
+            a, b = to_numpy(leaf), data[f"leaf_{i}"]
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"checkpoint leaf {i} differs after load")
+    ends = {k: ckpt.load_state(str(p), sc.state) for k, p in
+            (("full", full / "ckpt_0001.npz"), ("resumed", part / "ckpt_0000.npz"))}
+    expected = n * sc.materials[0].mass
+    report = {"particles": n, "assets_s": assets_s, "wall_full_s": wall_full,
+              "wall_resumed_s": wall_part}
+    for k, st in ends.items():
+        d = sc.engine.diagnostics(st)
+        mass_err = abs(float(st.grid[:-1, 0:4].double().sum()) - expected) / expected
+        ok = (mass_err < 1e-5 and d["null_block_mass"] == 0.0
+              and d["model0_dropped_tiles"] == 0 and d["block_overflow"] == 0
+              and d["model0_active"] == n)
+        if not ok:
+            raise AssertionError(f"CLI {k} run: mass_rel_err {mass_err:.3e}, {d}")
+        report[f"{k}_mass_rel_err"] = mass_err
+        report[f"{k}_step"] = d["step"]
+    a, b = ends["full"].models[0], ends["resumed"].models[0]
+    if not (torch.equal(ends["full"].t, ends["resumed"].t)
+            and torch.equal(ends["full"].step, ends["resumed"].step)):
+        raise AssertionError("resumed run ended at another t or step")
+    pa = torch.empty((3, n), device=DEVICE)
+    pb = torch.empty((3, n), device=DEVICE)
+    pa[:, a.pid[a.active].long()] = a.pos[:, a.active]
+    pb[:, b.pid[b.active].long()] = b.pos[:, b.active]
+    diff = float((pa - pb).abs().max())
+    report["resume_pos_diff"] = diff
+    contact = sdf_contact(sc.cfg, ends["full"], sc.engine.colliders)
+    report["sdf_cells_touched"] = contact
+    log(f"CLI SDF scene (cube.obj -> cube.sdf model, ball.sdf and raw floor "
+        f"colliders, {n} particles): assets {assets_s:.1f} s; 2 frames with "
+        f"checkpoints exit 0 in {wall_full:.1f} s; resume from frame 1 exit 0 in "
+        f"{wall_part:.1f} s; every particle read back from 5 .bgeo files; loaded "
+        f"checkpoint == saved bit for bit; frame 2 mass_rel_err "
+        f"{report['full_mass_rel_err']:.3e} (uninterrupted) "
+        f"{report['resumed_mass_rel_err']:.3e} (resumed), step "
+        f"{report['full_step']}; resumed vs uninterrupted positions by pid: max "
+        f"{diff:.3e} (bound {RESUME_POS_BOUND}); {contact} massive cells touched "
+        f"by the SDF colliders at the end | {facts}")
+    if not diff <= RESUME_POS_BOUND:
+        raise AssertionError(f"resumed frame 2 differs by {diff} > {RESUME_POS_BOUND}")
+    if contact == 0:
+        raise AssertionError("the CLI scene's fluid never met its SDF colliders")
+    return report
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -555,6 +933,12 @@ def main() -> int:
         f"3 colliders, t=0.37: max_abs_err {k2c['max_abs_err']:.3e}, "
         f"{k2c['cells_changed']} velocity values changed by colliders, kernel "
         f"{k2c['ms']:.4f} ms, plain {k2c['plain_ms']:.4f} ms | {facts}")
+    k2s = check_grid_sdf_kernel(cfg25, n_active=cfg25.num_oct_keys)
+    log(f"K2 grid_update_sdf vs plain, pool {cfg25.max_active_octs + 1}x16x128, "
+        f"dome 128^3 + half-space + animated 96x80x64 SDF, t=0.37: max_abs_err "
+        f"{k2s['max_abs_err']:.3e}, {k2s['cells_changed']} velocity values changed "
+        f"by the SDF colliders, kernel {k2s['ms']:.4f} ms, plain "
+        f"{k2s['plain_ms']:.4f} ms | {facts}")
 
     # 4. K1 on the 1.07M cube after init and one grid update
     cfgc, matsc, partsc, v0sc, _ = scene("cube")
@@ -669,34 +1053,55 @@ def main() -> int:
                    k1v[key], facts)
         del run
 
-    # 9. the CLI
+    # 9. dambreak_sdf: 4.3M JFluid onto the 128^3 SDF dome, 1750 substeps
+    #    (0.175 s at dt 1e-4; the fluid enters the dome's band after ~1300);
+    #    the plain version probes contact every 125
+    contact = {}
+
+    def probe_contact(i, eng, st):
+        if (i + 2) % 125 == 0:
+            contact[i + 2] = sdf_contact(eng.cfg, st, eng.colliders, plain=True)
+            log(f"dambreak_sdf substep {i + 2}: {contact[i + 2]} massive cells "
+                f"touched by the dome")
+
+    sdfrun = drive("dambreak_sdf", steps=SDF_STEPS, facts=facts, on_step=probe_contact)
+    touched = sdf_contact(sdfrun["cfg"], sdfrun["state"], sdfrun["engine"].colliders)
+    paths["dambreak_sdf"] = {**sdfrun["metrics"], "sdf_cells_touched": touched,
+                             "contact_by_substep": contact}
+    log(f"dambreak_sdf: massive cells whose velocity the dome changes, by "
+        f"substep: {contact}; at the end {touched} | {facts}")
+    if touched == 0:
+        raise AssertionError("dambreak_sdf: the fluid never reached the SDF dome")
+    stages = stage_breakdown(sdfrun["cfg"], sdfrun["mats"], sdfrun["state"],
+                             colliders=sdfrun["engine"].colliders)
+    log("dambreak_sdf stages on its final state (ms, median of 10): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {facts}")
+    paths["dambreak_sdf"]["stages_ms"] = stages
+    del sdfrun
+
+    # 10. the CLI, and the CLI on SDF assets with checkpoints and a resume
     run_cli(facts)
+    paths["cli_sdf"] = run_cli_sdf(facts)
 
     src = "claymore_tpu_torch/csrc/"
+    k2_call = "claymore_tpu/ops/pallas_grid.py:192"
     k1_call = "claymore_tpu/ops/pallas_g2p2g.py:783"
 
-    def k1_entry(name, path, check):
-        return {"name": name, "route": "cuda", "source": src + "g2p2g.cu",
-                "replaces": k1_call, "launches": paths[path]["launches"][name],
+    def entry(name, source, replaces, path, check):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": paths[path]["launches"][name],
                 "max_abs_err": check["max_abs_err"], "ms": check["ms"],
-                "plain_ms": check["plain_ms"]}
+                "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+                "bound_by": check["bound_by"], "library_ms": None}
 
     kernels = [
-        {"name": "grid_update", "route": "cuda", "source": src + "grid_update.cu",
-         "replaces": "claymore_tpu/ops/pallas_grid.py:192",
-         "launches": paths["sphere25m"]["launches"]["grid_update"],
-         "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "grid_update_colliders", "route": "cuda",
-         "source": src + "grid_update.cu",
-         "replaces": "claymore_tpu/ops/pallas_grid.py:192",
-         "launches": paths["dambreak_hs"]["launches"]["grid_update_colliders"],
-         "max_abs_err": k2c["max_abs_err"], "ms": k2c["ms"],
-         "plain_ms": k2c["plain_ms"]},
-        k1_entry("g2p2g_fixed_corotated", "sphere25m", k1),
-        k1_entry("g2p2g_jfluid", "dambreak12m", k1v["g2p2g_jfluid"]),
-        k1_entry("g2p2g_sand", "sand", k1v["g2p2g_sand"]),
-        k1_entry("g2p2g_nacc", "nacc", k1v["g2p2g_nacc"]),
+        entry("grid_update", "grid_update.cu", k2_call, "sphere25m", k2),
+        entry("grid_update_colliders", "grid_update.cu", k2_call, "dambreak_hs", k2c),
+        entry("grid_update_sdf", "grid_update.cu", k2_call, "dambreak_sdf", k2s),
+        entry("g2p2g_fixed_corotated", "g2p2g.cu", k1_call, "sphere25m", k1),
+        entry("g2p2g_jfluid", "g2p2g.cu", k1_call, "dambreak12m", k1v["g2p2g_jfluid"]),
+        entry("g2p2g_sand", "g2p2g.cu", k1_call, "sand", k1v["g2p2g_sand"]),
+        entry("g2p2g_nacc", "g2p2g.cu", k1_call, "nacc", k1v["g2p2g_nacc"]),
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on its main path: {kernels}")

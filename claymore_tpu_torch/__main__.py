@@ -5,11 +5,16 @@ Loads a JSON scene, runs the frame loop on one device and streams per-frame
 ``claymore_tpu/__main__.py``):
 
     python -m claymore_tpu_torch -f scene.json [-o outdir] [--frames N]
-        [--tile-chunk N] [--no-output] [--profile] [--device cuda|cpu]
+        [--tile-chunk N] [--no-output] [--checkpoint-every N]
+        [--resume ckpt.npz] [--profile] [--device cuda|cpu]
 
-``--device`` defaults to ``cuda``; without a CUDA device the runner exits
-with an error rather than running on the CPU.  Checkpoints
-(``--checkpoint-every``/``--resume``) are not ported yet.
+``--checkpoint-every N`` writes ``ckpt_{frame:04d}.npz`` (``io/checkpoint.py``,
+the JAX package's format) into the output directory after every N-th frame
+(and, as the JAX runner does, one of the initial state as
+``ckpt_-001.npz``); ``--resume`` loads one into the scene's engine and runs
+``--frames`` more frames from it.  ``--device`` defaults to ``cuda``;
+without a CUDA device the runner exits with an error rather than running on
+the CPU.
 """
 
 from __future__ import annotations
@@ -31,6 +36,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-chunk", type=int, default=64)
     ap.add_argument("--no-output", action="store_true",
                     help="simulate without writing .bgeo frames")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save a resumable checkpoint every N frames")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint file to resume from")
     ap.add_argument("--profile", action="store_true",
                     help="print per-stage timings at the end")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -54,14 +63,19 @@ def main(argv=None) -> int:
     engine, state = scene.engine, scene.state
     frames = args.frames if args.frames is not None else scene.frames
     os.makedirs(args.out, exist_ok=True)
+    if args.resume:
+        state = ckpt.load_state(args.resume, state)
+        print(f"resumed from {args.resume} at t={float(state.t):.6f} "
+              f"step={int(state.step)}")
     timer = StageTimer(enabled=True, device=engine.device)
 
     def dump(frame_idx, st):
-        if args.no_output:
-            return
-        for mi in range(len(scene.materials)):
-            path = os.path.join(args.out, f"model{mi}_frame{frame_idx:04d}.bgeo")
-            ckpt.save_frame_bgeo(path, engine, st, mi)
+        if not args.no_output:
+            for mi in range(len(scene.materials)):
+                path = os.path.join(args.out, f"model{mi}_frame{frame_idx:04d}.bgeo")
+                ckpt.save_frame_bgeo(path, engine, st, mi)
+        if args.checkpoint_every and (frame_idx + 1) % args.checkpoint_every == 0:
+            ckpt.save_state(os.path.join(args.out, f"ckpt_{frame_idx:04d}.npz"), st)
 
     dump(-1, state)  # the initial cloud, as the reference writes it too
     t_start = time.perf_counter()

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..models.boundary import check_analytic
+from ..models.boundary import check_colliders
 from ..models.materials import Material
 from ..ops import g2p2g_kernel, grid_kernel
 from . import grid as grid_ops
@@ -128,15 +128,19 @@ def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
 
 
 def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
-                 state: SimState, frame_end: torch.Tensor, collider_table=None):
+                 state: SimState, frame_end: torch.Tensor, collider_table=None,
+                 sdf_pointers=None):
     """One explicit MPM substep.  Returns (new_state, rebuilt: bool).
 
     The colliders are posed at the substep's start time ``state.t``;
-    ``collider_table`` is their packed form for the CUDA grid kernel
-    (``grid_kernel.pack_colliders``), built once per engine."""
+    ``collider_table`` and ``sdf_pointers`` are their packed form and the
+    addresses of their SDF node tables for the CUDA grid kernel
+    (``grid_kernel.pack_colliders``, ``sdf_table_pointers``), made once per
+    engine."""
     dt = state.dt
     pool_v, max_vel_sqr = grid_kernel.grid_update(
-        cfg, state.grid, state.partition, dt, colliders, state.t, collider_table)
+        cfg, state.grid, state.partition, dt, colliders, state.t, collider_table,
+        sdf_pointers)
     t_after = state.t + dt
     next_dt = grid_ops.compute_dt(cfg, max_vel_sqr, t_after, frame_end)
 
@@ -190,8 +194,10 @@ class MPMEngine:
 
     ``device`` has no default: a CUDA device runs the kernels, a CPU device
     their plain PyTorch versions, and asking for CUDA without a card raises.
-    Colliders are the analytic ones (``models/boundary.py``); an SDF
-    collider raises.  ``rebuilds`` counts the substeps that rebucketed.
+    Colliders are ``models/boundary.py``'s (analytic and SDF grid), resolved
+    in list order; on a CUDA device their packed table and the SDF node
+    tables are uploaded here, once.  ``rebuilds`` counts the substeps that
+    rebucketed.
     """
 
     def __init__(self, cfg: SimConfig, materials: Sequence[Material],
@@ -199,7 +205,7 @@ class MPMEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        check_analytic(colliders)
+        check_colliders(colliders)
         if cfg.defrag_every != 1:
             raise ValueError(
                 "defrag_every must be 1: the incremental mover path is not "
@@ -211,9 +217,13 @@ class MPMEngine:
         self.cfg = cfg
         self.materials = tuple(materials)
         self.colliders = tuple(colliders)
+        on_card = bool(self.colliders) and self.device.type == "cuda"
         self._collider_table = (
             grid_kernel.pack_colliders(self.colliders, self.device)
-            if self.colliders and self.device.type == "cuda" else None)
+            if on_card else None)
+        self._sdf_pointers = (
+            grid_kernel.sdf_table_pointers(self.colliders, self.device)
+            if on_card else None)
         self.tile_chunk = tile_chunk
         self.rebuilds = 0
         self._num_tiles: List[int] = []
@@ -269,7 +279,7 @@ class MPMEngine:
         state, rebuilt = substep_impl(self.cfg, self.materials, self.colliders,
                                       self.tile_chunk, state,
                                       self._frame_end(frame_end),
-                                      self._collider_table)
+                                      self._collider_table, self._sdf_pointers)
         self.rebuilds += int(rebuilt)
         return state
 

@@ -3,11 +3,13 @@
 ``grid_update`` is the plain PyTorch version of the grid kernel
 (``ops/grid_kernel.py``, ``csrc/grid_update.cu``) and a straight port of
 ``claymore_tpu/core/grid.py``: momentum -> velocity, per-axis sticky domain
-slab, gravity after the clamp, the analytic colliders, and the global max
-|v|^2 with NaN mapped to inf.  Colliders are resolved through
+slab, gravity after the clamp, the colliders, and the global max |v|^2
+with NaN mapped to inf.  Colliders are resolved in list order through
 ``resolve_soa``, the component form the JAX package runs inside its grid
 kernel (``claymore_tpu/ops/pallas_grid.py:74-90``), so this version and the
-CUDA kernel share one definition of the math.
+CUDA kernel share one definition of the math.  They are resolved over
+blocks of pool rows, which bounds the temporaries of the SDF's eight
+corner gathers (a 65,537-row pool is 134M cells).
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..config import SimConfig
-from ..models.boundary import check_analytic
+from ..models.boundary import check_colliders
 from .octpool import oct_coord
 from .types import Partition
+
+# pool rows per block of the collider pass (4M cells)
+_COLLIDER_ROWS = 8192
 
 
 def _cell_coords(cfg: SimConfig, partition: Partition):
@@ -69,7 +74,7 @@ def grid_update(
 
     ``collider_time`` is the time the colliders are posed at, a 0-d tensor
     (the substep's start time; 0 when omitted)."""
-    check_analytic(colliders)
+    check_colliders(colliders)
     o1 = pool.shape[0]
     m = pool[:, 0:4]                                      # [O+1, 4, 128]
     mom = pool[:, 4:16].reshape(o1, 3, 4, 128)
@@ -97,10 +102,15 @@ def grid_update(
         t = (collider_time if collider_time is not None
              else torch.zeros((), dtype=torch.float32, device=pool.device))
         x3 = cell_positions(cfg, partition)
-        v3 = (v[:, 0], v[:, 1], v[:, 2])
-        for col in colliders:
-            v3 = col.resolve_soa(x3, v3, t)
-        v = torch.stack(v3, dim=1)
+        blocks = []
+        for r0 in range(0, o1, _COLLIDER_ROWS):
+            rows = slice(r0, r0 + _COLLIDER_ROWS)
+            xr = tuple(c[rows] for c in x3)
+            v3 = (v[rows, 0], v[rows, 1], v[rows, 2])
+            for col in colliders:
+                v3 = col.resolve_soa(xr, v3, t)
+            blocks.append(torch.stack(v3, dim=1))
+        v = torch.cat(blocks)
 
     v = torch.where(has_mass[:, None], v, 0.0)
 

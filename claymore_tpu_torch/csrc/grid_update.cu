@@ -2,9 +2,9 @@
 //
 // Replaces claymore_tpu/ops/pallas_grid.py:_make_kernel (launched by
 // grid_update_pallas): momentum -> velocity, per-axis sticky slab, gravity
-// after the clamp, the analytic colliders (resolve_soa, pallas_grid.py:74-90),
+// after the clamp, the analytic colliders (resolve_soa, pallas_grid.py:74-90)
+// and the SDF-grid colliders (the cached-row branch, pallas_grid.py:92-107),
 // massless cells -> 0, and the global max |v|^2 with NaN mapped to inf.
-// SDF colliders are not part of this kernel yet; the wrapper refuses them.
 //
 // Bound: device memory.  Each cell reads 16 bytes (m, 3 momenta) and writes
 // 16, with a handful of flops, so one pass over the pool at 3.35 TB/s is the
@@ -30,6 +30,20 @@
 // ulp.  The no-collider instantiation has no collider code at all and
 // stays bit-identical to the plain version.
 //
+// SDF colliders: a third instantiation (cm_grid_update_sdf) also takes, per
+// SDF collider, a node table f32[n0, n1, n2, 4] of (sd, gx, gy, gz), so each
+// trilinear corner is one 16-byte load (a 128^3 table is 33.5 MB and stays
+// in the 50 MB L2).  The TPU kernel reads a per-cell (sd, n) cache sampled
+// once for a static collider and gathered by active row every substep
+// (8 KB per row read and written again); here each cell runs resolve_soa's
+// transform and samples the table itself, so one kernel serves static and
+// animated SDF colliders at any domain size, with no gather pass.  It walks
+// the whole list in order, analytic and SDF mixed, as the plain version
+// does.  Cells without mass end at v = 0 whatever the colliders do, so they
+// skip the colliders, and cells outside the SDF's interior band skip its
+// fetch (sd = 1 there): neither changes an output.  The analytic
+// instantiations compile without the SDF code.
+//
 // Layout: pool f32[O+1, 16, 128], rows (channel c, cx), lanes (z8, cy, cz);
 // row O is the null oct, whose coordinates are 0 (inside the sticky bound).
 
@@ -40,18 +54,18 @@ namespace {
 
 constexpr int kRowFloats = 16 * 128;
 
-// one analytic collider as the wrapper packs it (24 words)
+// one collider as the wrapper packs it (24 words)
 struct Collider {
-  int type;        // 0 half-space, 1 sphere, 2 box
+  int type;        // 0 half-space, 1 sphere, 2 box, 3 SDF grid
   int kind;        // 0 sticky, 1 slip, 2 separate
   int rotating;    // omega != 0
-  int pad0;
+  int sdf;         // SDF grid: index of its node table
   float friction;
   float vscale;    // dsdt / max(scale, 1e-20)
   float dsdt;
   float radius;    // sphere
-  float a[3];      // half-space origin | sphere center | box center
-  float b[3];      // half-space normal | box half extent
+  float a[3];      // half-space origin | sphere center | box center | SDF (dx, band lo, band hi)
+  float b[3];      // half-space normal | box half extent | SDF node counts (n0, n1, n2)
   float trans[3];
   float trans_vel[3];
   float omega[3];
@@ -97,8 +111,55 @@ __device__ void rot_xyz(const float om[3], float t, float r[9]) {
                         fm(m[3 * i + 2], rz[6 + j]));
 }
 
+// SignedDistanceCollider.sdf_and_normal_soa: trilinear (sd, grad) from the
+// node table, base node clipped to [0, n0 - 2] on every axis, a corner past
+// a shorter axis's end reading its last node, sd = 1 outside the band
+__device__ float sdf_grid(const Collider& c, const float4* __restrict__ tab,
+                          const float x[3], float n[3]) {
+  const float dx = c.a[0], lo = c.a[1], hi = c.a[2];
+  const int n0 = (int)c.b[0], n1 = (int)c.b[1], n2 = (int)c.b[2];
+  if (!(x[0] >= lo && x[0] < hi && x[1] >= lo && x[1] < hi && x[2] >= lo &&
+        x[2] < hi))
+    return 1.0f;                       // no fetch: outside the band
+  int c0[3];
+  float fr[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float xc = fd(x[k], dx);
+    c0[k] = min(max((int)floorf(xc), 0), n0 - 2);
+    fr[k] = fs(xc, (float)c0[k]);
+  }
+  float sd = 0.0f, g[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float wx = i == 0 ? fs(1.0f, fr[0]) : fr[0];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float wy = j == 0 ? fs(1.0f, fr[1]) : fr[1];
+      const size_t row = (size_t)(c0[0] + i) * n1 + min(c0[1] + j, n1 - 1);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float wz = k == 0 ? fs(1.0f, fr[2]) : fr[2];
+        const float w = fm(fm(wx, wy), wz);
+        const float4 e = __ldg(&tab[row * n2 + min(c0[2] + k, n2 - 1)]);
+        sd = fa(sd, fm(w, e.x));
+        g[0] = fa(g[0], fm(w, e.y));
+        g[1] = fa(g[1], fm(w, e.z));
+        g[2] = fa(g[2], fm(w, e.w));
+      }
+    }
+  }
+  const float den = fmaxf(sqrtf(dot3(g, g)), 1e-20f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n[k] = fd(g[k], den);
+  return sd;
+}
+
 // signed distance and outward normal in material space (sdf_and_normal_soa)
-__device__ float sdf_normal(const Collider& c, const float x[3], float n[3]) {
+template <bool kSdf>
+__device__ float sdf_normal(const Collider& c, const float4* const* tables,
+                            const float x[3], float n[3]) {
+  if (kSdf && c.type == 3) return sdf_grid(c, tables[c.sdf], x, n);
   if (c.type == 0) {
     float d[3];
 #pragma unroll
@@ -165,7 +226,9 @@ __device__ void project(const Collider& c, const float vr[3], const float n[3],
 }
 
 // one collider on one cell (ColliderBase.resolve_soa)
-__device__ void resolve(const Collider& c, float t, const float x[3], float v[3]) {
+template <bool kSdf>
+__device__ void resolve(const Collider& c, const float4* const* tables, float t,
+                        const float x[3], float v[3]) {
   const float s = fa(1.0f, fm(c.dsdt, t));
   float x_mt[3], x0[3], xm[3], r[9];
 #pragma unroll
@@ -181,7 +244,7 @@ __device__ void resolve(const Collider& c, float t, const float x[3], float v[3]
       xm[k] = fa(fa(fm(r[k], x0[0]), fm(r[3 + k], x0[1])), fm(r[6 + k], x0[2]));
   }
   float n[3];
-  const float sd = sdf_normal(c, xm, n);
+  const float sd = sdf_normal<kSdf>(c, tables, xm, n);
   if (!(sd <= 0.0f)) return;
   if (c.rotating) {
     const float nm[3] = {n[0], n[1], n[2]};
@@ -204,7 +267,7 @@ __device__ void resolve(const Collider& c, float t, const float x[3], float v[3]
   for (int k = 0; k < 3; ++k) v[k] = fa(proj[k], v_obj[k]);
 }
 
-template <bool kColliders>
+template <bool kColliders, bool kSdf>
 __global__ void __launch_bounds__(512)
 grid_update_kernel(const float* __restrict__ pool,
                    const int* __restrict__ keys,
@@ -213,6 +276,7 @@ grid_update_kernel(const float* __restrict__ pool,
                    const float* __restrict__ dt_ptr,
                    const Collider* __restrict__ colliders,
                    int num_colliders,
+                   const float4* const* __restrict__ sdf_tables,
                    const float* __restrict__ t_ptr,
                    int num_keys, int g, int gzo, int num_oct_keys,
                    int bound_blocks, float gx, float gy, float gz, float dx) {
@@ -249,13 +313,14 @@ grid_update_kernel(const float* __restrict__ pool,
     const float vc = __fmul_rn(src[(4 + 4 * c) * 128 + off], minv);
     v[c] = __fadd_rn(keep[c] ? vc : 0.0f, __fmul_rn(gacc[c], dt));
   }
-  if (kColliders) {
+  if (kColliders && (!kSdf || has)) {
     const float t = *t_ptr;
     const float x[3] = {
         fm((float)(bx * 4 + cx), dx),
         fm((float)(by * 4 + ((lane >> 2) & 3)), dx),
         fm((float)(bz * 4 + (lane & 3)), dx)};
-    for (int i = 0; i < num_colliders; ++i) resolve(colliders[i], t, x, v);
+    for (int i = 0; i < num_colliders; ++i)
+      resolve<kSdf>(colliders[i], sdf_tables, t, x, v);
   }
   float vsq = 0.0f;
 #pragma unroll
@@ -293,9 +358,9 @@ extern "C" int cm_grid_update(const float* pool, const int* keys,
                               int bound_blocks, float gx, float gy, float gz,
                               void* stream) {
   if (num_rows <= 0) return (int)cudaErrorInvalidValue;
-  grid_update_kernel<false><<<num_rows, 512, 0, (cudaStream_t)stream>>>(
-      pool, keys, pool_v, max_vel_sqr, dt, nullptr, 0, nullptr, num_keys, g,
-      gzo, num_oct_keys, bound_blocks, gx, gy, gz, 0.0f);
+  grid_update_kernel<false, false><<<num_rows, 512, 0, (cudaStream_t)stream>>>(
+      pool, keys, pool_v, max_vel_sqr, dt, nullptr, 0, nullptr, nullptr,
+      num_keys, g, gzo, num_oct_keys, bound_blocks, gx, gy, gz, 0.0f);
   return (int)cudaGetLastError();
 }
 
@@ -305,9 +370,26 @@ extern "C" int cm_grid_update_colliders(
     int num_rows, int num_keys, int g, int gzo, int num_oct_keys,
     int bound_blocks, float gx, float gy, float gz, float dx, void* stream) {
   if (num_rows <= 0 || num_colliders <= 0) return (int)cudaErrorInvalidValue;
-  grid_update_kernel<true><<<num_rows, 512, 0, (cudaStream_t)stream>>>(
+  grid_update_kernel<true, false><<<num_rows, 512, 0, (cudaStream_t)stream>>>(
       pool, keys, pool_v, max_vel_sqr, dt,
-      static_cast<const Collider*>(colliders), num_colliders, t, num_keys, g,
-      gzo, num_oct_keys, bound_blocks, gx, gy, gz, dx);
+      static_cast<const Collider*>(colliders), num_colliders, nullptr, t,
+      num_keys, g, gzo, num_oct_keys, bound_blocks, gx, gy, gz, dx);
+  return (int)cudaGetLastError();
+}
+
+// sdf_tables: a device array of num_sdf pointers, one node table each
+extern "C" int cm_grid_update_sdf(
+    const float* pool, const int* keys, float* pool_v, float* max_vel_sqr,
+    const float* dt, const void* colliders, int num_colliders,
+    const void* sdf_tables, int num_sdf, const float* t, int num_rows,
+    int num_keys, int g, int gzo, int num_oct_keys, int bound_blocks,
+    float gx, float gy, float gz, float dx, void* stream) {
+  if (num_rows <= 0 || num_colliders <= 0 || num_sdf <= 0 || sdf_tables == nullptr)
+    return (int)cudaErrorInvalidValue;
+  grid_update_kernel<true, true><<<num_rows, 512, 0, (cudaStream_t)stream>>>(
+      pool, keys, pool_v, max_vel_sqr, dt,
+      static_cast<const Collider*>(colliders), num_colliders,
+      static_cast<const float4* const*>(sdf_tables), t, num_keys, g, gzo,
+      num_oct_keys, bound_blocks, gx, gy, gz, dx);
   return (int)cudaGetLastError();
 }

@@ -63,10 +63,12 @@ def material_from_jax(name: str, params: Mapping[str, Any]) -> Material:
 
 
 def collider_from_jax(col) -> boundary.ColliderBase:
-    """A JAX ``HalfSpace``, ``Sphere`` or ``Box`` (read by its attributes)
-    -> the port's collider with the same geometry, kind, friction and
-    ``RigidMotion``.  The half-space normal is carried over as stored, not
-    normalised again."""
+    """A JAX ``HalfSpace``, ``Sphere``, ``Box`` or ``SignedDistanceCollider``
+    (read by its attributes) -> the port's collider with the same geometry,
+    kind, friction and ``RigidMotion``.  The half-space normal is carried
+    over as stored, not normalised again; an SDF collider's ``values`` and
+    ``grads`` are copied as numpy float32, bit for bit (no second
+    ``np.gradient``)."""
     mo = col.motion
     motion = boundary.RigidMotion(
         trans=tuple(float(c) for c in mo.trans),
@@ -83,9 +85,12 @@ def collider_from_jax(col) -> boundary.ColliderBase:
         return boundary.Sphere(col.center, col.radius, kind, friction, motion)
     if name == "Box":
         return boundary.Box(col.lo, col.hi, kind, friction, motion)
-    raise NotImplementedError(
-        f"{name} is not ported (analytic HalfSpace/Sphere/Box only; SDF "
-        "colliders are ROADMAP Queue 1)")
+    if name == "SignedDistanceCollider":
+        return boundary.SignedDistanceCollider(
+            np.asarray(col.values, np.float32), col.dx, kind, friction, motion,
+            gradients=np.asarray(col.grads, np.float32),
+            bound_cells=col.bound_cells)
+    raise NotImplementedError(f"{name} is not a collider of the port")
 
 
 def _get(obj, name):

@@ -8,19 +8,26 @@ Port of ``claymore_tpu/io/scene.py``:
                     "gravity": [0,-9.8,0], "cfl": 0.5, "bound_blocks": 2},
       "models": [
         {"constitutive": "fixed_corotated" | "jfluid" | "sand" | "nacc",
-         "shape": {"type": "box" | "sphere"}  or  "file": "x.npy" | "x.bin",
+         "shape": {"type": "box" | "sphere"}
+           or  "file": "x.npy" | "x.bin" | "x.sdf" (+ "sampling": "uniform"),
          "offset": [x,y,z], "span": [x,y,z], "velocity": [x,y,z],
          "rho": ..., "volume": ..., material parameters ...}
       ],
-      "colliders": [{"type": "halfspace" | "sphere" | "box", "kind":
-                     "sticky" | "slip" | "separate", "friction": f, ...}]
+      "colliders": [{"type": "halfspace" | "sphere" | "box" | "sdf" |
+                     "sdf_file", "kind": "sticky" | "slip" | "separate",
+                     "friction": f, ...}]
     }
 
-Not ported yet, and refused with ``NotImplementedError``: ``.sdf`` model
-files, ``sdf``/``sdf_file`` colliders (ROADMAP Queue 1, SDF colliders) and a
-``device`` block asking for several devices (ROADMAP Queue 1, multiple
-devices).  ``device.use_pallas`` steers the TPU kernels and is ignored.
-The device the engine runs on is the caller's.
+An ``sdf`` collider reads an SDFGen ``.sdf`` file (``"file"``; its origin is
+ignored, as in the JAX package); an ``sdf_file`` collider reads the
+reference's raw asset (``"prefix"``, ``"resolution"``, ``"dx"`` defaulting
+to the grid's, ``"bound_cells"``).  Collider paths are taken as given
+(relative to the working directory), model files relative to the scene
+file, as in the JAX package.  Refused with ``NotImplementedError``:
+``"sampling": "poisson"`` for ``.sdf`` models (ROADMAP Queue 1, poisson
+sampling) and a ``device`` block asking for several devices (ROADMAP
+Queue 1, multiple devices).  ``device.use_pallas`` steers the TPU kernels
+and is ignored.  The device the engine runs on is the caller's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..config import SimConfig
 from ..core.engine import MPMEngine
 from ..models import boundary as bnd
 from ..models.materials import from_scene as material_from_scene
+from . import sdf as sdf_io
 from .sampler import sample_sphere, sample_uniform_box_world
 
 
@@ -49,7 +57,7 @@ class Scene:
         self.positions = positions
 
 
-def _build_collider(spec: Dict[str, Any]):
+def _build_collider(spec: Dict[str, Any], cfg: SimConfig):
     kind = spec.get("kind", "sticky")
     friction = spec.get("friction", 0.0)
     motion = bnd.RigidMotion(
@@ -66,10 +74,13 @@ def _build_collider(spec: Dict[str, Any]):
         return bnd.Sphere(spec["center"], spec["radius"], kind, friction, motion)
     if t == "box":
         return bnd.Box(spec["lo"], spec["hi"], kind, friction, motion)
-    if t in ("sdf", "sdf_file"):
-        raise NotImplementedError(
-            f"collider type {t!r} is not ported yet (ROADMAP Queue 1: SDF "
-            "colliders in K2)")
+    if t == "sdf":
+        values, _origin, sdf_dx = sdf_io.read_sdf_file(spec["file"])
+        return bnd.SignedDistanceCollider(values, sdf_dx, kind, friction, motion)
+    if t == "sdf_file":
+        return bnd.SignedDistanceCollider.from_claymore_files(
+            spec["prefix"], spec["resolution"], spec.get("dx", cfg.dx), kind,
+            friction, motion, bound_cells=spec.get("bound_cells", 8))
     raise ValueError(f"unknown collider type {t}")
 
 
@@ -82,9 +93,8 @@ def _model_positions(model: Dict[str, Any], cfg: SimConfig,
         if not os.path.isabs(path):
             path = os.path.join(base_dir, path)
         if path.endswith(".sdf"):
-            raise NotImplementedError(
-                f"{path}: .sdf model files are not ported yet (ROADMAP Queue 1: "
-                "IO, sdf/meshsdf)")
+            return sdf_io.read_sdf(path, cfg.ppc, cfg.dx, offset, span,
+                                   mode=model.get("sampling", "uniform"))
         if path.endswith(".npy"):
             return np.asarray(np.load(path), np.float32)
         if path.endswith(".bin"):
@@ -137,7 +147,7 @@ def load_scene(path: str, device, tile_chunk: int = 32) -> Scene:
         positions.append(_model_positions(model, cfg, base_dir))
         velocities.append(tuple(model.get("velocity", (0.0, 0.0, 0.0))))
 
-    colliders = [_build_collider(c) for c in doc.get("colliders", [])]
+    colliders = [_build_collider(c, cfg) for c in doc.get("colliders", [])]
     engine = MPMEngine(cfg, materials, colliders=colliders,
                        tile_chunk=tile_chunk, device=device)
     state = engine.init_state(positions, velocities)

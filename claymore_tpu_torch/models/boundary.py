@@ -1,4 +1,4 @@
-"""Analytic collision objects: half-space, sphere and box.
+"""Collision objects: half-space, sphere, box and the SDF grid.
 
 Port of the component form of ``claymore_tpu/models/boundary.py``
 (``_project_soa``, ``_rot_xyz_scalars``, ``RigidMotion``,
@@ -8,7 +8,10 @@ tensors in the same order.  ``core/grid.py`` runs it as the plain version of
 the CUDA grid kernel, which carries the same math per cell
 (``csrc/grid_update.cu``).
 
-The SDF-grid collider is not ported yet: constructing one raises.
+``SignedDistanceCollider`` is ``sdf_and_normal`` of the JAX package's
+collider of that name (trilinear value and gradient on a node grid) in the
+same component form, so static and animated SDF colliders both go through
+``resolve_soa``; the CUDA kernel samples the same node table per cell.
 """
 
 from __future__ import annotations
@@ -96,6 +99,14 @@ class RigidMotion:
     def rotating(self) -> bool:
         return tuple(self.omega) != (0.0, 0.0, 0.0)
 
+    @property
+    def is_static(self) -> bool:
+        return (
+            self.trans_vel == (0.0, 0.0, 0.0)
+            and self.omega == (0.0, 0.0, 0.0)
+            and self.dsdt == 0.0
+        )
+
 
 class ColliderBase:
     """Shared animated-transform machinery.  Subclasses implement
@@ -115,23 +126,29 @@ class ColliderBase:
     def sdf_and_normal_soa(self, x3: Vec3):
         raise NotImplementedError
 
-    def resolve_soa(self, x3: Vec3, v3: Vec3, t: torch.Tensor) -> Vec3:
-        """Projected cell velocities: ``x3``/``v3`` are 3-tuples of
-        same-shaped tensors, ``t`` the collider time as a 0-d tensor."""
+    def pose(self, x3: Vec3, t: torch.Tensor):
+        """(x_mt, x_mat, r) of world positions ``x3`` at collider time
+        ``t``: relative to the moving origin, in the material frame, and
+        the rotation's nine entries (None when the collider does not
+        rotate)."""
         mo = self.motion
         off = tuple(mo.trans[k] + mo.trans_vel[k] * t for k in range(3))
         x_mt = tuple(x3[k] - off[k] for k in range(3))
         s = 1.0 + mo.dsdt * t
         x0 = tuple(c / s for c in x_mt)
-        if mo.rotating:
-            r = _rot_xyz_scalars(mo.omega, t)
-            # material coords: X = R^T x0
-            x_mat = tuple(
-                r[0 + k] * x0[0] + r[3 + k] * x0[1] + r[6 + k] * x0[2]
-                for k in range(3))
-        else:
-            x_mat = x0
+        if not mo.rotating:
+            return x_mt, x0, None
+        r = _rot_xyz_scalars(mo.omega, t)
+        # material coords: X = R^T x0
+        x_mat = tuple(
+            r[0 + k] * x0[0] + r[3 + k] * x0[1] + r[6 + k] * x0[2] for k in range(3))
+        return x_mt, x_mat, r
 
+    def resolve_soa(self, x3: Vec3, v3: Vec3, t: torch.Tensor) -> Vec3:
+        """Projected cell velocities: ``x3``/``v3`` are 3-tuples of
+        same-shaped tensors, ``t`` the collider time as a 0-d tensor."""
+        mo = self.motion
+        x_mt, x_mat, r = self.pose(x3, t)
         sd, n_mat = self.sdf_and_normal_soa(x_mat)
         hit = sd <= 0.0
 
@@ -220,22 +237,119 @@ class Box(ColliderBase):
 
 
 class SignedDistanceCollider(ColliderBase):
-    """The SDF-grid collider is not ported yet (ROADMAP Queue 1, "SDF
-    colliders in K2")."""
+    """Dense SDF-grid collider: trilinear value and gradient interpolation
+    on a node grid whose node (i, j, k) sits at (i, j, k) * dx.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SignedDistanceCollider is not ported yet (ROADMAP Queue 1: SDF "
-            "colliders in K2)")
+    ``values`` f32[n0, n1, n2] and ``grads`` f32[3, n0, n1, n2] stay numpy
+    on the host; ``table(device)`` is their interleaved (sd, gx, gy, gz)
+    copy on a device, made once per device.  As in the JAX package, the
+    clip of the base node and the interior band use ``n0`` on every axis,
+    and a corner index past the end of a shorter axis reads that axis's
+    last node."""
+
+    def __init__(self, sdf, dx: float, kind=STICKY, friction: float = 0.0,
+                 motion: Optional[RigidMotion] = None,
+                 gradients: Optional[np.ndarray] = None, bound_cells: int = 8):
+        super().__init__(kind, friction, motion)
+        sdf = np.asarray(sdf, np.float32)
+        if sdf.ndim != 3 or min(sdf.shape) < 2:
+            raise ValueError(f"SDF grid must be 3-D with >= 2 nodes per axis, "
+                             f"got {sdf.shape}")
+        if gradients is None:
+            gx, gy, gz = np.gradient(sdf, dx)
+            gradients = np.stack([gx, gy, gz], axis=0)
+        self.values = sdf
+        self.grads = np.asarray(gradients).astype(np.float32)
+        if self.grads.shape != (3,) + sdf.shape:
+            raise ValueError(f"gradients {self.grads.shape} do not match {sdf.shape}")
+        self.dx = float(dx)
+        self.bound_cells = int(bound_cells)
+        self._tables = {}
+
+    @classmethod
+    def from_claymore_files(cls, prefix: str, resolution, dx: float,
+                            kind=STICKY, friction: float = 0.0,
+                            motion: Optional[RigidMotion] = None,
+                            bound_cells: int = 8):
+        """The collider asset format of the reference: four raw float32
+        files ``{prefix}_sdf.bin`` and ``{prefix}_grad_{0,1,2}.bin``, each
+        resolution.prod() values in C row-major (z innermost) order."""
+        res = tuple(int(r) for r in resolution)
+
+        def read(suffix):
+            arr = np.fromfile(f"{prefix}{suffix}", dtype=np.float32)
+            if arr.size != res[0] * res[1] * res[2]:
+                raise ValueError(f"{prefix}{suffix}: {arr.size} values, expected {res}")
+            return arr.reshape(res)
+
+        sdf = read("_sdf.bin")
+        grads = np.stack([read(f"_grad_{c}.bin") for c in range(3)], axis=0)
+        return cls(sdf, dx, kind=kind, friction=friction, motion=motion,
+                   gradients=grads, bound_cells=bound_cells)
+
+    @property
+    def band(self) -> Tuple[float, float]:
+        """[lo, hi) of the interior band, per axis, in world units."""
+        n = self.values.shape[0]
+        return self.bound_cells * self.dx, (n - self.bound_cells) * self.dx
+
+    def table(self, device) -> torch.Tensor:
+        """f32[n0, n1, n2, 4] of (sd, gx, gy, gz) on ``device``, uploaded
+        on the first call for that device and kept."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        tab = self._tables.get(dev)
+        if tab is None:
+            host = np.concatenate(
+                [self.values[..., None], np.moveaxis(self.grads, 0, -1)], axis=-1)
+            tab = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+            self._tables[dev] = tab
+        return tab
+
+    def sdf_and_normal_soa(self, x3):
+        dev = x3[0].device
+        flat = self.table(dev).reshape(-1, 4)
+        n0, n1, n2 = self.values.shape
+        # a tensor divisor: ``tensor / python float`` on CUDA rounds through
+        # a reciprocal
+        dx = torch.tensor(self.dx, dtype=torch.float32, device=dev)
+        xc = tuple(c / dx for c in x3)
+        c0 = tuple(torch.clamp(torch.floor(c).to(torch.int32), 0, n0 - 2) for c in xc)
+        fr = tuple(xc[k] - c0[k].to(torch.float32) for k in range(3))
+        ix = tuple(c0[0].long() + i for i in (0, 1))
+        iy = tuple(torch.clamp(c0[1].long() + j, max=n1 - 1) for j in (0, 1))
+        iz = tuple(torch.clamp(c0[2].long() + k, max=n2 - 1) for k in (0, 1))
+        sd = torch.zeros_like(x3[0])
+        nr = [torch.zeros_like(x3[0]) for _ in range(3)]
+        for i in (0, 1):
+            wx = 1.0 - fr[0] if i == 0 else fr[0]
+            for j in (0, 1):
+                wy = 1.0 - fr[1] if j == 0 else fr[1]
+                for k in (0, 1):
+                    wz = 1.0 - fr[2] if k == 0 else fr[2]
+                    w = wx * wy * wz
+                    node = flat[(ix[i] * n1 + iy[j]) * n2 + iz[k]]
+                    sd = sd + w * node[..., 0]
+                    for c in range(3):
+                        nr[c] = nr[c] + w * node[..., 1 + c]
+        # outside the interior band: no collision
+        lo, hi = self.band
+        inside = ((x3[0] >= lo) & (x3[0] < hi) & (x3[1] >= lo) & (x3[1] < hi)
+                  & (x3[2] >= lo) & (x3[2] < hi))
+        sd = torch.where(inside, sd, 1.0)
+        norm = torch.sqrt(nr[0] * nr[0] + nr[1] * nr[1] + nr[2] * nr[2])
+        den = torch.clamp(norm, min=1e-20)
+        return sd, tuple(c / den for c in nr)
 
 
-ANALYTIC = (HalfSpace, Sphere, Box)
+TYPES = (HalfSpace, Sphere, Box, SignedDistanceCollider)
 
 
-def check_analytic(colliders) -> None:
-    """Raise NotImplementedError unless every collider is analytic."""
+def check_colliders(colliders) -> None:
+    """Raise NotImplementedError for anything but the four collider types."""
     for c in colliders:
-        if not isinstance(c, ANALYTIC):
+        if not isinstance(c, TYPES):
             raise NotImplementedError(
-                f"{type(c).__name__}: only the analytic colliders (HalfSpace, "
-                "Sphere, Box) are ported; SDF colliders are ROADMAP Queue 1")
+                f"{type(c).__name__}: the port's colliders are HalfSpace, "
+                "Sphere, Box and SignedDistanceCollider")

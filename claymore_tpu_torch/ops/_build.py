@@ -37,6 +37,8 @@ SIGNATURES = {
     "cm_grid_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "cm_grid_update_colliders": (
         [_P] * 6 + [_I, _P] + [_I] * 6 + [_F] * 4 + [_P]),
+    "cm_grid_update_sdf": (
+        [_P] * 6 + [_I, _P, _I, _P] + [_I] * 6 + [_F] * 4 + [_P]),
     "cm_g2p2g_fixed_corotated": _G2P2G,
     "cm_g2p2g_jfluid": _G2P2G,
     "cm_g2p2g_sand": _G2P2G,

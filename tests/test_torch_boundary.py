@@ -72,8 +72,18 @@ def test_collider_from_jax_carries_parameters():
         for attr in ("origin", "normal", "center", "radius", "lo", "hi"):
             if hasattr(jcol, attr):
                 assert getattr(col, attr) == getattr(jcol, attr), attr
+    vals = np.random.default_rng(0).normal(size=(8, 9, 10)).astype(np.float32)
+    jcol = jb.SignedDistanceCollider(vals, 1.0 / 8, kind="slip", friction=0.2,
+                                     motion=motion, bound_cells=2)
+    col = collider_from_jax(jcol)
+    assert isinstance(col, tb.SignedDistanceCollider)
+    assert (col.kind, col.friction, col.dx, col.bound_cells) == \
+        (jcol.kind, jcol.friction, jcol.dx, jcol.bound_cells)
+    assert col.motion == tb.RigidMotion(**vars(jcol.motion))
+    np.testing.assert_array_equal(col.values, np.asarray(jcol.values))
+    np.testing.assert_array_equal(col.grads, np.asarray(jcol.grads))
     with pytest.raises(NotImplementedError):
-        collider_from_jax(jb.SignedDistanceCollider(np.ones((8, 8, 8)), 1.0 / 8))
+        collider_from_jax(jb.ColliderBase())
 
 
 def _pallas_colliders():
@@ -123,11 +133,14 @@ def test_grid_update_collider_time_defaults_to_zero():
 
 
 def test_sdf_collider_raises():
+    """SDF colliders are accepted now; what the port does not know still
+    raises, in the engine and in the packer."""
     import claymore_tpu_torch as ct
 
-    with pytest.raises(NotImplementedError):
-        tb.SignedDistanceCollider(np.ones((8, 8, 8)), 1.0 / 8)
+    col = tb.SignedDistanceCollider(np.ones((8, 8, 8)), 1.0 / 8)
     _, cfg = configs(domain_bits=5, max_active_blocks=64)
+    ct.MPMEngine(cfg, [ct.FixedCorotated()], colliders=(col,), device="cpu")
+    assert grid_kernel.pack_colliders((col,), "cpu")[0, 0] == 3
     with pytest.raises(NotImplementedError):
         ct.MPMEngine(cfg, [ct.FixedCorotated()], colliders=(object(),), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -146,3 +159,25 @@ def test_pack_colliders_layout():
     np.testing.assert_array_equal(f[1, 20:23], np.float32((0.0, 1.5, 0.0)))
     np.testing.assert_array_equal(f[2, 8:11], np.float32((0.75, 0.25, 0.75)))
     np.testing.assert_array_equal(f[2, 11:14], np.float32((0.15, 0.15, 0.15)))
+
+
+def test_pack_colliders_sdf_layout():
+    """SDF rows: type 3, the index of their node table, (dx, band lo, band
+    hi) and the node counts; the pointer array follows list order."""
+    vals = np.zeros((12, 10, 8), np.float32)
+    a = tb.SignedDistanceCollider(vals, 0.05, kind="slip", bound_cells=2)
+    b = tb.SignedDistanceCollider(vals[:8, :8, :8], 0.1, kind="separate",
+                                  motion=tb.RigidMotion(omega=(0.0, 1.0, 0.0)))
+    cols = (tb.Sphere((0.5, 0.5, 0.5), 0.2), a,
+            tb.HalfSpace((0.0, 0.3, 0.0), (0.0, 1.0, 0.0)), b)
+    table = grid_kernel.pack_colliders(cols, "cpu").numpy()
+    f = table.view(np.float32)
+    assert list(table[:, 0]) == [1, 3, 0, 3] and list(table[:, 2]) == [0, 0, 0, 1]
+    assert table[1, 3] == 0 and table[3, 3] == 1
+    np.testing.assert_array_equal(f[1, 8:11], np.float32((0.05, 2 * 0.05, 10 * 0.05)))
+    np.testing.assert_array_equal(f[1, 11:14], np.float32((12, 10, 8)))
+    np.testing.assert_array_equal(f[3, 11:14], np.float32((8, 8, 8)))
+    ptrs = grid_kernel.sdf_table_pointers(cols, "cpu")
+    assert ptrs.dtype == torch.int64
+    assert ptrs.tolist() == [a.table("cpu").data_ptr(), b.table("cpu").data_ptr()]
+    assert grid_kernel.sdf_table_pointers(cols[::2], "cpu") is None

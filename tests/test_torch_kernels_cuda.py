@@ -39,6 +39,33 @@ def test_grid_colliders_kernel_matches_plain(card):
                                      time_it=False)
 
 
+def test_grid_sdf_kernel_matches_plain(card):
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=5000)
+    card.check_grid_sdf_kernel(cfg, n_active=cfg.num_oct_keys, t=0.37, time_it=False)
+
+
+def test_sdf_engine_launches_the_sdf_kernel(card):
+    """An engine with an SDF collider on the card runs K2-SDF each substep
+    and keeps mass and particles."""
+    from claymore_tpu_torch.ops import grid_kernel
+
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=2048, default_dt=2e-4,
+                       particle_tile=512)
+    pos = sample_uniform_box_world(cfg.dx, [0.45, 0.1, 0.25], [0.65, 0.3, 0.45], cfg.ppc)
+    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.5))
+    mat = ct.JFluid(volume=cfg.default_volume())
+    eng = ct.MPMEngine(cfg, [mat], colliders=(card.sdf_dome(),), tile_chunk=8,
+                       device="cuda")
+    state = eng.init_state([pos], [(1.0, 0.0, 0.0)])
+    before = grid_kernel.grid_update.launches["grid_update_sdf"]
+    state = eng.run_steps(state, 20, 1.0)
+    assert grid_kernel.grid_update.launches["grid_update_sdf"] - before == 20
+    d = eng.diagnostics(state)
+    assert abs(d["grid_mass"] - pos.shape[0] * mat.mass) < 1e-5 * pos.shape[0] * mat.mass
+    assert d["model0_active"] == pos.shape[0] and d["null_block_mass"] == 0.0
+    assert card.sdf_contact(cfg, state, eng.colliders) > 0
+
+
 def _material(name, vol):
     return {"fixed_corotated": lambda: ct.FixedCorotated(volume=vol, e=5e3, nu=0.4),
             "jfluid": lambda: ct.JFluid(volume=vol),

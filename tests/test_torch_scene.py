@@ -96,21 +96,74 @@ def test_load_scene_matches_jax(tmp_path):
     assert sc.engine.diagnostics(st)["null_block_mass"] == 0.0
 
 
-@pytest.mark.parametrize("change", ["sdf_model", "sdf_collider", "sdf_file_collider",
-                                    "n_devices", "mesh_shape"])
+def _sdf_assets(tmp_path):
+    """A ball ``.sdf`` (SDFGen format, not cubic) and a 16^3 bowl in the
+    reference's raw collider format; returns their paths."""
+    from claymore_tpu_torch.io.sdf import write_sdf_file
+
+    ax = [np.arange(m) * 0.05 for m in (16, 14, 12)]
+    x, y, z = np.meshgrid(*ax, indexing="ij")
+    ball = np.sqrt((x - 0.38) ** 2 + (y - 0.33) ** 2 + (z - 0.28) ** 2) - 0.25
+    write_sdf_file(str(tmp_path / "ball.sdf"), ball, (0.0, 0.0, 0.0), 0.05)
+    n = np.arange(16, dtype=np.float32) / 16
+    x, y, z = np.meshgrid(n, n, n, indexing="ij")
+    bowl = (0.3 - np.sqrt((x - 0.5) ** 2 + (y - 0.6) ** 2 + (z - 0.5) ** 2)).astype(np.float32)
+    prefix = str(tmp_path / "bowl")
+    bowl.reshape(-1).tofile(prefix + "_sdf.bin")
+    for c, gc in enumerate(np.gradient(bowl, 1 / 16)):
+        gc.astype(np.float32).reshape(-1).tofile(f"{prefix}_grad_{c}.bin")
+    return str(tmp_path / "ball.sdf"), prefix
+
+
+@pytest.mark.parametrize("change", ["sdf_model", "sdf_collider", "sdf_file_collider"])
+def test_load_scene_sdf_inputs_match_jax(tmp_path, change):
+    """``.sdf`` model files and ``sdf``/``sdf_file`` colliders load as in
+    the JAX package: the same particles and the same collider arrays."""
+    ball, prefix = _sdf_assets(tmp_path)
+    doc = _scene_doc(tmp_path)
+    doc["models"] = doc["models"][:1]
+    doc["colliders"] = doc["colliders"][:1]
+    if change == "sdf_model":
+        doc["models"].append({"constitutive": "jfluid", "file": "ball.sdf",
+                              "offset": [0.55, 0.4, 0.5], "span": [0.2, 0.16, 0.14],
+                              "sampling": "uniform"})
+    elif change == "sdf_collider":
+        doc["colliders"].append({"type": "sdf", "file": ball, "kind": "slip",
+                                 "friction": 0.3, "omega": [0.0, 0.5, 0.0]})
+    else:
+        doc["colliders"].append({"type": "sdf_file", "prefix": prefix,
+                                 "resolution": [16, 16, 16], "kind": "separate",
+                                 "bound_cells": 2, "trans": [0.0, 0.05, 0.0]})
+    sc = load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
+    doc["device"] = {"use_pallas": False}
+    jsc = jax_load_scene(_write(tmp_path, doc, "jax.json"), tile_chunk=4)
+    for p, jp in zip(sc.positions, jsc.positions):
+        np.testing.assert_array_equal(p, jp)
+    assert sc.positions[-1].shape[0] > 100
+    cols, jcols = sc.engine.colliders, jsc.engine.colliders
+    assert [type(c).__name__ for c in cols] == [type(c).__name__ for c in jcols]
+    c, jc = cols[-1], jcols[-1]
+    assert (c.kind, c.friction) == (jc.kind, jc.friction)
+    assert dataclasses.asdict(c.motion) == dataclasses.asdict(jc.motion)
+    if change != "sdf_model":
+        np.testing.assert_array_equal(c.values, np.asarray(jc.values))
+        np.testing.assert_array_equal(c.grads, np.asarray(jc.grads))
+        assert (c.dx, c.bound_cells) == (jc.dx, jc.bound_cells)
+    st = sc.engine.run_steps(sc.state, 2, 1.0)
+    assert sc.engine.diagnostics(st)["null_block_mass"] == 0.0
+
+
+@pytest.mark.parametrize("change", ["n_devices", "mesh_shape", "poisson"])
 def test_load_scene_refuses_unported(tmp_path, change):
     doc = _scene_doc(tmp_path)
-    if change == "sdf_model":
-        doc["models"][0] = {"constitutive": "jfluid", "file": "bunny.sdf"}
-    elif change == "sdf_collider":
-        doc["colliders"].append({"type": "sdf", "file": "dome.sdf"})
-    elif change == "sdf_file_collider":
-        doc["colliders"].append({"type": "sdf_file", "prefix": "x",
-                                 "resolution": [8, 8, 8]})
-    elif change == "n_devices":
+    if change == "n_devices":
         doc["device"] = {"n_devices": 4}
-    else:
+    elif change == "mesh_shape":
         doc["device"] = {"mesh_shape": [2, 2]}
+    else:
+        _sdf_assets(tmp_path)
+        doc["models"][0] = {"constitutive": "jfluid", "file": "ball.sdf",
+                            "sampling": "poisson"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
 
