@@ -21,10 +21,19 @@ through ``MPMEngine`` with their invariants checked:
   into an ``.sdf`` model, an ``sdf`` and an ``sdf_file`` collider) with a
   checkpoint after every frame and a resume from the first.
 
+It also holds the probes P1-P6 (the kernels of the profiling scripts)
+against their plain versions at the TPU scripts' inputs and drives the
+profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches)
+and ``prof_stages25m`` as subprocesses, ``MPMEngine.profile_stages``
+on the sphere25m state, ``run(..., auto_grow=True)`` regrowing a tight
+sphere25m engine against an ample one, and ``update_material`` on the
+cube.
+
 Every phase raises on failure.  The line before the last is a JSON object
 with one entry per kernel (its launches on its main path, its error
-against its plain version, its time, the plain version's time and its
-bound on this card); the last line is ``{"ok": true, "device": {...}}``.
+against its plain version, its time, the plain version's time, the time of
+one library call doing the same where there is one, and its bound on this
+card); the last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA device and ``nvcc``.
 """
 
@@ -58,19 +67,13 @@ def gpu_facts() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the device, timed with CUDA events."""
+    """Median milliseconds of ``fn()`` on the device, each call timed with
+    CUDA events (``utils.timers.device_ms``)."""
+    from claymore_tpu_torch.utils.timers import device_ms
+
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return float(np.median([device_ms(fn, DEVICE) for _ in range(reps)]))
 
 
 # --------------------------------------------------------------------------
@@ -160,6 +163,31 @@ def g2p2g_bound(cfg, mat, state, model_idx: int = 0) -> dict:
     nbytes = (2 * slots * (12 + 4 * nf + 1 + 4) + tiles * 13
               + octs * (12 + 16) * 512)
     return bound(nbytes, n_act * (K1_OPS + K1_MATERIAL_OPS[mat.name]))
+
+
+def laneop_bound(name: str, tiles: int) -> dict:
+    """P1-P4's bound on ``tiles`` tiles: the lanes each probe reads and
+    writes, once, and the shifts (``probe_kernels.laneop_bytes``); P4 does
+    one multiplication per lane of its first window and one addition per
+    lane of its second, the others move values only."""
+    from claymore_tpu_torch.ops import probe_kernels as pk
+
+    ops = tiles * 16 * 48 if name == "dyn_lane_write" else 0
+    return bound(pk.laneop_bytes(name, tiles), ops)
+
+
+def dma_bound(idx, run_rows: int, rmw: bool = False) -> dict:
+    """P5's bound (P6's with ``rmw``) for the run starts ``idx`` i32[G, D]:
+    every distinct pool row the runs touch read once (and written once for
+    P6), the starts read, the output written (G rows for P5, G x 128 floats
+    for P6); one addition per float of every run's rows."""
+    g, d = idx.shape
+    r = torch.arange(run_rows, device=idx.device)
+    distinct = int(torch.unique(idx.long()[..., None] + r).numel())
+    row_bytes = 16 * 128 * 4
+    nbytes = (distinct * row_bytes * (2 if rmw else 1) + idx.numel() * 4
+              + g * (128 * 4 if rmw else row_bytes))
+    return bound(nbytes, g * d * run_rows * 16 * 128)
 
 
 # --------------------------------------------------------------------------
@@ -456,6 +484,264 @@ def check_grid_sdf_kernel(cfg, n_active: int, t: float = 0.37,
 
 
 # --------------------------------------------------------------------------
+# the probes P1-P6 (scripts/prof_laneops.py, scripts/prof_dma.py)
+# --------------------------------------------------------------------------
+
+# probe: (lanes of its input rows, largest shift, the TPU probe's pallas_call)
+LANEOPS = {
+    "dyn_roll": (128, 127, "scripts/prof_laneops.py:33"),
+    "dyn_lane_read": (128, 96, "scripts/prof_laneops.py:48"),
+    "dyn_lane_read_wide": (384, 240, "scripts/prof_laneops.py:66"),
+    "dyn_lane_write": (128, 80, "scripts/prof_laneops.py:83"),
+}
+PROBE_TILES = 65536
+DMA_ROWS = 65536                 # the TPU script's pool, 0.5 GiB
+# scripts/prof_dma.py:266-278 and :284: (G, D, R) without and with the
+# double buffer, and of the RMW
+P5_CONFIGS = {False: [(8192, 4, 9), (8192, 8, 1), (2048, 4, 9), (8192, 4, 3)],
+              True: [(8192, 4, 9), (8192, 8, 1), (8192, 4, 3), (5120, 16, 1)]}
+P6_CONFIGS = [(4096, 4, 9), (4096, 4, 3)]
+P5_CALL = "scripts/prof_dma.py:89"
+P6_CALL = "scripts/prof_dma.py:221"
+
+
+def library_laneop_ms(name: str, x, s):
+    """One ``torch.gather`` with a precomputed lane index doing P1-P3's
+    work on ``x``; None for P4 (no one call writes two windows)."""
+    if name == "dyn_lane_write":
+        return None
+    j = torch.arange(128 if name == "dyn_roll" else 32, device=x.device)
+    if name == "dyn_roll":
+        lanes = (j[None, :] + s.long()[:, None]) % 128
+    else:
+        lanes = s.long()[:, None] + (112 if name == "dyn_lane_read_wide" else 0) + j
+    index = lanes[:, None, :].expand(-1, 16, -1)
+    return cuda_ms(lambda: torch.gather(x, 2, index))
+
+
+def check_laneops(tiles: int = PROBE_TILES, time_it: bool = True,
+                  names=tuple(LANEOPS)) -> dict:
+    """P1-P4 against their plain versions on the card, bit for bit (the
+    kernels move values; P4 doubles and adds to 0 as the plain version
+    does): at G = 1 on the TPU script's tile and shift 48, and on ``tiles``
+    random tiles with shifts drawn from SEED over each probe's range; P1
+    also on negative and large shifts, the others give NaN for a tile whose
+    shift leaves the window.  Then the kernel's, the plain version's and
+    the library call's times and the bound."""
+    from claymore_tpu_torch.ops import probe_kernels as pk
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s48 = torch.tensor([48], dtype=torch.int32, device=dev)
+    out = {}
+    for name in names:
+        lanes, smax, _ = LANEOPS[name]
+        kernel, plain = getattr(pk, name), getattr(pk, "plain_" + name)
+        x1 = torch.arange(16 * lanes, dtype=torch.float32, device=dev).reshape(1, 16, lanes)
+        if not torch.equal(kernel(x1, s48), plain(x1, s48)):
+            raise AssertionError(f"{name}: kernel differs from plain on the TPU script's tile")
+        x = torch.randn((tiles, 16, lanes), generator=gen, device=dev)
+        s = torch.from_numpy(rng.integers(0, smax + 1, size=tiles).astype(np.int32)).to(dev)
+        k, p = kernel(x, s), plain(x, s)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"{name}: kernel differs from plain at G={tiles}: "
+                                 f"max {float((k - p).abs().max())}")
+        edge = torch.tensor([-5, 300] if name == "dyn_roll" else [smax, smax + 1],
+                            dtype=torch.int32, device=dev)
+        ke = kernel(x[:2], edge)
+        if name == "dyn_roll":
+            ok = torch.equal(ke, plain(x[:2], edge))
+        else:
+            ok = torch.equal(ke[0], plain(x[:1], edge[:1])[0]) and bool(ke[1].isnan().all())
+        if not ok:
+            raise AssertionError(f"{name}: wrong result at the shifts {edge.tolist()}")
+        res = {"max_abs_err": float((k - p).abs().max()), "tiles": tiles}
+        if time_it:
+            res["ms"] = cuda_ms(lambda: kernel(x, s))
+            res["plain_ms"] = cuda_ms(lambda: plain(x, s))
+            res["library_ms"] = library_laneop_ms(name, x, s)
+            res.update(laneop_bound(name, tiles))
+        out[name] = res
+        del x, s, k, p
+    return out
+
+
+def _starts(starts, runs: int):
+    return torch.from_numpy(np.asarray(starts, np.int32)).to(DEVICE).view(-1, runs)
+
+
+def check_dma(time_it: bool = True, rows: int = DMA_ROWS, p5=None, p6=None) -> dict:
+    """P5 (both variants) at the TPU script's eight configurations and P6
+    at its two, on the script's inputs (the pool ``arange(O * 2048)`` in
+    float32, O = 65,536, so the sums round past 2**24; the starts from
+    ``default_rng(0)``), against their plain versions on the card, bit for
+    bit: P5's kernels and plain version add the same rows in the same order
+    (d, then r), and the two variants agree; P6 adds whole numbers to a
+    zero pool, exact in any order.  P6's non-atomic mode on runs that share
+    no row equals its plain version (pool and ``out``) and the atomic mode.
+    Then times (the kernel's, the plain
+    version's, the library call's: ``embedding_bag(mode="sum")`` for P5,
+    ``index_add_`` of ones made beforehand for P6), payload GB/s and bounds.
+    ``rows``, ``p5`` and ``p6`` replace the pool size and the
+    configurations for a smaller check."""
+    import torch.nn.functional as F
+
+    from claymore_tpu_torch.ops import probe_kernels as pk
+    from claymore_tpu_torch.scripts import prof_dma
+
+    dev = torch.device(DEVICE)
+    o = rows
+    pool = torch.arange(o * 2048, dtype=torch.float32, device=dev).reshape(o, 16, 128)
+    flat = pool.view(o, 2048)
+    out = {"dma_gather": [], "dma_gather_ring": [], "rmw": [], "rmw_nonatomic": []}
+    for ring, configs in (P5_CONFIGS if p5 is None else p5).items():
+        name = "dma_gather_ring" if ring else "dma_gather"
+        for g, d, r in configs:
+            idx = _starts(prof_dma.gather_starts(o, g, d, r), d)
+            k = pk.dma_gather(pool, idx, r, ring=ring)
+            other = pk.dma_gather(pool, idx, r, ring=not ring)
+            p = pk.plain_dma_gather(pool, idx, r)
+            torch.cuda.synchronize()
+            if not (torch.equal(k, p) and torch.equal(k, other)):
+                raise AssertionError(f"{name} {(g, d, r)}: kernel "
+                                     f"{float((k - p).abs().max())} "
+                                     f"from plain, {float((k - other).abs().max())} "
+                                     "from the other variant")
+            res = {"config": [g, d, r], "max_abs_err": float((k - p).abs().max())}
+            if time_it:
+                rows = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(g, d * r)
+                res["ms"] = cuda_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring))
+                res["plain_ms"] = cuda_ms(lambda: pk.plain_dma_gather(pool, idx, r),
+                                          reps=5, warmup=1)
+                res["library_ms"] = cuda_ms(lambda: F.embedding_bag(rows, flat, mode="sum"))
+                res["payload_gbs"] = g * d * r * 8192 / res["ms"] / 1e6
+                res.update(dma_bound(idx, r))
+            out[name].append(res)
+            del k, other, p
+    for g, d, r in P6_CONFIGS if p6 is None else p6:
+        idx = _starts(prof_dma.rmw_starts(o, g, d, r), d)
+        pk_pool = torch.zeros_like(pool)
+        pp_pool = torch.zeros_like(pool)
+        ko, po = pk.rmw(pk_pool, idx, r), pk.plain_rmw(pp_pool, idx, r)
+        torch.cuda.synchronize()
+        if not (torch.equal(pk_pool, pp_pool) and torch.equal(ko, po)):
+            raise AssertionError(f"rmw {(g, d, r)}: kernel differs from plain by "
+                                 f"{float((pk_pool - pp_pool).abs().max())}")
+        res = {"config": [g, d, r], "max_abs_err": float((pk_pool - pp_pool).abs().max()),
+               "max_count": float(pk_pool.max())}
+        if time_it:
+            rows = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(-1)
+            ones = torch.ones((rows.numel(), 2048), dtype=torch.float32, device=dev)
+            kflat = pk_pool.view(o, 2048)
+            res["ms"] = cuda_ms(lambda: pk.rmw(pk_pool, idx, r))
+            res["plain_ms"] = cuda_ms(lambda: pk.plain_rmw(pp_pool, idx, r), reps=5, warmup=1)
+            res["library_ms"] = cuda_ms(lambda: kflat.index_add_(0, rows, ones))
+            res["payload_gbs"] = 2 * g * d * r * 8192 / res["ms"] / 1e6
+            res.update(dma_bound(idx, r, rmw=True))
+            del ones
+        out["rmw"].append(res)
+        del pk_pool, pp_pool
+
+        starts, od = prof_dma.disjoint_starts(o, g, d, r)
+        idx = _starts(starts, d)
+        pa = torch.zeros((od, 16, 128), dtype=torch.float32, device=dev)
+        pn = torch.zeros_like(pa)
+        pp = torch.zeros_like(pa)
+        pk.rmw(pa, idx, r)
+        kn, po = pk.rmw(pn, idx, r, atomic=False), pk.plain_rmw(pp, idx, r)
+        torch.cuda.synchronize()
+        err = max(float((pn - pp).abs().max()), float((kn - po).abs().max()))
+        if not (torch.equal(pn, pp) and torch.equal(kn, po) and torch.equal(pa, pp)
+                and float(pp.max()) == 1.0):
+            raise AssertionError(f"rmw_nonatomic {(g, d, r)} on disjoint runs: "
+                                 f"{err} from plain")
+        res = {"config": [g, d, r], "rows": od, "max_abs_err": err}
+        del kn, po, pp
+        if time_it:
+            res["atomic_ms"] = cuda_ms(lambda: pk.rmw(pa, idx, r))
+            res["ms"] = cuda_ms(lambda: pk.rmw(pn, idx, r, atomic=False))
+            res.update(dma_bound(idx, r, rmw=True))
+        out["rmw_nonatomic"].append(res)
+        del pa, pn
+    return out
+
+
+def run_entry(module: str, *args: str, timeout: int = 600) -> str:
+    """``python -m claymore_tpu_torch.scripts.<module>`` in a subprocess on
+    the card; raises unless it exits 0; returns its standard output."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", f"claymore_tpu_torch.scripts.{module}", *args],
+        cwd=root, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    return proc.stdout
+
+
+def entry_launches(module: str, out: str) -> dict:
+    """The ``launches {...}`` line an entry point prints last: the kernel
+    launches of its run, counted by its process's wrappers from 0."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("launches ")]
+    if len(lines) != 1:
+        raise AssertionError(f"{module}: no launches line:\n{out}")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+def check_probe_entry_points(facts: str) -> dict:
+    """The probe path: ``prof_laneops`` (at its 65,536 tiles) and
+    ``prof_dma`` (at its configurations) as a user runs them, in
+    subprocesses: exit 0, the TPU script's ``OK sum=`` line of each lane
+    probe with the plain version's sum, a timed line per lane probe and
+    every section of prof_dma.  Returns the launches each printed, per
+    probe kernel."""
+    from claymore_tpu_torch.ops import probe_kernels as pk
+
+    t0 = time.perf_counter()
+    lane_out = run_entry("prof_laneops")
+    s48 = torch.tensor([48], dtype=torch.int32)
+    for name, (lanes, _, _) in LANEOPS.items():
+        x = torch.arange(16 * lanes, dtype=torch.float32).reshape(1, 16, lanes)
+        want = f"OK   sum={float(getattr(pk, 'plain_' + name)(x, s48).double().sum()):.1f}"
+        if not any(want in ln for ln in lane_out.splitlines()):
+            raise AssertionError(f"prof_laneops: no '{want}' line:\n{lane_out}")
+        if f"{name} G={PROBE_TILES}:" not in lane_out:
+            raise AssertionError(f"prof_laneops: no timed line of {name}:\n{lane_out}")
+    dma_out = run_entry("prof_dma")
+    timed = [ln for ln in dma_out.splitlines() if " ms " in ln]
+    if dma_out.count("== ") != 7 or len(timed) != 20:
+        raise AssertionError(f"prof_dma: {len(timed)} timed lines:\n{dma_out}")
+    wall = time.perf_counter() - t0
+    lane_n, dma_n = entry_launches("prof_laneops", lane_out), entry_launches("prof_dma", dma_out)
+    launches = {k: lane_n[k] if k.startswith("dyn_") else dma_n[k] for k in pk.launches}
+    log(f"probe path, entry points prof_laneops and prof_dma: exit 0 in {wall:.1f} s, "
+        f"4 OK lines with the plain versions' sums, {len(timed)} timed prof_dma lines, "
+        f"launches {launches} | {facts}")
+    return {"wall_s": wall, "launches": launches}
+
+
+def check_prof_stages_entry(facts: str) -> dict:
+    """``prof_stages25m`` as a subprocess at full width: exit 0, the
+    sphere25m's particle count, the five stages finite and the particle
+    stream floor positive."""
+    t0 = time.perf_counter()
+    out = run_entry("prof_stages25m", timeout=900)
+    wall = time.perf_counter() - t0
+    lines = {ln.split()[1]: ln for ln in out.splitlines() if ln.startswith("PROF25M")}
+    stages = json.loads(lines["stages"].split(" ", 2)[2].rsplit(" |", 1)[0])
+    floor = float(lines["particle_stream_floor_ms"].split()[2])
+    if ("particles: 25088753" not in lines["particles:"]
+            or set(stages) != {"grid_update", "g2p2g", "rebuild", "substep", "overhead"}
+            or not all(np.isfinite(v) for v in stages.values()) or not floor > 0.0):
+        raise AssertionError(f"prof_stages25m output:\n{out}")
+    log(f"entry point prof_stages25m: exit 0 in {wall:.1f} s\n"
+        + "\n".join(lines.values()) + f"\n| {facts}")
+    return {"wall_s": wall, "stages_ms": stages, "particle_stream_floor_ms": floor}
+
+
+# --------------------------------------------------------------------------
 # scenes (bench.py:48-177)
 # --------------------------------------------------------------------------
 
@@ -538,18 +824,24 @@ def probe(state, n: int = 4096, model_idx: int = 0) -> np.ndarray:
     return out.cpu().numpy()
 
 
-def reset_counts() -> None:
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
+def _launch_dicts():
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, probe_kernels
 
-    for counts in (grid_kernel.grid_update.launches, g2p2g_kernel.g2p2g.launches):
+    return (grid_kernel.grid_update.launches, g2p2g_kernel.g2p2g.launches,
+            probe_kernels.launches)
+
+
+def reset_counts() -> None:
+    for counts in _launch_dicts():
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
-
-    return {**grid_kernel.grid_update.launches, **g2p2g_kernel.g2p2g.launches}
+    out = {}
+    for counts in _launch_dicts():
+        out.update(counts)
+    return out
 
 
 def grid_kernel_name(colliders) -> str:
@@ -644,6 +936,145 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         raise AssertionError(f"main path {name} checks failed: {failed} ({d}, "
                              f"launches {launches})")
     return {"metrics": out, "engine": eng, "state": state, "cfg": cfg, "mats": mats}
+
+
+def positions_by_pid(model, n: int) -> np.ndarray:
+    """Positions [3, n] of a model's active particles, column = pid, on the
+    host."""
+    out = torch.empty((3, n), dtype=torch.float32, device=model.pos.device)
+    out[:, model.pid[model.active].long()] = model.pos[:, model.active]
+    return out.cpu().numpy()
+
+
+# the regrown run against the ample one, particles paired by id: float
+# atomics in K1 reorder sums run to run (tests/test_regrow.py's bound)
+REGROW_POS_BOUND = 1e-5
+REGROW_FILL = 0.95        # the tight engine's initial oct occupancy
+
+
+def regrow_path(cfg, mat, pos, v0, facts: str, frames: int = 2) -> dict:
+    """tests/test_regrow.py at full width.  The ample engine runs
+    ``frames`` frames; a tight engine, whose capacity its initial octs fill
+    to REGROW_FILL (above the 0.9 trigger), runs them with
+    ``auto_grow=True`` and must regrow at the end of frame 1 without having
+    overflowed, then step frame 2 on the regrown engine through K1 and K2
+    (counts zeroed before the tight run, read after each frame), keep every
+    particle and its mass, and end where the ample run ends, particle by
+    particle (new pid k = the k-th active slot at the regrow), within
+    REGROW_POS_BOUND."""
+    import math
+
+    import claymore_tpu_torch as ct
+
+    n = pos.shape[0]
+    eng = ct.MPMEngine(cfg, [mat], tile_chunk=64, device=DEVICE)
+    state = eng.init_state([pos], [v0])
+    octs0 = int(state.partition.count[0])
+    t0 = time.perf_counter()
+    state = eng.run(state, frames=frames)
+    ample_s = time.perf_counter() - t0
+    ample = positions_by_pid(state.models[0], n)
+    ample_steps = int(state.step)
+    del state, eng
+    torch.cuda.empty_cache()
+
+    cap = math.ceil(octs0 / REGROW_FILL)
+    tight = dataclasses.replace(cfg, max_active_blocks=cap)
+    eng = ct.MPMEngine(tight, [mat], tile_chunk=64, device=DEVICE)
+    state = eng.init_state([pos], [v0])
+    seen = []
+    grow = eng.regrow
+
+    def recording_regrow(st, factor=1.5):
+        m = st.models[0]
+        seen.append({"octs": int(st.partition.count[0]),
+                     "overflow": int(st.partition.overflow[0]),
+                     "dropped": int(m.tiles.dropped[0]), "step": int(st.step),
+                     "old_pid": m.pid[m.active].cpu().numpy()})
+        return grow(st, factor)
+
+    eng.regrow = recording_regrow
+    counts = []
+    reset_counts()
+    t0 = time.perf_counter()
+    eng2, state = eng.run(state, frames=frames, auto_grow=True,
+                          on_frame=lambda f, st: counts.append(read_counts()))
+    tight_s = time.perf_counter() - t0
+    d = eng2.diagnostics(state)
+    mass_err = abs(float(state.grid[:-1, 0:4].double().sum()) - n * mat.mass) / (n * mat.mass)
+    diff = None
+    if len(seen) == 1:
+        regrown = positions_by_pid(state.models[0], n)
+        diff = float(np.abs(regrown - ample[:, seen[0]["old_pid"]]).max())
+    frame2 = {k: counts[-1][k] - counts[0][k]
+              for k in ("grid_update", "g2p2g_fixed_corotated")}
+    checks = {
+        "one_regrow_after_frame_1": len(seen) == 1 and eng2 is not eng,
+        "grew": eng2.cfg.max_active_blocks > cap,
+        "no_overflow_before": (bool(seen) and seen[0]["overflow"] == 0
+                               and seen[0]["dropped"] == 0),
+        "frame2_launches": min(frame2.values()) > 0,
+        "active": d["model0_active"] == n, "dropped": d["model0_dropped_tiles"] == 0,
+        "overflow": d["block_overflow"] == 0, "null_row": d["null_block_mass"] == 0.0,
+        "mass": mass_err < 1e-5,
+        "positions": diff is not None and diff <= REGROW_POS_BOUND,
+    }
+    at = {k: v for k, v in seen[0].items() if k != "old_pid"} if seen else None
+    out = {"particles": n, "octs0": octs0, "tight_blocks": cap,
+           "regrown_blocks": eng2.cfg.max_active_blocks, "at_regrow": at,
+           "frame2_launches": frame2, "mass_rel_err": mass_err, "pos_diff": diff,
+           "steps": d["step"], "ample_steps": ample_steps, "ample_s": ample_s,
+           "tight_s": tight_s}
+    log(f"regrow sphere25m: {n} particles, ample engine {cfg.max_active_blocks} blocks "
+        f"(initial octs {octs0}) {frames} frames in {ample_s:.1f} s; tight engine {cap} "
+        f"blocks regrew at {at} to {eng2.cfg.max_active_blocks} blocks, frame 2 on it "
+        f"launched {frame2}; {d['step']} substeps (ample {ample_steps}), active "
+        f"{d['model0_active']}, dropped {d['model0_dropped_tiles']}, overflow "
+        f"{d['block_overflow']}, mass_rel_err {mass_err:.3e}; positions by mapped pid "
+        f"vs the ample run: max {diff} (bound {REGROW_POS_BOUND}) | {facts}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"regrow path checks failed: {failed} ({out})")
+    return out
+
+
+def update_material_path(cfg, mat, pos, v0, facts: str, steps: int = 20) -> dict:
+    """``update_material`` on the cube: ``steps`` substeps with Young's
+    modulus lowered 100x against the unchanged engine from the same state,
+    the initial state stirred (``stir``) so that the material deforms from
+    the first substep.  F must differ, mass agree with the particles' to
+    1e-5 on both, and both runs launch K1-FC every substep (counts zeroed
+    before each)."""
+    import claymore_tpu_torch as ct
+    from claymore_tpu_torch.core.engine import clone_state
+
+    eng = ct.MPMEngine(cfg, [mat], tile_chunk=64, device=DEVICE)
+    s0 = stir(eng.init_state([pos], [v0]))
+    soft = eng.update_material(0, e=mat.e / 100.0)
+    fe = np.float32(1e9)
+    n = pos.shape[0]
+    ends, launches = {}, {}
+    for key, e in (("unchanged", eng), ("soft", soft)):
+        reset_counts()
+        ends[key] = e.run_steps(clone_state(s0), steps, fe)
+        launches[key] = read_counts()["g2p2g_fixed_corotated"]
+    f = {}
+    for key, st in ends.items():
+        m = st.models[0]
+        buf = torch.empty((9, n), dtype=torch.float32, device=DEVICE)
+        buf[:, m.pid[m.active].long()] = m.fields["F"][:, m.active]
+        f[key] = buf
+    f_diff = float((f["unchanged"] - f["soft"]).abs().max())
+    mass = {k: abs(float(st.grid[:-1, 0:4].double().sum()) - n * mat.mass) / (n * mat.mass)
+            for k, st in ends.items()}
+    log(f"update_material cube: e {mat.e} -> {soft.materials[0].e}, {steps} substeps "
+        f"each: max |F_soft - F| by pid {f_diff:.3e}, mass_rel_err {mass}, "
+        f"g2p2g_fixed_corotated launches {launches} | {facts}")
+    if not (f_diff > 1e-6 and max(mass.values()) < 1e-5
+            and min(launches.values()) >= steps):
+        raise AssertionError(f"update_material: F diff {f_diff}, mass {mass}, "
+                             f"launches {launches}")
+    return {"f_diff": f_diff, "mass_rel_err": mass, "launches": launches}
 
 
 def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
@@ -949,6 +1380,27 @@ def main() -> int:
     log_k1(f"g2p2g_fixed_corotated, cube {posc.shape[0]} particles", k1c, facts)
     del sc
 
+    # 4b. the probes P1-P6 against their plain versions at the TPU scripts'
+    #     inputs (not counted), then the probe path: the two probe entry
+    #     points as subprocesses, each counting its launches from 0
+    lane = check_laneops()
+    for name, r in lane.items():
+        log(f"{name} vs plain, {r['tiles']} tiles [16,{LANEOPS[name][0]}], random "
+            f"shifts: max_abs_err {r['max_abs_err']}, kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {facts}")
+    dma = check_dma()
+    for name, rows in dma.items():
+        for r in rows:
+            log(f"{name} vs plain {tuple(r['config'])}: max_abs_err {r['max_abs_err']}, "
+                f"kernel {r['ms']:.4f} ms"
+                + (f" (atomic {r['atomic_ms']:.4f} ms), {r['rows']} rows"
+                   if name == "rmw_nonatomic" else
+                   f", plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                   f"payload {r['payload_gbs']:.1f} GB/s")
+                + f", bound {r['bound_ms']:.4f} ms | {facts}")
+    paths_probe = check_probe_entry_points(facts)
+
     # 5. main path 1: the 25M sphere, counted launches
     n = pos25.shape[0]
     eng = ct.MPMEngine(cfg25, [mat25], tile_chunk=64, device=DEVICE)
@@ -1010,7 +1462,20 @@ def main() -> int:
     # kernels at the main path's shapes, on its final state (not counted)
     k1 = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10)
     log_k1("g2p2g_fixed_corotated, sphere25m state", k1, facts)
-    del state, eng, eng_every
+    # the engine's own stage profile on the same state, beside the CUDA-event
+    # breakdown; it must leave the state as it was
+    before = (state.grid.clone(), state.models[0].pos.clone())
+    prof = eng.profile_stages(state, iters=8, reps=2)
+    sb = stage_breakdown(cfg25, [mat25], state)
+    if not (torch.equal(before[0], state.grid) and torch.equal(before[1], state.models[0].pos)
+            and all(np.isfinite(v) for v in prof.values())):
+        raise AssertionError(f"profile_stages: {prof}, or it changed its input state")
+    log("sphere25m profile_stages (ms per call, best of 2 x 8): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prof.items())
+        + "; stage_breakdown (median of 10): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sb.items()) + f" | {facts}")
+    del state, eng, eng_every, before
+    torch.cuda.empty_cache()
 
     # 6. the run() entry point on the cube
     engc = ct.MPMEngine(cfgc, [matc], tile_chunk=64, device=DEVICE)
@@ -1023,6 +1488,13 @@ def main() -> int:
     if abs(dc["t"] - cfgc.frame_dt()) > 1e-6 or dc["model0_active"] != posc.shape[0]:
         raise AssertionError(f"run(): {dc}")
     del sc, engc
+
+    # 6b. update_material on the cube; run(auto_grow=True) regrowing the
+    #     sphere25m; the stage profile's entry point in a subprocess
+    update_material_path(cfgc, matc, posc, v0c, facts)
+    regrow = regrow_path(cfg25, mat25, pos25, v0, facts)
+    torch.cuda.empty_cache()
+    prof_entry = check_prof_stages_entry(facts)
 
     # 7. main path 2: the 12.1M JFluid dam break, drift-triggered rebuilds
     paths = {"sphere25m": {"launches": launches}}
@@ -1103,6 +1575,23 @@ def main() -> int:
         entry("g2p2g_sand", "g2p2g.cu", k1_call, "sand", k1v["g2p2g_sand"]),
         entry("g2p2g_nacc", "g2p2g.cu", k1_call, "nacc", k1v["g2p2g_nacc"]),
     ]
+    paths["probes"] = paths_probe
+    paths["regrow"] = regrow
+    paths["prof_stages25m"] = prof_entry
+
+    def probe_entry(name, source, replaces, check):
+        e = entry(name, source, replaces, "probes", check)
+        e["library_ms"] = check["library_ms"]
+        return e
+
+    kernels += [probe_entry(name, "prof_laneops.cu", call, lane[name])
+                for name, (_, _, call) in LANEOPS.items()]
+    # P5 and P6 at the TPU script's first configuration, (8192, 4, 9) and
+    # (4096, 4, 9); the other configurations are in the log above
+    kernels += [probe_entry("dma_gather", "prof_dma.cu", P5_CALL, dma["dma_gather"][0]),
+                probe_entry("dma_gather_ring", "prof_dma.cu", P5_CALL,
+                            dma["dma_gather_ring"][0]),
+                probe_entry("rmw", "prof_dma.cu", P6_CALL, dma["rmw"][0])]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on its main path: {kernels}")
     log(f"paths: {json.dumps(paths)}")

@@ -19,10 +19,13 @@ pointers.  The host synchronises with the device at exactly these points:
 * ``MPMEngine.run_frame``: the loop test ``t < frame_end`` and the substep
   cap, once per substep;
 * ``run`` / ``check_health`` / ``diagnostics`` / ``get_positions``: once per
-  call.
+  call; with ``run(..., auto_grow=True)`` the growth test reads the
+  occupancy counters once per frame, and ``regrow`` (at most once per
+  frame) unites the oct keys and sizes the tiles on the host.
 
-Capturing substeps into CUDA graphs would remove the per-launch host cost;
-that is later work.
+``profile_stages`` times the stages of a substep; ``update_material``
+returns an engine with new material parameters.  Capturing substeps into
+CUDA graphs would remove the per-launch host cost; that is later work.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..config import SimConfig
 from ..models.boundary import check_colliders
 from ..models.materials import Material
 from ..ops import g2p2g_kernel, grid_kernel
+from ..utils.timers import device_ms
 from . import grid as grid_ops
 from . import partition as part
 from . import transfer
@@ -127,6 +131,67 @@ def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
     )
 
 
+def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models):
+    """Full rebucket: every model's particles into new tiles, the active oct
+    set recomputed and the pool remapped.  Returns (partition, pool,
+    models)."""
+    permuted, tile_keys, droppeds = [], [], []
+    for m in models:
+        pm, tk, dr = part.sort_permute(cfg, m, m.tiles.block.shape[0])
+        permuted.append(pm)
+        tile_keys.append(tk)
+        droppeds.append(dr)
+    partition, pool = part.rebuild(cfg, pool, partition, tuple(tile_keys))
+    for pm, tk, dr in zip(permuted, tile_keys, droppeds):
+        pm.tiles = part.finalize_tiles(cfg, partition, tk, dr)
+    return partition, pool, tuple(permuted)
+
+
+def clone_state(x):
+    """A deep copy of a state (or any of its parts): every tensor cloned on
+    its device."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: clone_state(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: clone_state(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(clone_state(v) for v in x)
+    return x
+
+
+def time_state_loop(fn, state: SimState, iters: int, reps: int, device) -> float:
+    """Milliseconds per call of ``fn``, a state -> state function, run
+    ``iters`` times back to back: the best of ``reps`` runs after one
+    warm-up run (CUDA events on a card, the host clock on the CPU).
+
+    Each run starts from its own copy of ``state``, made before the clock
+    starts; ``state`` itself is never passed to ``fn``.  The copy is handed
+    over as the only reference, so each call frees its input once it
+    returns, and the run's output is freed before the next copy is made: at
+    most ``state``, one input and one output are live (the JAX package
+    donates its copies for the same reason, a 25M state being several
+    GiB)."""
+    dev = torch.device(device)
+
+    def run(box):
+        s = box.pop()
+        for _ in range(iters):
+            s = fn(s)
+
+    best = float("inf")
+    for rep in range(reps + 1):
+        box = [clone_state(state)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms = device_ms(lambda: run(box), dev)
+        if rep:
+            best = min(best, ms)
+    return best / iters
+
+
 def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
                  state: SimState, frame_end: torch.Tensor, collider_table=None,
                  sdf_pointers=None):
@@ -169,17 +234,8 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
 
     partition = state.partition
     if do_rebuild:
-        permuted, tile_keys, droppeds = [], [], []
-        for m in new_models:
-            pm, tk, dr = part.sort_permute(cfg, m, m.tiles.block.shape[0])
-            permuted.append(pm)
-            tile_keys.append(tk)
-            droppeds.append(dr)
-        partition, next_pool = part.rebuild(cfg, next_pool, state.partition,
-                                            tuple(tile_keys))
-        for pm, tk, dr in zip(permuted, tile_keys, droppeds):
-            pm.tiles = part.finalize_tiles(cfg, partition, tk, dr)
-        new_models = permuted
+        partition, next_pool, new_models = rebucket(cfg, next_pool, partition,
+                                                    new_models)
 
     new_state = SimState(
         grid=next_pool, partition=partition, models=tuple(new_models),
@@ -328,18 +384,187 @@ class MPMEngine:
             warnings.warn(msg, RuntimeWarning, stacklevel=2)
 
     def run(self, state: SimState, frames: int, on_frame=None,
-            check_health: bool = True) -> SimState:
-        """Frame loop: ``frames`` frames of 1/fps each."""
+            check_health: bool = True, auto_grow: bool = False):
+        """Frame loop: ``frames`` frames of 1/fps each.  Returns the final
+        state, or ``(engine, state)`` with ``auto_grow``.
+
+        ``auto_grow=True`` is the capacity recovery of the reference's
+        ``check_capacity`` (blocks grown x1.5 at run time): when a frame ends
+        with a loss counter firing or occupancy near capacity
+        (``_needs_growth``), the engine is rebuilt larger by ``regrow`` and
+        the run goes on with the new engine, which is returned."""
+        eng = self
         frame_dt = self.cfg.frame_dt()
         t0 = float(state.t)
         for f in range(frames):
             frame_end = np.float32(t0 + (f + 1) * frame_dt)
-            state = self.run_frame(state, frame_end)
+            state = eng.run_frame(state, frame_end)
             if check_health:
-                self.check_health(state, strict=False)
+                eng.check_health(state, strict=False)
+            if auto_grow and eng._needs_growth(state):
+                eng, state = eng.regrow(state)
             if on_frame is not None:
                 on_frame(f, state)
-        return state
+        return (eng, state) if auto_grow else state
+
+    def _needs_growth(self, state: SimState) -> bool:
+        """Partition overflow or octs above 0.9 of capacity; dropped
+        particles or valid tiles above 0.9 of a model's tiles."""
+        if int(state.partition.overflow[0]) > 0:
+            return True
+        if int(state.partition.count[0]) > 0.9 * self.cfg.max_active_octs:
+            return True
+        for m in state.models:
+            if int(m.tiles.dropped[0]) > 0:
+                return True
+            nt = m.tiles.tvalid.shape[0]
+            if int(m.tiles.tvalid.sum()) > 0.9 * nt:
+                return True
+        return False
+
+    def regrow(self, state: SimState, factor: float = 1.5):
+        """A larger engine and ``state`` carried over into it: returns
+        (engine, state).
+
+        Blocks grow by ``factor`` when the octs fill more than 0.8 of the
+        capacity (or overflowed); tile capacities are re-derived from the
+        particles (``max_tiles=0``).  Grid rows are relabelled by oct key
+        over the union of the old live octs (momentum may live in blocks no
+        particle is in) and the new plan's; particles and their fields are
+        re-planned into the new tiles.  As in the JAX package, every model's
+        active particles get new ids ``0..n-1`` in their old slot order.
+        The new engine re-packs its colliders as ``__init__`` does."""
+        cfg = self.cfg
+        dev = self.device
+        octs = int(state.partition.count[0])
+        new_blocks = cfg.max_active_blocks
+        if octs > 0.8 * cfg.max_active_octs or int(state.partition.overflow[0]):
+            new_blocks = int(cfg.max_active_blocks * factor)
+        new_cfg = dataclasses.replace(cfg, max_active_blocks=new_blocks, max_tiles=0)
+        eng = MPMEngine(new_cfg, self.materials, self.colliders, self.tile_chunk,
+                        device=dev)
+
+        # the active particles, in slot order, planned into the new tiles
+        planned = []
+        for m in state.models:
+            act = m.active
+            n = int(act.sum())
+            nt = eng._round_tiles(n, m.pos[:, act].T.cpu().numpy())
+            eng._num_tiles.append(nt)
+            s_cap = nt * new_cfg.particle_tile
+            pos = torch.zeros((3, s_cap), dtype=m.pos.dtype, device=dev)
+            pos[:, :n] = m.pos[:, act]
+            fields = {}
+            for k, v in m.fields.items():
+                buf = torch.zeros(v.shape[:-1] + (s_cap,), dtype=v.dtype, device=dev)
+                buf[..., :n] = v[..., act]
+                fields[k] = buf
+            iota = torch.arange(s_cap, dtype=torch.int32, device=dev)
+            active = iota < n
+            raw = ParticleModel(pos=pos, fields=fields, active=active,
+                                pid=torch.where(active, iota, torch.full_like(iota, s_cap)),
+                                tiles=None)
+            planned.append(part.sort_permute(new_cfg, raw, nt))
+
+        # the octs the new plan's particles reach (what init_impl's rebuild
+        # activates), united with the old live octs; rows relabel by key
+        no = cfg.num_oct_keys
+        reach = part.particle_blocks(new_cfg, tuple(tk for _, tk, _ in planned), dev)
+        plan_keys = torch.nonzero(reach.reshape(no, 8).any(dim=1)).flatten()
+        keys_u = np.union1d(state.partition.keys[:octs].cpu().numpy(),
+                            plan_keys.cpu().numpy()).astype(np.int32)
+        cap = new_cfg.max_active_octs
+        if len(keys_u) > cap:
+            raise RuntimeError(
+                f"regrow factor {factor} insufficient: {len(keys_u)} octs > {cap}")
+        keys = np.full((cap,), no, np.int32)
+        keys[:len(keys_u)] = keys_u
+        table = np.full((no + 1,), new_cfg.null_oct, np.int32)
+        table[keys_u] = np.arange(len(keys_u), dtype=np.int32)
+        i32 = dict(dtype=torch.int32, device=dev)
+        partition = Partition(table=torch.from_numpy(table).to(dev),
+                              keys=torch.from_numpy(keys).to(dev),
+                              count=torch.tensor([len(keys_u)], **i32),
+                              overflow=torch.zeros((1,), **i32))
+        old_slot = state.partition.table[torch.from_numpy(np.minimum(keys, no)).to(dev)]
+        rows = state.grid[old_slot.long()]
+        rows[torch.from_numpy(keys >= no).to(dev)] = 0.0
+        grid = torch.cat([rows, torch.zeros_like(rows[:1])], dim=0)
+
+        models = []
+        for pm, tk, dr in planned:
+            pm.tiles = part.finalize_tiles(new_cfg, partition, tk, dr)
+            models.append(pm)
+        new_state = SimState(
+            grid=grid, partition=partition, models=tuple(models), dt=state.dt,
+            max_vel=state.max_vel, t=state.t, step=state.step,
+            mig_dropped=torch.zeros((1,), **i32), halo_overflow=torch.zeros((1,), **i32))
+        return eng, new_state
+
+    # ------------------------------------------------------------------
+    # profiling
+    # ------------------------------------------------------------------
+
+    def profile_stages(self, state: SimState, iters: int = 10, reps: int = 3) -> dict:
+        """Milliseconds per call of each stage of a substep on ``state``:
+        ``grid_update`` (K2), ``g2p2g`` (K1, every model, from the pool as
+        it is), ``rebuild`` (the full rebucket), ``substep``, and
+        ``overhead`` = substep minus the three (the CFL step, the drift check
+        and its host read; it can come out negative).
+
+        Each stage is a state -> state function run ``iters`` times back to
+        back, best of ``reps`` (``time_state_loop``: CUDA events on a card,
+        the host clock on the CPU), so each includes its own data movement.
+        Each run gets its own copy of ``state``, freed before the next is
+        made; ``state`` is left as it was."""
+        cfg = self.cfg
+        fe = self._frame_end(np.float32(1e9))
+
+        def grid_stage(s):
+            pool_v, mv = grid_kernel.grid_update(
+                cfg, s.grid, s.partition, s.dt, self.colliders, s.t,
+                self._collider_table, self._sdf_pointers)
+            return dataclasses.replace(s, grid=pool_v, max_vel=torch.sqrt(mv))
+
+        def transfer_stage(s):
+            nxt = torch.zeros_like(s.grid)
+            models = []
+            for mat, m in zip(self.materials, s.models):
+                m, nxt = g2p2g_kernel.g2p2g(cfg, mat, s.grid, s.partition.table, m,
+                                            s.dt, s.dt, nxt, self.tile_chunk)
+                models.append(m)
+            return dataclasses.replace(s, grid=nxt, models=tuple(models))
+
+        def rebuild_stage(s):
+            partition, pool, models = rebucket(cfg, s.grid, s.partition, s.models)
+            return dataclasses.replace(s, grid=pool, partition=partition, models=models)
+
+        def substep_stage(s):
+            return substep_impl(cfg, self.materials, self.colliders, self.tile_chunk, s,
+                                fe, self._collider_table, self._sdf_pointers)[0]
+
+        stages = {"grid_update": grid_stage, "g2p2g": transfer_stage,
+                  "rebuild": rebuild_stage, "substep": substep_stage}
+        out = {name: time_state_loop(fn, state, iters, reps, self.device)
+               for name, fn in stages.items()}
+        out["overhead"] = out["substep"] - (
+            out["grid_update"] + out["g2p2g"] + out["rebuild"])
+        return out
+
+    # ------------------------------------------------------------------
+    # runtime parameter updates
+    # ------------------------------------------------------------------
+
+    def update_material(self, model_idx: int, **params) -> "MPMEngine":
+        """A new engine with ``params`` replaced in material ``model_idx``
+        (the reference's update_fr/j_fluid/nacc_parameters).  States carry
+        over as they are, and so do the tile counts."""
+        mats = list(self.materials)
+        mats[model_idx] = dataclasses.replace(mats[model_idx], **params)
+        eng = MPMEngine(self.cfg, mats, self.colliders, self.tile_chunk,
+                        device=self.device)
+        eng._num_tiles = list(self._num_tiles)
+        return eng
 
     # ------------------------------------------------------------------
     # inspection / output

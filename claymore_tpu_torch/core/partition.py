@@ -220,6 +220,18 @@ def _mark(n: int, idx: torch.Tensor, dev) -> torch.Tensor:
     return buf[:n]
 
 
+def particle_blocks(cfg: SimConfig, model_block_keys: Tuple[torch.Tensor, ...],
+                    dev) -> torch.Tensor:
+    """bool[G^3]: the particles' home blocks (the tiles' block keys, the
+    sentinel G^3 dropped), dilated by the transfer stencil."""
+    g = cfg.grid_size
+    n3 = g * g * g
+    pmask = torch.zeros((n3,), dtype=torch.bool, device=dev)
+    for keys in model_block_keys:
+        pmask |= _mark(n3, torch.clamp(keys, max=n3), dev)
+    return _dilate(cfg, pmask.reshape(g, g, g)).reshape(-1)
+
+
 def rebuild(
     cfg: SimConfig,
     pool: torch.Tensor,
@@ -244,12 +256,7 @@ def rebuild(
     sel = has_mass & slot_live[:, None] & (bkeys < n3)
     mask = _mark(n3, torch.where(sel, bkeys, torch.full_like(bkeys, n3)), dev)
 
-    # particle home blocks, dilated by the transfer stencil
-    pmask = torch.zeros((n3,), dtype=torch.bool, device=dev)
-    for keys in model_block_keys:
-        pmask |= _mark(n3, torch.clamp(keys, max=n3), dev)
-    pmask = _dilate(cfg, pmask.reshape(g, g, g)).reshape(-1)
-    mask = mask | pmask
+    mask = mask | particle_blocks(cfg, model_block_keys, dev)
 
     # coarsen to octs: z is the low bits of the block key, so consecutive
     # groups of 8 block keys form one oct

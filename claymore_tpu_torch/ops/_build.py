@@ -33,7 +33,19 @@ _F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
 _G2P2G = [_P] * 17 + [_I] * 6 + [_F] * 4 + [_P, _I, _P]
+# the probes: (x, shifts, out, tiles, stream) and
+# (pool, idx, out, rows, programs, runs, run_rows, stream)
+_LANEOPS = [_P, _P, _P, _I, _P]
+_DMA = [_P, _P, _P, _I, _I, _I, _I, _P]
 SIGNATURES = {
+    "cm_prof_dyn_roll": _LANEOPS,
+    "cm_prof_dyn_lane_read": _LANEOPS,
+    "cm_prof_dyn_lane_read_wide": _LANEOPS,
+    "cm_prof_dyn_lane_write": _LANEOPS,
+    "cm_prof_dma_gather": _DMA,
+    "cm_prof_dma_gather_ring": _DMA,
+    "cm_prof_rmw": _DMA,
+    "cm_prof_rmw_nonatomic": _DMA,
     "cm_grid_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "cm_grid_update_colliders": (
         [_P] * 6 + [_I, _P] + [_I] * 6 + [_F] * 4 + [_P]),

@@ -2,7 +2,9 @@
 
 Port of ``claymore_tpu/utils/timers.py``.  ``tock`` synchronises the CUDA
 device first when asked to, so the time includes the device work queued
-since ``tick`` (the JAX package blocks on a value instead).
+since ``tick`` (the JAX package blocks on a value instead).  ``device_ms``,
+``best_ms`` and ``device_label`` time device work and name the device for
+``MPMEngine.profile_stages`` and the profiling scripts.
 """
 
 from __future__ import annotations
@@ -13,6 +15,57 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+
+def device_ms(fn, device) -> float:
+    """Milliseconds of one call of ``fn()`` on ``device``: CUDA events around
+    it (ending in a synchronise) on a CUDA device, the host clock on the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    stream = torch.cuda.current_stream(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    fn()
+    end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def best_ms(fn, device, iters: int = 10, reps: int = 3) -> float:
+    """Milliseconds per call of ``fn()``: the best of ``reps`` runs of
+    ``iters`` back-to-back calls, after one warm-up call."""
+    fn()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    return min(device_ms(run, device) for _ in range(reps)) / iters
+
+
+def device_label(device) -> str:
+    """What a measurement ran on: ``nvidia-smi``'s ``name, power.limit`` of a
+    CUDA device (its torch name where nvidia-smi is missing), else ``cpu``."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return torch.cuda.get_device_name(index)
 
 
 class StageTimer:

@@ -85,3 +85,15 @@ def test_g2p2g_kernel_matches_plain(card, name):
     card.check_g2p2g_kernel(cfg, mat, state, tile_chunk=8, time_it=False)
     # a sheared, compressed velocity field takes the return maps' branches
     card.check_g2p2g_kernel(cfg, mat, card.stir(state), tile_chunk=8, time_it=False)
+
+
+@pytest.mark.parametrize("name", ["dyn_roll", "dyn_lane_read", "dyn_lane_read_wide",
+                                  "dyn_lane_write"])
+def test_lane_probe_kernel_matches_plain(card, name):
+    card.check_laneops(tiles=1000, time_it=False, names=(name,))
+
+
+def test_dma_probe_kernels_match_plain(card):
+    card.check_dma(time_it=False, rows=4096,
+                   p5={False: [(256, 4, 9), (300, 8, 1)], True: [(256, 4, 9), (200, 16, 1)]},
+                   p6=[(64, 4, 9), (100, 4, 3)])
