@@ -66,14 +66,20 @@ def gpu_facts() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the device, each call timed with
-    CUDA events (``utils.timers.device_ms``)."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 2, batch: int = 1) -> float:
+    """Median milliseconds of ``fn()`` on the device: each of ``reps``
+    samples times ``batch`` back-to-back calls with CUDA events
+    (``utils.timers.device_ms``) and divides by ``batch``.  A batch keeps a
+    short kernel's host-side launch work off the device's clock."""
     from claymore_tpu_torch.utils.timers import device_ms
+
+    def run():
+        for _ in range(batch):
+            fn()
 
     for _ in range(warmup):
         fn()
-    return float(np.median([device_ms(fn, DEVICE) for _ in range(reps)]))
+    return float(np.median([device_ms(run, DEVICE) for _ in range(reps)])) / batch
 
 
 # --------------------------------------------------------------------------
@@ -263,29 +269,18 @@ def check_grid_kernel(cfg, n_active: int, time_it: bool = True) -> dict:
     return out
 
 
-def stir(state, scale: float = 0.5, seed: int = SEED):
-    """``state`` with seeded noise added to the grid velocity (momentum
-    noise times mass), so a transfer from it shears and compresses the
-    material and takes every branch of its return map."""
-    gen = torch.Generator(device=state.grid.device).manual_seed(seed)
-    grid = state.grid.clone()
-    m = grid[:, 0:4].reshape(-1, 1, 4, 128)
-    noise = torch.randn((grid.shape[0], 3, 4, 128), generator=gen,
-                        device=grid.device) * scale
-    grid[:, 4:16] += (noise * m).reshape(-1, 12, 128)
-    return dataclasses.replace(state, grid=grid)
-
-
 def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
-                       reps: int = 20, model_idx: int = 0) -> dict:
+                       reps: int = 20, model_idx: int = 0,
+                       time_plain: bool = True) -> dict:
     """K1 (the variant of ``mat``) against core.transfer.g2p2g_model on the
     card, from one grid update of ``state``: dense grids within 1e-5 x the
     largest grid value (float atomics reorder the sums), identical active
     sets, positions of the same particle within 2e-6, and every field (F,
     J, logJp) within 1e-5 x max(1, its largest value), but for the few
     NACC particles its discontinuous return map sends to another branch
-    (see below)."""
-    from claymore_tpu_torch.core import grid, transfer
+    (see below); and the margin K1 returns equal, bit for bit, to
+    ``arena_margin`` of its output."""
+    from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
     from claymore_tpu_torch.utils.debug import pool_to_dense
 
@@ -302,9 +297,13 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         return transfer.g2p2g_model(cfg, mat, pool_v, table, model, state.dt,
                                     next_dt, acc, tile_chunk)
 
-    mk, pk = kernel(torch.zeros_like(state.grid))
+    mk, pk, margin = kernel(torch.zeros_like(state.grid))
     mt, pt = plain(torch.zeros_like(state.grid))
     torch.cuda.synchronize()
+    want = partition.arena_margin(cfg, mk)
+    if not torch.equal(margin, want):
+        raise AssertionError(f"g2p2g kernel: fused margin {float(margin)!r} vs "
+                             f"arena_margin {float(want)!r}")
     if not torch.equal(mk.active, mt.active) or not torch.equal(mk.pid, mt.pid):
         raise AssertionError("g2p2g kernel: active sets differ")
     if int(mk.active.sum()) == 0:
@@ -347,14 +346,65 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     if float((mk.pos[:, act] - model.pos[:, act]).abs().max()) == 0.0:
         raise AssertionError("g2p2g kernel: particles did not move")
     out = {"max_abs_err": grid_err, "grid_max": grid_max, "pos_err": pos_err,
-           "field_err": field_err, "flipped": flipped, "active": n_act}
+           "field_err": field_err, "flipped": flipped, "active": n_act,
+           "margin": float(margin)}
     if time_it:
+        # into one pool that keeps adding up: its contents do not change the
+        # work, and a zeroing pass would add 0.5 GB of stores to the time
         acc = torch.zeros_like(state.grid)
-        out["ms"] = cuda_ms(lambda: kernel(acc.zero_()), reps=reps)
-        out["plain_ms"] = cuda_ms(lambda: plain(acc.zero_()), reps=max(3, reps // 4),
-                                  warmup=1)
+        out["ms"] = cuda_ms(lambda: kernel(acc), reps=reps)
+        if time_plain:
+            out["plain_ms"] = cuda_ms(lambda: plain(acc), reps=max(3, reps // 4),
+                                      warmup=1)
         out.update(g2p2g_bound(cfg, mat, state, model_idx))
+        out.update(g2p2g_kernel.kernel_info(mat, cfg.particle_tile))
     return out
+
+
+def k1_order_sensitivity(cfg, mat, state, as_is: dict, facts: str) -> dict:
+    """K1 on ``state`` in three slot orders: as it is (``as_is``, the result
+    of ``check_g2p2g_kernel`` on it), every tile's slots permuted by a
+    seeded permutation, and every tile's slots sorted by stencil base.  Each
+    reordered copy is held against the plain version as
+    ``check_g2p2g_kernel`` does; the times and their max / min ratio."""
+    from claymore_tpu_torch.scripts.prof_k1 import permute_tiles
+
+    times = {"as_is": as_is["ms"]}
+    for order in ("permuted", "sorted"):
+        r = check_g2p2g_kernel(cfg, mat, permute_tiles(cfg, state, order), tile_chunk=64,
+                               reps=10, time_plain=False)
+        times[order] = r["ms"]
+        log(f"K1 {mat.name}, sphere25m state, slots {order}: grid err "
+            f"{r['max_abs_err']:.3e}, pos {r['pos_err']:.3e}, kernel {r['ms']:.4f} ms "
+            f"| {facts}")
+    ratio = max(times.values()) / min(times.values())
+    log(f"K1 {mat.name} slot-order sensitivity: {times}, max/min {ratio:.4f} | {facts}")
+    return {"ms": times, "ratio": ratio}
+
+
+def check_fused_margin(eng, state) -> list:
+    """One grid update and every model's K1 from ``state`` with ``eng``'s
+    materials and colliders (not counted): each margin K1 returns equal,
+    bit for bit, to ``arena_margin`` of its output.  Returns the margins."""
+    from claymore_tpu_torch.core import grid, partition
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
+
+    cfg = eng.cfg
+    pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt,
+                                          eng.colliders, state.t, eng._collider_table,
+                                          eng._sdf_pointers)
+    next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt, torch.tensor(1e9, device=DEVICE))
+    acc = torch.zeros_like(state.grid)
+    margins = []
+    for mat, model in zip(eng.materials, state.models):
+        new, acc, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table,
+                                              model, state.dt, next_dt, acc)
+        want = partition.arena_margin(cfg, new)
+        if not torch.equal(margin, want):
+            raise AssertionError(f"fused margin {float(margin)!r} vs arena_margin "
+                                 f"{float(want)!r}")
+        margins.append(float(margin))
+    return margins
 
 
 def pallas_grid_colliders():
@@ -495,6 +545,8 @@ LANEOPS = {
     "dyn_lane_write": (128, 80, "scripts/prof_laneops.py:83"),
 }
 PROBE_TILES = 65536
+LANE_BATCH = 10                  # P1-P4 and their plain and library calls are
+                                 # timed 10 back to back (0.1-0.4 ms each)
 DMA_ROWS = 65536                 # the TPU script's pool, 0.5 GiB
 # scripts/prof_dma.py:266-278 and :284: (G, D, R) without and with the
 # double buffer, and of the RMW
@@ -516,7 +568,7 @@ def library_laneop_ms(name: str, x, s):
     else:
         lanes = s.long()[:, None] + (112 if name == "dyn_lane_read_wide" else 0) + j
     index = lanes[:, None, :].expand(-1, 16, -1)
-    return cuda_ms(lambda: torch.gather(x, 2, index))
+    return cuda_ms(lambda: torch.gather(x, 2, index), batch=LANE_BATCH)
 
 
 def check_laneops(tiles: int = PROBE_TILES, time_it: bool = True,
@@ -559,10 +611,12 @@ def check_laneops(tiles: int = PROBE_TILES, time_it: bool = True,
             raise AssertionError(f"{name}: wrong result at the shifts {edge.tolist()}")
         res = {"max_abs_err": float((k - p).abs().max()), "tiles": tiles}
         if time_it:
-            res["ms"] = cuda_ms(lambda: kernel(x, s))
-            res["plain_ms"] = cuda_ms(lambda: plain(x, s))
+            res["ms"] = cuda_ms(lambda: kernel(x, s), batch=LANE_BATCH)
+            res["plain_ms"] = cuda_ms(lambda: plain(x, s), batch=LANE_BATCH)
             res["library_ms"] = library_laneop_ms(name, x, s)
             res.update(laneop_bound(name, tiles))
+            if name in ("dyn_lane_read", "dyn_lane_read_wide"):
+                res.update(pk.laneop_info(name))
         out[name] = res
         del x, s, k, p
     return out
@@ -747,11 +801,16 @@ def check_prof_stages_entry(facts: str) -> dict:
 
 def scene(name: str):
     """(cfg, materials, positions, velocities, colliders) of a bench.py
-    scene, with the capacities bench.py gives it."""
+    scene, with the capacities bench.py gives it; sphere25m, dambreak12m,
+    sand and nacc are ``scripts/prof_k1.scene``'s."""
     import claymore_tpu_torch as ct
-    from claymore_tpu_torch.io.sampler import sample_sphere, sample_uniform_box_world
+    from claymore_tpu_torch.io.sampler import sample_uniform_box_world
     from claymore_tpu_torch.models.boundary import HalfSpace
+    from claymore_tpu_torch.scripts import prof_k1
 
+    if name in ("sphere25m", "dambreak12m", "sand", "nacc"):
+        cfg, mat, pos, v0 = prof_k1.scene(name)
+        return cfg, [mat], [pos], [v0], ()
     cfg = ct.SimConfig(domain_bits=8, max_active_blocks=8192, default_dt=1e-4,
                        rebucket_auto=True, particle_tile=512)
     box = sample_uniform_box_world
@@ -761,19 +820,6 @@ def scene(name: str):
         mats = [ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)]
         parts = [box(cfg.dx, [0.3, 0.5, 0.3], [0.5, 0.7, 0.5], cfg.ppc)]
         v0s = [(0.0, -0.5, 0.0)]
-    elif name == "sphere25m":
-        cfg = dataclasses.replace(cfg, max_active_blocks=65536)
-        mats = [ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)]
-        parts = [sample_sphere(cfg.dx, (0.5, 0.55, 0.5), 0.3547, cfg.ppc)]
-        v0s = [(0.0, -0.5, 0.0)]
-    elif name == "dambreak12m":
-        # launched, so the drift-triggered rebuild fires every few
-        # substeps; slack 2.5 because the column spreads (bench.py:95-100)
-        cfg = dataclasses.replace(cfg, max_active_blocks=65536)
-        mats = [ct.JFluid(volume=vol)]
-        parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.4, 0.7, 0.6], cfg.ppc)]
-        v0s = [(2.0, -2.0, 0.0)]
-        slack = 2.5
     elif name == "dambreak_sdf":
         # the column moves at 1 m/s and collapses onto bench.py's dome
         # (bench.py:118-140); slack 2.5, not bench.py's 1.25, as for
@@ -785,17 +831,12 @@ def scene(name: str):
         v0s = [(1.0, 0.0, 0.0)]
         colliders = (sdf_dome(),)
         slack = 2.5
-    elif name in ("dambreak_hs", "sand", "nacc"):
-        if name == "dambreak_hs":
-            cfg = dataclasses.replace(cfg, max_active_blocks=24576)
-            mats = [ct.JFluid(volume=vol)]
-            parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.3, 0.5, 0.5], cfg.ppc)]
-            colliders = (HalfSpace((0.0, 0.12, 0.0), (0.25, 1.0, 0.0), kind="slip",
-                                   friction=0.2),)
-        else:
-            mats = [ct.Sand(volume=vol, e=1e4, rho=1500.0) if name == "sand"
-                    else ct.NACC(volume=vol, e=1e4)]
-            parts = [box(cfg.dx, [0.4, 0.1, 0.4], [0.6, 0.5, 0.6], cfg.ppc)]
+    elif name == "dambreak_hs":
+        cfg = dataclasses.replace(cfg, max_active_blocks=24576)
+        mats = [ct.JFluid(volume=vol)]
+        parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.3, 0.5, 0.5], cfg.ppc)]
+        colliders = (HalfSpace((0.0, 0.12, 0.0), (0.25, 1.0, 0.0), kind="slip",
+                               friction=0.2),)
         v0s = [(0.0, 0.0, 0.0)]
     elif name == "multimat":
         cfg = dataclasses.replace(cfg, max_active_blocks=16384)
@@ -858,7 +899,8 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
     """One main path: build the bench scene ``name``, zero the launch
     counts, init, one warm-up substep and ``steps`` timed substeps (each
     ended by a synchronise, so rebuilding substeps are timed apart), read
-    the counts, and check the invariants.  ``on_step(i, engine, state)``
+    the counts, and check the invariants and K1's fused margin on the final
+    state (``check_fused_margin``).  ``on_step(i, engine, state)``
     runs after timed substep ``i``, outside the timing and the peak memory,
     and must launch no counted kernel.  Returns the metrics, the engine and the final state."""
     import claymore_tpu_torch as ct
@@ -903,6 +945,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
                for i in range(len(mats)))
     grid_name = grid_kernel_name(cols)
     used = [grid_name] + [_LAYOUT[type(m)][0] for m in mats]
+    margins = check_fused_margin(eng, state)
     checks = {
         "mass": mass_err < 1e-5,
         "null_row": d["null_block_mass"] == 0.0,
@@ -923,6 +966,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "ms_drift_only": float(np.mean(plain_ms)) if plain_ms else None,
         "init_s": init_s, "peak_gib": peak_gib, "mass_rel_err": mass_err,
         "displacement": disp, "launches": {k: launches[k] for k in used},
+        "fused_margins": margins,
     }
     log(f"main path {name}: {n} particles, {substeps} substeps, "
         f"{out['ms_per_substep']:.3f} ms/substep, {out['mpps']:.2f} M particle-steps/s, "
@@ -930,7 +974,8 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         f"{out['ms_rebuilding'] if out['ms_rebuilding'] is None else round(out['ms_rebuilding'], 3)} ms, "
         f"drift-only substep {out['ms_drift_only'] if out['ms_drift_only'] is None else round(out['ms_drift_only'], 3)} ms, "
         f"init {init_s:.2f} s, peak {peak_gib:.2f} GiB, mass_rel_err {mass_err:.3e}, "
-        f"displacement {disp:.3e}, launches {out['launches']} | {facts}")
+        f"displacement {disp:.3e}, launches {out['launches']}, fused margins "
+        f"{margins} == arena_margin | {facts}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"main path {name} checks failed: {failed} ({d}, "
@@ -1041,15 +1086,16 @@ def regrow_path(cfg, mat, pos, v0, facts: str, frames: int = 2) -> dict:
 def update_material_path(cfg, mat, pos, v0, facts: str, steps: int = 20) -> dict:
     """``update_material`` on the cube: ``steps`` substeps with Young's
     modulus lowered 100x against the unchanged engine from the same state,
-    the initial state stirred (``stir``) so that the material deforms from
+    the initial state stirred (``prof_k1.stir``) so that the material deforms from
     the first substep.  F must differ, mass agree with the particles' to
     1e-5 on both, and both runs launch K1-FC every substep (counts zeroed
     before each)."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.core.engine import clone_state
+    from claymore_tpu_torch.scripts import prof_k1
 
     eng = ct.MPMEngine(cfg, [mat], tile_chunk=64, device=DEVICE)
-    s0 = stir(eng.init_state([pos], [v0]))
+    s0 = prof_k1.stir(eng.init_state([pos], [v0]))
     soft = eng.update_material(0, e=mat.e / 100.0)
     fe = np.float32(1e9)
     n = pos.shape[0]
@@ -1080,9 +1126,10 @@ def update_material_path(cfg, mat, pos, v0, facts: str, steps: int = 20) -> dict
 def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
                     colliders=()) -> dict:
     """Median CUDA-event milliseconds of each stage of a substep on
-    ``state`` (single model): K2 (with ``colliders``), the CFL step, K1, the
-    drift check with its host read, and the three parts of a rebuild.  Not
-    counted."""
+    ``state`` (single model): K2 (with ``colliders``), the CFL step, K1
+    (which computes the drift margin in its epilogue), what is left of the
+    drift check, the host read of that margin, and the three parts of a
+    rebuild.  Not counted."""
     from claymore_tpu_torch.core import grid, partition
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
@@ -1094,6 +1141,8 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
                                           colliders, state.t, table, ptrs)
     next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt, fe)
     acc = torch.zeros_like(state.grid)
+    _, _, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, model,
+                                      state.dt, next_dt, acc, tile_chunk)
     nt = model.tiles.block.shape[0]
     pm, tk, dr = partition.sort_permute(cfg, model, nt)
     part, _ = partition.rebuild(cfg, state.grid, state.partition, (tk,))
@@ -1103,9 +1152,8 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
         "compute_dt": lambda: grid.compute_dt(cfg, mvs, state.t + state.dt, fe),
         "K1 g2p2g": lambda: g2p2g_kernel.g2p2g(
             cfg, mat, pool_v, state.partition.table, model, state.dt, next_dt,
-            acc.zero_(), tile_chunk),
-        "arena_margin + host read": lambda: bool(
-            partition.arena_margin(cfg, model) <= 0.0),
+            acc, tile_chunk),
+        "drift check host read": lambda: bool(margin <= 0.0),
         "sort_permute": lambda: partition.sort_permute(cfg, model, nt),
         "rebuild": lambda: partition.rebuild(cfg, state.grid, state.partition, (tk,)),
         "finalize_tiles": lambda: partition.finalize_tiles(cfg, part, tk, dr),
@@ -1118,7 +1166,9 @@ def log_k1(label: str, k1: dict, facts: str) -> None:
         f"{k1['grid_max']:.3e}), pos {k1['pos_err']:.3e}, fields "
         f"{ {k: float(f'{v:.3e}') for k, v in k1['field_err'].items()} } "
         f"(particles over 1e-5 x scale: {k1['flipped']} of {k1['active']}), "
-        f"kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms | {facts}")
+        f"kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, margin "
+        f"{k1['margin']!r} == arena_margin, {k1['registers']} registers, "
+        f"{k1['blocks_per_sm']} blocks/SM | {facts}")
 
 
 def run_cli(facts: str) -> dict:
@@ -1331,6 +1381,7 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.ops import _build
+    from claymore_tpu_torch.scripts import prof_k1
 
     t_start = time.perf_counter()
     # 1. facts
@@ -1351,6 +1402,14 @@ def main() -> int:
     _build.build(verbose=True)
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR / _build.LIB_NAME}")
+    # K1's persistent grid is SMs x the blocks per SM the runtime allows
+    from claymore_tpu_torch.ops import g2p2g_kernel
+
+    vol = 1e-6
+    for mat in (ct.FixedCorotated(volume=vol), ct.JFluid(volume=vol),
+                ct.Sand(volume=vol), ct.NACC(volume=vol)):
+        log(f"K1 {mat.name} at particle_tile 512: "
+            f"{g2p2g_kernel.kernel_info(mat, 512)} | {facts}")
 
     # 3. K2 and K2 with colliders at the flagship pool shape
     cfg25, mats25, parts25, v0s25, _ = scene("sphere25m")
@@ -1388,7 +1447,9 @@ def main() -> int:
         log(f"{name} vs plain, {r['tiles']} tiles [16,{LANEOPS[name][0]}], random "
             f"shifts: max_abs_err {r['max_abs_err']}, kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {facts}")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f", {r['registers']} registers, {r['blocks_per_sm']} blocks/SM"
+               if "registers" in r else "") + f" | {facts}")
     dma = check_dma()
     for name, rows in dma.items():
         for r in rows:
@@ -1458,10 +1519,14 @@ def main() -> int:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"main path checks failed: {failed} ({d})")
+    log(f"sphere25m final state: fused margin {check_fused_margin(eng, state)} == "
+        f"arena_margin | {facts}")
 
     # kernels at the main path's shapes, on its final state (not counted)
     k1 = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10)
     log_k1("g2p2g_fixed_corotated, sphere25m state", k1, facts)
+    # K1's time against the order of the slots inside the tiles
+    k1_order = k1_order_sensitivity(cfg25, mat25, state, k1, facts)
     # the engine's own stage profile on the same state, beside the CUDA-event
     # breakdown; it must leave the state as it was
     before = (state.grid.clone(), state.models[0].pos.clone())
@@ -1497,7 +1562,7 @@ def main() -> int:
     prof_entry = check_prof_stages_entry(facts)
 
     # 7. main path 2: the 12.1M JFluid dam break, drift-triggered rebuilds
-    paths = {"sphere25m": {"launches": launches}}
+    paths = {"sphere25m": {"launches": launches, "k1_slot_order": k1_order}}
     db = drive("dambreak12m", steps=80, facts=facts)
     if db["metrics"]["rebuilds"] == 0:
         raise AssertionError("dambreak12m: no drift-triggered rebuild fired")
@@ -1518,7 +1583,7 @@ def main() -> int:
         if model_idx is not None:
             mat = run["mats"][model_idx]
             key = "g2p2g_" + mat.name
-            k1v[key] = check_g2p2g_kernel(run["cfg"], mat, stir(run["state"]),
+            k1v[key] = check_g2p2g_kernel(run["cfg"], mat, prof_k1.stir(run["state"]),
                                           tile_chunk=64, reps=10, model_idx=model_idx)
             n_model = int(run["state"].models[model_idx].active.sum())
             log_k1(f"{key}, {name} state, model {model_idx}, {n_model} particles",
@@ -1560,11 +1625,14 @@ def main() -> int:
     k1_call = "claymore_tpu/ops/pallas_g2p2g.py:783"
 
     def entry(name, source, replaces, path, check):
-        return {"name": name, "route": "cuda", "source": src + source,
-                "replaces": replaces, "launches": paths[path]["launches"][name],
-                "max_abs_err": check["max_abs_err"], "ms": check["ms"],
-                "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
-                "bound_by": check["bound_by"], "library_ms": None}
+        e = {"name": name, "route": "cuda", "source": src + source,
+             "replaces": replaces, "launches": paths[path]["launches"][name],
+             "max_abs_err": check["max_abs_err"], "ms": check["ms"],
+             "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+             "bound_by": check["bound_by"], "library_ms": None}
+        # K1 and P2/P3: what the card gives them (kernel_info, laneop_info)
+        e.update({k: check[k] for k in ("registers", "blocks_per_sm") if k in check})
+        return e
 
     kernels = [
         entry("grid_update", "grid_update.cu", k2_call, "sphere25m", k2),

@@ -43,4 +43,13 @@ __all__ = [
     "Box",
     "SignedDistanceCollider",
     "RigidMotion",
+    "load_scene",
 ]
+
+
+def load_scene(path: str, device="cuda", **kw):
+    """A scene file -> its engine and initial state (``io.scene.Scene``), on
+    the card unless ``device`` says otherwise."""
+    from .io.scene import load_scene as _load_scene
+
+    return _load_scene(path, device=device, **kw)

@@ -2,10 +2,10 @@
 
 Port of ``claymore_tpu/core/engine.py``: ``init_impl`` builds the partition,
 tiles and rasterized grid; ``substep_impl`` runs one explicit MPM substep,
-grid update (CUDA kernel K2) -> CFL step -> fused G2P2G (CUDA kernel K1) ->
-drift check -> rebucket when needed.  On CPU tensors the kernel wrappers run
-their plain PyTorch versions, which is how the tests hold the port against
-the JAX package.
+grid update (CUDA kernel K2) -> CFL step -> fused G2P2G (CUDA kernel K1,
+which also returns the drift margin) -> drift check -> rebucket when
+needed.  On CPU tensors the kernel wrappers run their plain PyTorch
+versions, which is how the tests hold the port against the JAX package.
 
 PyTorch runs eagerly, so the JAX package's on-device ``lax.while_loop``
 frame loop becomes a host loop over substeps.  Several materials share one
@@ -211,20 +211,21 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
 
     next_pool = torch.zeros_like(state.grid)
     new_models = []
+    margin = None
     for mat, model in zip(materials, state.models):
-        model, next_pool = g2p2g_kernel.g2p2g(
+        # each transfer returns its output's arena_margin (the kernel
+        # computes it in its epilogue)
+        model, next_pool, m = g2p2g_kernel.g2p2g(
             cfg, mat, pool_v, state.partition.table, model, dt, next_dt,
             next_pool, tile_chunk)
         new_models.append(model)
+        margin = m if margin is None else torch.minimum(margin, m)
     del pool_v
 
     k_every = cfg.rebucket_every
     if cfg.rebucket_auto:
         # rebuild when the next advection could push some particle past its
         # tile's arena bound (margin on the advected positions, stale tiles)
-        margin = part.arena_margin(cfg, new_models[0])
-        for m in new_models[1:]:
-            margin = torch.minimum(margin, part.arena_margin(cfg, m))
         drift_next = next_dt * torch.sqrt(max_vel_sqr) * cfg.dx_inv
         do_rebuild = bool(margin <= drift_next * cfg.rebucket_safety + 1e-3)
     elif k_every == 1:
@@ -509,8 +510,8 @@ class MPMEngine:
         """Milliseconds per call of each stage of a substep on ``state``:
         ``grid_update`` (K2), ``g2p2g`` (K1, every model, from the pool as
         it is), ``rebuild`` (the full rebucket), ``substep``, and
-        ``overhead`` = substep minus the three (the CFL step, the drift check
-        and its host read; it can come out negative).
+        ``overhead`` = substep minus the three (the CFL step and the drift
+        check's host read; it can come out negative).
 
         Each stage is a state -> state function run ``iters`` times back to
         back, best of ``reps`` (``time_state_loop``: CUDA events on a card,
@@ -530,8 +531,8 @@ class MPMEngine:
             nxt = torch.zeros_like(s.grid)
             models = []
             for mat, m in zip(self.materials, s.models):
-                m, nxt = g2p2g_kernel.g2p2g(cfg, mat, s.grid, s.partition.table, m,
-                                            s.dt, s.dt, nxt, self.tile_chunk)
+                m, nxt, _ = g2p2g_kernel.g2p2g(cfg, mat, s.grid, s.partition.table, m,
+                                               s.dt, s.dt, nxt, self.tile_chunk)
                 models.append(m)
             return dataclasses.replace(s, grid=nxt, models=tuple(models))
 

@@ -7,7 +7,9 @@
 // A_rc = sum_i w_i v_i_r (x_i - x_p)_c, the material update
 // (material.update, models/materials.py), advection x += v dt, the arena
 // range checks, and the P2G of mass and momentum w (m v + Q (x_i - x_p))
-// with Q = (A m - contrib next_dt) D^-1.
+// with Q = (A m - contrib next_dt) D^-1.  It also returns the drift margin
+// of core/partition.py:arena_margin on its own output, so the substep needs
+// no second pass over the particles.
 //
 // The kernel body is a template on a material functor that carries the
 // field layout and the update:
@@ -22,40 +24,98 @@
 // The arithmetic follows the plain PyTorch version term by term; it is
 // built without --use_fast_math, so logf/expf/powf are the accurate ones.
 //
-// Bound: on-chip work, not device memory.  A particle moves ~110 bytes
-// (pos, fields in and out, active, pid) but does ~1.5k flops of material
-// math (several thousand with svd3), 81 shared-memory arena reads in G2P
-// and 108 shared-memory atomic adds in P2G; particles of one tile share few
-// cells, so those atomics collide.  Design: one block per tile
-// (particle_tile particles, one home block), as the reference CUDA code
-// stages its arena.  The block resolves its 2^3 neighbour blocks through
-// the oct table itself (no window gather outside the kernel), stages their
-// 8^3 x 3 velocities in shared memory (6 KB), lets each thread carry whole
-// particles through G2P, the material update and P2G in registers,
-// accumulates P2G into a shared 8^3 x 4 arena (8 KB) with shared atomics,
-// and flushes that arena once per block with global atomicAdd, skipping
-// zeros and the null block.  Global float atomics change the summation
-// order from run to run: results agree with the plain version to float32
-// roundoff, not bit for bit.  No tensor cores: the TPU kernel's
-// contractions over the particle axis are matrix products only because
-// the TPU has nothing else fast; here the sums are direct.
+// What bounds it on an H100.  chip_smoke.g2p2g_bound counts the function's
+// work: every slot's state read and written once and the arena rows once
+// (~106 bytes a slot) against ~2.4k operations per active particle (several
+// thousand with svd3); at sphere25m that is 1.35 ms of bytes against 0.9 ms
+// of operations, so the bound is set by bytes.  The kernel does not run at
+// either rate.  What held the first design (one 256-thread block per tile,
+// 127 registers, 2 blocks per SM) at 7.5% of that bound were latencies:
+// (1) its P2G, 108 shared float atomicAdds per particle, each of which
+// sm_90a compiles to a load and an ATOMS.CAST.SPIN compare-and-swap loop;
+// particles arrive in home-block order, so the lanes of a warp shared cells
+// and went round the loop again for each (14-36 ms for one state by slot
+// order alone); (2) the particle stream: 4-byte copies at two blocks per SM
+// kept few bytes in flight (3.9 ms with every tile dead, a third of the
+// bytes rate); (3) nothing overlapped a tile's loads with its math.
+//
+// The design:
+//  * Persistent blocks (SMs x the occupancy the runtime reports) walk the
+//    tiles.  A tile's particle columns are contiguous runs of `tile` words
+//    (component-leading, slot-major), so one thread moves them into shared
+//    memory with 1-D bulk asynchronous copies (cp.async.bulk, completion on
+//    an mbarrier) into a 2-stage ring: tile i+1 streams in while tile i
+//    computes.  The 8 neighbour blocks' velocity rows of tile i+1 come in
+//    with 16-byte cp.async behind them.  Outputs are written back in place
+//    into the stage and leave as 16-byte vector stores.  Dead tiles and
+//    inactive slots take the same pipe and pass through.
+//  * Phase 1, one slot per thread: G2P, the material, advection, the range
+//    checks and the margin; the particle's m v and Q go to shared memory.
+//  * P2G with ~7x fewer atomics: the block counting-sorts its particles by
+//    post-advection stencil base (<= 6^3 bases in an arena, ~7 particles a
+//    base at 8 per cell).  Then one thread per (occupied base, channel) sums
+//    its base's particles' 27 node terms in registers and adds them to the
+//    arena with 27 shared atomicAdds.  The 4 channels of a base sit on
+//    adjacent lanes and a warp holds 8 bases, so a warp's adds hit 32
+//    distinct words and (arena strides padded) mostly distinct banks: no
+//    lane waits on another.  Which order the slots of a tile come in no
+//    longer changes the work.  The price is arithmetic: each of the 4 lanes
+//    of a base recomputes the particle's weights, and a lane idles while
+//    the fullest base of its warp finishes.  This is the binned P2G of Gao
+//    et al. 2018 ("GPU Optimization of Material Point Methods") with the
+//    run reduction done in registers instead of by warp shuffles (5
+//    shuffle steps for each of 108 values).  Per-warp arenas instead would
+//    take 8 x 9 KB more shared memory, one block per SM, and still pay the
+//    compare-and-swap loop per particle and node: on this file, with the
+//    particles sorted and spread so that no two lanes of a warp shared a
+//    cell, those loops alone cost 4.6 of 9.3 ms (against plain
+//    read-add-writes).
+//  * The flush adds each nonzero float4 of the arena with one vector global
+//    atomic (native on sm_90), skipping the null oct.
+//  * The drift margin, min over axes of min(c, 6 - c) with
+//    c = x dx_inv - 0.5 - origin for every particle that ends active, is
+//    computed with _rn intrinsics (bit-equal to arena_margin) and reduced to
+//    one atomicMax per block on an order-reversing integer image; the last
+//    block decodes it into the 0-d output.
+// Measured on an H100 at 700 W (scripts/prof_k1.py and ablations of this
+// file, sphere25m, FixedCorotated): 5.1-5.4 ms in any slot order; with
+// every tile dead 1.7-1.8 ms (the stream alone, 1.3x its 1.31 ms bytes
+// bound); without the P2G phase 2.9 ms.  So the per-base P2G (~2.2 ms, its
+// atomics ~0.45 of it) and the stream are what is left.  The register
+// budget is 128 for FC, Sand and NACC at 2 blocks (16 warps) per SM and 80
+// for JFluid at 3 (JFluid at 2 blocks and 128 registers ran 1.2x slower),
+// with no spills; shared memory (~72-110 KB a block at tile 512) allows no
+// more warps.
+// Global and shared float atomics change the summation order from run to
+// run: results agree with the plain version to float32 roundoff, not bit
+// for bit.  No tensor cores: the TPU kernel's contractions over the
+// particle axis are matrix products only because the TPU has nothing else
+// fast; here the sums are direct.
 //
 // Layouts (the JAX package's): pool f32[O+1, 16, 128], rows (channel c, cx),
 // lanes (z8, cy, cz), row O the null oct; a block address is
 // oct_row * 8 + z8.  Particles are slot-major and component-leading:
 // pos f32[3, S], F f32[9, S], J or logJp f32[S], active bool[S], pid i32[S],
-// S = T * tile.
+// S = T * tile.  The wrapper checks 32 <= tile <= 1024 (a power of two) and
+// 16-byte alignment, which the bulk copies need.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCells = 8;                     // arena cells per axis (2 blocks)
-constexpr int kArena = kCells * kCells * kCells;
+constexpr int kXS = 68;                       // arena strides in floats, padded
+constexpr int kYS = 8;                        // so that the P2G's lanes (bases
+constexpr int kChan = kCells * kXS + 8;       // x channels) spread over the banks
 constexpr int kRowFloats = 16 * 128;
 constexpr int kMaxParams = 16;
+constexpr int kBases = 216;                   // 6^3 stencil bases in an arena
+constexpr int kBins = kBases + 1;             // + slots with no stencil
+constexpr int kMinTile = 32, kMaxTile = 1024;
+constexpr int kP2G = 12;                      // m v (3) and Q (9) per particle
 
 struct Params {
   const float* pool_v;
@@ -75,6 +135,8 @@ struct Params {
   unsigned char* active_out;
   int* pid_out;
   float* next_pool;
+  unsigned int* margin_key;     // u32[2]: key, finished blocks; zeroed by the wrapper
+  float* margin_out;            // f32[]
   int num_tiles, tile, g, gzo, num_oct_keys, null_oct;
   float dx, dx_inv, d_inv, mass;
   float mp[kMaxParams];         // the material's constants (ops/g2p2g_kernel.py)
@@ -280,14 +342,15 @@ __device__ void svd3(const float a[9], float u[9], float s[3], float v[9]) {
   }
 }
 
-// F <- (I + dt D^-1 A) F
+// F <- (I + dt D^-1 A) F; f is the particle's F column in the stage
+// (component k at f[k * stride]), read here and overwritten by store_f
 __device__ __forceinline__ void deformation_update(const Params& p,
                                                    const float A[9], float dt,
-                                                   size_t s, size_t S,
+                                                   const float* f, int stride,
                                                    float Fn[9]) {
   float Fo[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) Fo[k] = p.F[k * S + s];
+  for (int k = 0; k < 9; ++k) Fo[k] = f[k * stride];
   const float sc = dt * p.d_inv;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -300,23 +363,24 @@ __device__ __forceinline__ void deformation_update(const Params& p,
   }
 }
 
-__device__ __forceinline__ void store_f(const Params& p, const float f[9],
-                                        size_t s, size_t S) {
+__device__ __forceinline__ void store_f(float* f, int stride, const float v[9]) {
 #pragma unroll
-  for (int k = 0; k < 9; ++k) p.F_out[k * S + s] = f[k];
+  for (int k = 0; k < 9; ++k) f[k * stride] = v[k];
 }
 
 // ---------------------------------------------------------------------------
-// materials: field layout + update(params, A, dt, slot) -> contrib
+// materials: field layout + update(params, A, dt, F, aux, stride) -> contrib;
+// F and aux point at the particle's slot in the stage and are updated there
 // ---------------------------------------------------------------------------
 
 // mp: 2 mu, lam, volume
 struct FixedCorotated {
   static constexpr bool kF = true, kAux = false;
+  static constexpr int kMinBlocks = 2;
   __device__ static void update(const Params& p, const float A[9], float dt,
-                                size_t s, size_t S, float contrib[9]) {
+                                float* f, float* aux, int stride, float contrib[9]) {
     float Fn[9], R[9];
-    deformation_update(p, A, dt, s, S, Fn);
+    deformation_update(p, A, dt, f, stride, Fn);
     polar3(Fn, R);
     const float J = det3(Fn);
     if (J < 0.0f) {
@@ -338,16 +402,17 @@ struct FixedCorotated {
         contrib[r * 3 + c] = dev * volume;
       }
     }
-    store_f(p, Fn, s, S);
+    store_f(f, stride, Fn);
   }
 };
 
 // mp: bulk, -gamma, viscosity, volume
 struct JFluid {
   static constexpr bool kF = false, kAux = true;
+  static constexpr int kMinBlocks = 3;
   __device__ static void update(const Params& p, const float A[9], float dt,
-                                size_t s, size_t S, float contrib[9]) {
-    float J = p.aux[s];
+                                float* f, float* aux, int stride, float contrib[9]) {
+    float J = aux[0];
     const float tr = A[0] + A[4] + A[8];
     J = J + tr * (dt * p.d_inv) * J;
     J = isnan(J) ? J : fmaxf(J, 0.1f);
@@ -362,7 +427,7 @@ struct JFluid {
         if (r == c) sym = sym + (-pressure);
         contrib[r * 3 + c] = sym * voln;
       }
-    p.aux_out[s] = J;
+    aux[0] = J;
   }
 };
 
@@ -370,14 +435,15 @@ struct JFluid {
 //     volume correction (0/1), 2 mu, lam, volume
 struct Sand {
   static constexpr bool kF = true, kAux = true;
+  static constexpr int kMinBlocks = 2;
   __device__ static void update(const Params& p, const float A[9], float dt,
-                                size_t s, size_t S, float contrib[9]) {
+                                float* fp, float* aux, int stride, float contrib[9]) {
     const float cohesion = p.mp[0], c_dg = p.mp[1], ys = p.mp[2];
     const float s_tip = p.mp[3], beta = p.mp[4];
     const float two_mu = p.mp[6], lam = p.mp[7], volume = p.mp[8];
     float f[9], u[9], v[9], sv[3];
-    deformation_update(p, A, dt, s, S, f);
-    const float log_jp = p.aux[s];
+    deformation_update(p, A, dt, fp, stride, f);
+    const float log_jp = aux[0];
     svd3(f, u, sv, v);
 
     float eps[3], eps_hat[3], new_s[3];
@@ -420,8 +486,8 @@ struct Sand {
     matmul_bt(P, f, pf);
 #pragma unroll
     for (int k = 0; k < 9; ++k) contrib[k] = pf[k] * volume;
-    store_f(p, f, s, S);
-    p.aux_out[s] = new_log_jp;
+    store_f(fp, stride, f);
+    aux[0] = new_log_jp;
   }
 };
 
@@ -429,15 +495,16 @@ struct Sand {
 //     1 - beta, 1 + 2 beta, -bm/2, bm/2
 struct NACC {
   static constexpr bool kF = true, kAux = true;
+  static constexpr int kMinBlocks = 2;
   __device__ static void update(const Params& p, const float A[9], float dt,
-                                size_t s, size_t S, float contrib[9]) {
+                                float* fp, float* aux, int stride, float contrib[9]) {
     const float mu = p.mp[0], bm = p.mp[1], xi = p.mp[2], neg_beta = p.mp[3];
     const float msqr = p.mp[4], volume = p.mp[5];
     const float ys_half = p.mp[7], one_m_beta = p.mp[8], one_p_2beta = p.mp[9];
     const float neg_bm_half = p.mp[10], bm_half = p.mp[11];
     float f[9], u[9], v[9], sv[3];
-    deformation_update(p, A, dt, s, S, f);
-    const float log_jp = p.aux[s];
+    deformation_update(p, A, dt, fp, stride, f);
+    const float log_jp = aux[0];
     svd3(f, u, sv, v);
     const float s0 = sv[0], s1 = sv[1], s2 = sv[2];
 
@@ -517,10 +584,146 @@ struct NACC {
         if (r == c) x = x + i_coeff;
         contrib[r * 3 + c] = x * volume;
       }
-    store_f(p, f, s, S);
-    p.aux_out[s] = new_log_jp;
+    store_f(fp, stride, f);
+    aux[0] = new_log_jp;
   }
 };
+
+// ---------------------------------------------------------------------------
+// shared-memory layout and the asynchronous copies
+// ---------------------------------------------------------------------------
+
+// one ring stage: the tile's particle columns, n words each (pos x/y/z, the
+// 9 F components, J or logJp, pid), then n active bytes
+template <class M>
+struct Stage {
+  static constexpr int kFw = M::kF ? 9 : 0;
+  static constexpr int kAw = M::kAux ? 1 : 0;
+  static constexpr int kFo = 3, kAuxo = 3 + kFw, kPid = 3 + kFw + kAw;
+  static constexpr int kWords = kPid + 1;
+  __host__ __device__ static int bytes(int n) { return n * (4 * kWords + 1); }
+};
+
+__host__ __device__ constexpr int round_up(int x, int a) { return (x + a - 1) / a * a; }
+
+struct Layout {                 // byte offsets into the dynamic shared memory
+  int bars, nb, misc, hist, blist, perm, sbin, srank, varena, oarena, p2g, stage,
+      stage_stride, total;
+};
+
+template <class M>
+__host__ __device__ inline Layout layout(int n) {
+  Layout s;
+  int o = 0;
+  s.bars = o;   o += 16;                      // two mbarriers
+  s.nb = o;     o += 2 * 8 * 4;               // neighbour block addresses per stage
+  s.misc = o;   o += 16;                      // margin key, count of occupied bins
+  s.hist = o;   o += round_up(kBins, 4) * 4;  // bin counts, then bin starts
+  s.blist = o;  o += round_up(2 * kBases, 16);  // the occupied bins
+  s.perm = o;   o += round_up(2 * n, 16);     // sorted position -> slot
+  s.sbin = o;   o += round_up(2 * n, 16);     // per slot: its bin, its rank in it
+  s.srank = o;  o += round_up(2 * n, 16);
+  o = round_up(o, 128);
+  s.varena = o; o += 2 * 3 * kChan * 4;       // velocity arenas, one per stage
+  s.oarena = o; o += 4 * kChan * 4;           // (m, mv) arena
+  s.p2g = o;    o += kP2G * n * 4;            // per slot: m v and Q, for the P2G
+  s.stage = o;
+  s.stage_stride = round_up(Stage<M>::bytes(n), 128);
+  o += 2 * s.stage_stride;
+  s.total = o;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t s_addr(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(s_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(s_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(s_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// 1-D bulk copy global -> shared, completing on ``bar``
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];"
+               :: "r"(s_addr(dst)), "l"(src), "r"(bytes), "r"(s_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s_addr(dst)), "l"(src) : "memory");
+}
+
+// the ring stage of tile t: every particle column by one bulk copy each
+template <class M>
+__device__ __forceinline__ void load_stage(const Params& p, int t, int n, size_t S,
+                                           unsigned char* stage, uint64_t* bar) {
+  using L = Stage<M>;
+  const uint32_t col = (uint32_t)n * 4;
+  const size_t s0 = (size_t)t * n;
+  float* w = reinterpret_cast<float*>(stage);
+  mbar_expect_tx(bar, (uint32_t)L::bytes(n));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) bulk_load(w + c * n, p.pos + c * S + s0, col, bar);
+  if constexpr (M::kF) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      bulk_load(w + (L::kFo + k) * n, p.F + k * S + s0, col, bar);
+  }
+  if constexpr (M::kAux) bulk_load(w + L::kAuxo * n, p.aux + s0, col, bar);
+  bulk_load(w + L::kPid * n, p.pid + s0, col, bar);
+  bulk_load(stage + L::kWords * 4 * n, p.active + s0, (uint32_t)n, bar);
+}
+
+// block address of neighbour ``k`` of tile t (the null block when inactive)
+__device__ __forceinline__ int neighbour(const Params& p, int t, int k) {
+  const int cx = p.bcoord[t] + (k >> 2), cy = p.bcoord[p.num_tiles + t] + ((k >> 1) & 1),
+            cz = p.bcoord[2 * p.num_tiles + t] + (k & 1);
+  const bool valid = cx >= 0 && cx < p.g && cy >= 0 && cy < p.g && cz >= 0 && cz < p.g;
+  const int okey = valid ? (cx * p.g + cy) * p.gzo + (cz >> 3) : p.num_oct_keys;
+  const int oslot = p.table[okey];
+  return oslot == p.null_oct ? p.null_oct * 8 : oslot * 8 + (cz & 7);
+}
+
+// arena offset of float4 ``i`` of a 3- or 4-channel arena, and the pool
+// offset it maps to: i = (channel, neighbour block, cx, cy), the float4
+// holding cz = 0..3
+__device__ __forceinline__ int arena_off4(int i) {
+  const int ch = i >> 7, blk = (i >> 4) & 7, cx = (i >> 2) & 3, cy = i & 3;
+  return ch * kChan + ((blk >> 2) * 4 + cx) * kXS + (((blk >> 1) & 1) * 4 + cy) * kYS
+         + (blk & 1) * 4;
+}
+
+__device__ __forceinline__ size_t pool_off4(int i, int br, int row0) {
+  const int ch = i >> 7, cx = (i >> 2) & 3, cy = i & 3;
+  return ((size_t)(br >> 3) * 16 + row0 + ch * 4 + cx) * 128 + (br & 7) * 16 + cy * 4;
+}
+
+// the velocity arena of a tile, pool rows 4..15 of its 8 neighbour blocks;
+// inactive neighbours read the null row, as the plain version does
+__device__ __forceinline__ void stage_velocity(const Params& p, const int* nb,
+                                               float* varena, int tid) {
+  for (int i = tid; i < 3 * 128; i += kThreads)
+    cp_async16(varena + arena_off4(i), p.pool_v + pool_off4(i, nb[(i >> 4) & 7], 4));
+}
 
 // ---------------------------------------------------------------------------
 // the transfer
@@ -551,82 +754,44 @@ __device__ __forceinline__ bool stencil(const Params& p, const float x[3],
   return in_range;
 }
 
+// order-reversing u32 image of a margin: the block and grid reductions take
+// the max, so the smallest margin wins; NaN maps to the top (it wins, as in
+// torch's min) and 0 stands for "no particle" (+inf)
+__device__ __forceinline__ uint32_t margin_key(float m) {
+  if (isnan(m)) return 0xFFFFFFFFu;
+  const uint32_t b = __float_as_uint(m);
+  return ~((b & 0x80000000u) ? ~b : (b | 0x80000000u));
+}
+
+__device__ __forceinline__ float margin_value(uint32_t key) {
+  if (key == 0u) return INFINITY;
+  if (key == 0xFFFFFFFFu) return NAN;
+  const uint32_t img = ~key;
+  return __uint_as_float((img & 0x80000000u) ? (img & 0x7FFFFFFFu) : ~img);
+}
+
+// one particle of a live tile, in place in the stage: G2P, the material,
+// advection, the range checks and the margin; m v and Q go to the slot's
+// column of ``pg`` for the P2G.  Returns the post-advection stencil base,
+// 0..215, or kBases when the particle left the arena
 template <class M>
-__global__ void __launch_bounds__(kThreads) g2p2g_kernel(const Params p) {
-  __shared__ float varena[3 * kArena];
-  __shared__ float oarena[4 * kArena];
-  __shared__ int nb[8];
+__device__ __forceinline__ int transfer_particle(
+    const Params& p, int n, int q, float* sw, unsigned char* sact,
+    const float* varena, float* pg, const int org[3], float dt, float next_dt,
+    uint32_t& kmax) {
+  using L = Stage<M>;
+  float x[3] = {sw[q], sw[n + q], sw[2 * n + q]};
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t S = (size_t)p.num_tiles * p.tile;
-  const size_t s0 = (size_t)t * p.tile;
-
-  // the null row absorbs nothing from this kernel (null-block flushes are
-  // skipped), so one block clears it without racing anyone
-  if (t == 0) {
-    float* nrow = p.next_pool + (size_t)p.null_oct * kRowFloats;
-    for (int i = tid; i < kRowFloats; i += kThreads) nrow[i] = 0.0f;
-  }
-
-  if (!p.tvalid[t]) {
-    // dead tile: state and fields pass through, nothing is active
-    for (int q = tid; q < p.tile; q += kThreads) {
-      const size_t s = s0 + q;
+  // ---- G2P: velocity and APIC moment, A[r*3+c] ----
+  int l[3];
+  float w[3][3], mw[3][3];
+  const bool in_pre = stencil(p, x, org, l, w, mw);
+  float v[3] = {0.0f, 0.0f, 0.0f};
+  float A[9];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) p.pos_out[c * S + s] = p.pos[c * S + s];
-      if (M::kF) {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) p.F_out[k * S + s] = p.F[k * S + s];
-      }
-      if (M::kAux) p.aux_out[s] = p.aux[s];
-      p.active_out[s] = 0;
-      p.pid_out[s] = (int)S;
-    }
-    return;
-  }
-
-  const int bc[3] = {p.bcoord[t], p.bcoord[p.num_tiles + t],
-                     p.bcoord[2 * p.num_tiles + t]};
-  if (tid < 8) {
-    const int cx = bc[0] + (tid >> 2), cy = bc[1] + ((tid >> 1) & 1),
-              cz = bc[2] + (tid & 1);
-    const bool valid = cx >= 0 && cx < p.g && cy >= 0 && cy < p.g &&
-                       cz >= 0 && cz < p.g;
-    const int okey = valid ? (cx * p.g + cy) * p.gzo + (cz >> 3) : p.num_oct_keys;
-    const int oslot = p.table[okey];
-    nb[tid] = oslot == p.null_oct ? p.null_oct * 8 : oslot * 8 + (cz & 7);
-  }
-  for (int i = tid; i < 4 * kArena; i += kThreads) oarena[i] = 0.0f;
-  __syncthreads();
-
-  // stage the 8^3 velocity arena (pool rows 4..15); inactive neighbours
-  // read the null row, as the plain version does
-  for (int i = tid; i < 3 * kArena; i += kThreads) {
-    const int r = i / kArena, cell = i % kArena;
-    const int x = cell >> 6, y = (cell >> 3) & 7, z = cell & 7;
-    const int br = nb[(x >> 2) * 4 + (y >> 2) * 2 + (z >> 2)];
-    varena[i] = p.pool_v[((size_t)(br >> 3) * 16 + 4 + r * 4 + (x & 3)) * 128
-                         + (br & 7) * 16 + (y & 3) * 4 + (z & 3)];
-  }
-  __syncthreads();
-
-  const float dt = *p.dt_ptr;
-  const float next_dt = *p.next_dt_ptr;
-  const int org[3] = {bc[0] * 4, bc[1] * 4, bc[2] * 4};
-
-  for (int q = tid; q < p.tile; q += kThreads) {
-    const size_t s = s0 + q;
-    float x[3] = {p.pos[s], p.pos[S + s], p.pos[2 * S + s]};
-
-    // ---- G2P: velocity and APIC moment, A[r*3+c] ----
-    int l[3];
-    float w[3][3], mw[3][3];
-    const bool in_pre = stencil(p, x, org, l, w, mw);
-    float v[3] = {0.0f, 0.0f, 0.0f};
-    float A[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) A[k] = 0.0f;
+  for (int k = 0; k < 9; ++k) A[k] = 0.0f;
+  {
+    const float* vb = varena + l[0] * kXS + l[1] * kYS + l[2];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -640,10 +805,10 @@ __global__ void __launch_bounds__(kThreads) g2p2g_kernel(const Params p) {
           const float Wx = mxwy * w[2][k];
           const float Wy = wxmy * w[2][k];
           const float Wz = wxy * mw[2][k];
-          const int idx = (l[0] + i) * 64 + (l[1] + j) * 8 + (l[2] + k);
+          const int idx = i * kXS + j * kYS + k;
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
-            const float vr = varena[r * kArena + idx];
+            const float vr = vb[r * kChan + idx];
             v[r] += W * vr;
             A[r * 3 + 0] += Wx * vr;
             A[r * 3 + 1] += Wy * vr;
@@ -652,29 +817,63 @@ __global__ void __launch_bounds__(kThreads) g2p2g_kernel(const Params p) {
         }
       }
     }
+  }
 
-    // ---- the material: new fields and the stress contribution ----
-    float contrib[9];
-    M::update(p, A, dt, s, S, contrib);
+  // ---- the material: new fields and the stress contribution ----
+  float contrib[9];
+  M::update(p, A, dt, sw + L::kFo * n + q, sw + L::kAuxo * n + q, n, contrib);
 
-    // ---- advection and the post-advection range check ----
+  // ---- advection, the post-advection range check and the margin ----
 #pragma unroll
-    for (int a = 0; a < 3; ++a) x[a] = x[a] + v[a] * dt;
-    p.pos_out[s] = x[0];
-    p.pos_out[S + s] = x[1];
-    p.pos_out[2 * S + s] = x[2];
-    const bool in_post = stencil(p, x, org, l, w, mw);
-    const bool ok = p.active[s] && in_pre && in_post;
-    p.active_out[s] = ok ? 1 : 0;
-    p.pid_out[s] = ok ? p.pid[s] : (int)S;
-    if (!ok) continue;
-
-    // ---- P2G: mass and momentum w (m v + Q (x_i - x_p)) ----
-    float Q[9];
+  for (int a = 0; a < 3; ++a) {
+    x[a] = x[a] + v[a] * dt;
+    sw[a * n + q] = x[a];
+  }
+  const bool ok = in_pre && stencil(p, x, org, l, w, mw);
+  sact[q] = ok ? 1 : 0;
+  if (!ok) return kBases;
 #pragma unroll
-    for (int k = 0; k < 9; ++k)
-      Q[k] = (A[k] * p.mass - contrib[k] * next_dt) * p.d_inv;
-    const float mv[3] = {v[0] * p.mass, v[1] * p.mass, v[2] * p.mass};
+  for (int a = 0; a < 3; ++a) {
+    // arena_margin: c = x dx_inv - 0.5 - origin, min(c, (cells - 2) - c)
+    const float c = __fsub_rn(__fsub_rn(__fmul_rn(x[a], p.dx_inv), 0.5f), (float)org[a]);
+    kmax = max(kmax, max(margin_key(c), margin_key(__fsub_rn((float)(kCells - 2), c))));
+  }
+
+  // ---- what the P2G needs besides the position: m v and Q ----
+#pragma unroll
+  for (int r = 0; r < 3; ++r) pg[r * n + q] = v[r] * p.mass;
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    pg[(3 + k) * n + q] = (A[k] * p.mass - contrib[k] * next_dt) * p.d_inv;
+  return (l[0] * (kCells - 2) + l[1]) * (kCells - 2) + l[2];
+}
+
+// the P2G of one channel (0 mass, 1..3 momentum) of the particles of one
+// stencil base b, slots perm[start .. start + cnt): each particle's 27 node
+// terms w m (mass) or w (m v_r + Q_r. (x_i - x_p)) sum in registers, and
+// the base's 27 nodes take one shared atomicAdd each
+__device__ __forceinline__ void p2g_base(const Params& p, int n, int b, int ch, int start,
+                                         int cnt, const unsigned short* perm,
+                                         const float* sw, const float* pg, float* oarena,
+                                         const int org[3]) {
+  float acc[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) acc[k] = 0.0f;
+  for (int e = 0; e < cnt; ++e) {
+    const int q = perm[start + e];
+    const float x[3] = {sw[q], sw[n + q], sw[2 * n + q]};
+    int l[3];
+    float w[3][3], mw[3][3];
+    stencil(p, x, org, l, w, mw);
+    // the factors of w and of the three moment weights; the mass channel's
+    // moment terms are zero
+    float f0 = p.mass, f1 = 0.0f, f2 = 0.0f, f3 = 0.0f;
+    if (ch) {
+      f0 = pg[(ch - 1) * n + q];
+      f1 = pg[(3 * ch) * n + q];
+      f2 = pg[(3 * ch + 1) * n + q];
+      f3 = pg[(3 * ch + 2) * n + q];
+    }
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -683,35 +882,236 @@ __global__ void __launch_bounds__(kThreads) g2p2g_kernel(const Params p) {
         const float mxwy = mw[0][i] * w[1][j];
         const float wxmy = w[0][i] * mw[1][j];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float W = wxy * w[2][k];
-          const float Wx = mxwy * w[2][k];
-          const float Wy = wxmy * w[2][k];
-          const float Wz = wxy * mw[2][k];
-          const int idx = (l[0] + i) * 64 + (l[1] + j) * 8 + (l[2] + k);
-          atomicAdd(&oarena[idx], W * p.mass);
-#pragma unroll
-          for (int r = 0; r < 3; ++r)
-            atomicAdd(&oarena[(1 + r) * kArena + idx],
-                      W * mv[r] + Wx * Q[r * 3] + Wy * Q[r * 3 + 1]
-                      + Wz * Q[r * 3 + 2]);
-        }
+        for (int k = 0; k < 3; ++k)
+          acc[(i * 3 + j) * 3 + k] += (wxy * w[2][k]) * f0 + (mxwy * w[2][k]) * f1
+                                      + (wxmy * w[2][k]) * f2 + (wxy * mw[2][k]) * f3;
       }
     }
   }
+  const int lx = b / ((kCells - 2) * (kCells - 2)), ly = (b / (kCells - 2)) % (kCells - 2),
+            lz = b % (kCells - 2);
+  float* ob = oarena + ch * kChan + lx * kXS + ly * kYS + lz;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        atomicAdd(&ob[i * kXS + j * kYS + k], acc[(i * 3 + j) * 3 + k]);
+}
+
+template <class M>
+__global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Params p) {
+  using L = Stage<M>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = p.tile;
+  const Layout lay = layout<M>(n);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  int* nb = reinterpret_cast<int*>(smem + lay.nb);
+  uint32_t* blk_key = reinterpret_cast<uint32_t*>(smem + lay.misc);
+  int* hist = reinterpret_cast<int*>(smem + lay.hist);
+  int* n_occ = reinterpret_cast<int*>(smem + lay.misc) + 1;
+  unsigned short* blist = reinterpret_cast<unsigned short*>(smem + lay.blist);
+  unsigned short* perm = reinterpret_cast<unsigned short*>(smem + lay.perm);
+  unsigned short* sbin = reinterpret_cast<unsigned short*>(smem + lay.sbin);
+  unsigned short* srank = reinterpret_cast<unsigned short*>(smem + lay.srank);
+  float* varenas = reinterpret_cast<float*>(smem + lay.varena);
+  float* oarena = reinterpret_cast<float*>(smem + lay.oarena);
+  float* pg = reinterpret_cast<float*>(smem + lay.p2g);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t S = (size_t)p.num_tiles * n;
+  const int n4 = n >> 2;
+  const int n4_shift = __ffs(n4) - 1;
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    *blk_key = 0u;
+  }
+  for (int i = tid; i < 4 * kChan; i += kThreads) oarena[i] = 0.0f;
+  for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+  // the null row absorbs nothing from this kernel (null-block flushes are
+  // skipped), so one block clears it without racing anyone
+  if (blockIdx.x == 0) {
+    float4* nrow = reinterpret_cast<float4*>(p.next_pool + (size_t)p.null_oct * kRowFloats);
+    for (int i = tid; i < kRowFloats / 4; i += kThreads)
+      nrow[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
   __syncthreads();
 
-  // ---- flush the 8^3 x 4 arena into the next pool ----
-  for (int i = tid; i < 4 * kArena; i += kThreads) {
-    const float val = oarena[i];
-    if (val == 0.0f) continue;
-    const int ch = i / kArena, cell = i % kArena;
-    const int x = cell >> 6, y = (cell >> 3) & 7, z = cell & 7;
-    const int br = nb[(x >> 2) * 4 + (y >> 2) * 2 + (z >> 2)];
-    if ((br >> 3) == p.null_oct) continue;
-    atomicAdd(&p.next_pool[((size_t)(br >> 3) * 16 + ch * 4 + (x & 3)) * 128
-                           + (br & 7) * 16 + (y & 3) * 4 + (z & 3)], val);
+  const float dt = *p.dt_ptr;
+  const float next_dt = *p.next_dt_ptr;
+  uint32_t kmax = 0u;
+
+  // prologue: the first tile's stage, neighbours and velocities
+  int t = blockIdx.x;
+  if (tid == 0) load_stage<M>(p, t, n, S, smem + lay.stage, &bar[0]);
+  if (tid < 8) nb[tid] = neighbour(p, t, tid);
+  __syncthreads();
+  if (p.tvalid[t]) stage_velocity(p, nb, varenas, tid);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  for (int it = 0; t < p.num_tiles; ++it, t += gridDim.x) {
+    const int s = it & 1;
+    unsigned char* st = smem + lay.stage + s * lay.stage_stride;
+    float* sw = reinterpret_cast<float*>(st);
+    unsigned char* sact = st + L::kWords * 4 * n;
+    const int* spid = reinterpret_cast<const int*>(sw + L::kPid * n);
+    const float* varena = varenas + s * 3 * kChan;
+    const int* nbs = nb + s * 8;
+
+    // the next tile streams into the other stage while this one computes;
+    // the end-of-iteration barrier freed that stage and its neighbour list
+    const int tn = t + gridDim.x;
+    const bool next = tn < p.num_tiles;
+    if (next) {
+      if (tid == 0)
+        load_stage<M>(p, tn, n, S, smem + lay.stage + (s ^ 1) * lay.stage_stride,
+                      &bar[s ^ 1]);
+      if (tid < 8) nb[(s ^ 1) * 8 + tid] = neighbour(p, tn, tid);
+    }
+    mbar_wait(&bar[s], (it >> 1) & 1);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();                      // this tile's velocities, next's neighbours
+    if (next && p.tvalid[tn])
+      stage_velocity(p, nb + (s ^ 1) * 8, varenas + (s ^ 1) * 3 * kChan, tid);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+
+    const bool live = p.tvalid[t];
+    if (live) {
+      const int org[3] = {p.bcoord[t] * 4, p.bcoord[p.num_tiles + t] * 4,
+                          p.bcoord[2 * p.num_tiles + t] * 4};
+      // the transfer, one slot per thread in slot order; each particle's
+      // post-advection stencil base is its P2G bin (kBases: no P2G).  Bins
+      // and ranks wait in shared memory: held in registers across the
+      // transfer they would spill at JFluid's 80-register budget
+#pragma unroll 1
+      for (int q = tid; q < n; q += kThreads)
+        sbin[q] = (unsigned short)(sact[q] ? transfer_particle<M>(p, n, q, sw, sact, varena,
+                                                                  pg, org, dt, next_dt, kmax)
+                                           : kBases);
+      // counting sort of the slots by bin.  Lanes with one bin add to its
+      // count once; the loop is uniform over a warp since n is a multiple of 32
+      for (int q = tid; q < n; q += kThreads) {
+        const int b = sbin[q];
+        const unsigned peers = __match_any_sync(0xffffffffu, b);
+        const int leader = __ffs(peers) - 1;
+        int first = 0;
+        if (lane == leader) first = atomicAdd(&hist[b], __popc(peers));
+        srank[q] = (unsigned short)(__shfl_sync(0xffffffffu, first, leader)
+                                    + __popc(peers & ((1u << lane) - 1u)));
+      }
+      __syncthreads();
+      if (warp == 0) {        // exclusive scan of the 217 counts, occupied bins listed
+        constexpr int kPer = (kBins + 31) / 32;
+        int c[kPer], sum = 0, occ = 0;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int b = lane * kPer + j;
+          c[j] = b < kBins ? hist[b] : 0;
+          sum += c[j];
+          occ += (b < kBases && c[j] > 0);
+        }
+        int inc = sum, inc_occ = occ;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, inc, d);
+          const int z = __shfl_up_sync(0xffffffffu, inc_occ, d);
+          if (lane >= d) {
+            inc += y;
+            inc_occ += z;
+          }
+        }
+        int run = inc - sum, slot = inc_occ - occ;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int b = lane * kPer + j;
+          if (b < kBins) hist[b] = run;
+          if (b < kBases && c[j] > 0) blist[slot++] = (unsigned short)b;
+          run += c[j];
+        }
+        if (lane == 31) *n_occ = inc_occ;
+      }
+      __syncthreads();
+      for (int q = tid; q < n; q += kThreads) {
+        const int b = sbin[q];
+        if (b < kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
+      }
+      __syncthreads();
+
+      // the P2G, one thread per (occupied base, channel): a base's 4
+      // channels sit on adjacent lanes, so a warp's adds hit 32 distinct
+      // words (distinct banks but where two bases lie a row apart)
+      const int n_items = 4 * *n_occ;
+      for (int it = tid; it < n_items; it += kThreads) {
+        const int b = blist[it >> 2];
+        p2g_base(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg, oarena,
+                 org);
+      }
+      __syncthreads();
+
+      // flush the (m, mv) arena into the next pool, zeroing it for the next
+      // tile; skip zero float4s and the null oct
+      for (int i = tid; i < 4 * 128; i += kThreads) {
+        float4* a = reinterpret_cast<float4*>(oarena + arena_off4(i));
+        const float4 val = *a;
+        *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
+        const int br = nbs[(i >> 4) & 7];
+        if ((br >> 3) == p.null_oct) continue;
+        atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4(i, br, 0)), val);
+      }
+      for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+    }
+
+    // the tile's state leaves in 16-byte stores: pos, F, aux as they now
+    // stand in the stage; active as the transfer set it (0 for a dead
+    // tile); pid where active, S elsewhere
+    const size_t s0 = (size_t)t * n;
+    for (int i = tid; i < L::kPid * n4; i += kThreads) {
+      const int c = i >> n4_shift, j = i & (n4 - 1);
+      float* dst = c < 3 ? p.pos_out + c * S
+                 : (M::kF && c < L::kAuxo) ? p.F_out + (c - L::kFo) * S : p.aux_out;
+      reinterpret_cast<float4*>(dst + s0)[j] = reinterpret_cast<const float4*>(sw + c * n)[j];
+    }
+    for (int j = tid; j < n4; j += kThreads) {
+      const uchar4 a = live ? reinterpret_cast<const uchar4*>(sact)[j] : make_uchar4(0, 0, 0, 0);
+      const int4 pv = reinterpret_cast<const int4*>(spid)[j];
+      const int none = (int)S;
+      reinterpret_cast<uchar4*>(p.active_out + s0)[j] = a;
+      reinterpret_cast<int4*>(p.pid_out + s0)[j] =
+          make_int4(a.x ? pv.x : none, a.y ? pv.y : none, a.z ? pv.z : none,
+                    a.w ? pv.w : none);
+    }
+    // the stage is refilled by the async proxy next: order these accesses first
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
   }
+
+  // the drift margin: one atomicMax per block; the last block decodes
+  const uint32_t wk = __reduce_max_sync(0xffffffffu, kmax);
+  if (lane == 0 && wk) atomicMax(blk_key, wk);
+  __syncthreads();
+  if (tid == 0) {
+    if (*blk_key) atomicMax(&p.margin_key[0], *blk_key);
+    __threadfence();
+    if (atomicAdd(&p.margin_key[1], 1u) == gridDim.x - 1) {
+      __threadfence();
+      *p.margin_out = margin_value(atomicMax(&p.margin_key[0], 0u));
+    }
+  }
+}
+
+template <class M>
+cudaError_t occupancy(int tile, int* blocks_per_sm, int* smem_bytes) {
+  const int bytes = layout<M>(tile).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      g2p2g_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, g2p2g_kernel<M>,
+                                                       kThreads, bytes);
 }
 
 template <class M>
@@ -720,22 +1120,41 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
            const float* aux, const unsigned char* active, const int* pid,
            const float* dt, const float* next_dt, float* pos_out,
            float* F_out, float* aux_out, unsigned char* active_out,
-           int* pid_out, float* next_pool, int num_tiles, int tile, int g,
+           int* pid_out, float* next_pool, unsigned int* margin_key,
+           float* margin_out, int num_tiles, int tile, int g,
            int gzo, int num_oct_keys, int null_oct, float dx, float dx_inv,
            float d_inv, float mass, const float* mp, int num_mp,
            void* stream) {
-  if (num_tiles <= 0 || tile <= 0 || num_mp < 0 || num_mp > kMaxParams)
+  if (num_tiles <= 0 || tile < kMinTile || tile > kMaxTile || (tile & (tile - 1))
+      || num_mp < 0 || num_mp > kMaxParams)
     return (int)cudaErrorInvalidValue;
   if ((M::kF && (F == nullptr || F_out == nullptr)) ||
       (M::kAux && (aux == nullptr || aux_out == nullptr)))
     return (int)cudaErrorInvalidValue;
+  int per_sm = 0, bytes = 0, dev = 0, sms = 0;
+  cudaError_t err = occupancy<M>(tile, &per_sm, &bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Params p{pool_v, table, bcoord, tvalid, pos, F, aux, active, pid, dt,
            next_dt, pos_out, F_out, aux_out, active_out, pid_out, next_pool,
-           num_tiles, tile, g, gzo, num_oct_keys, null_oct,
+           margin_key, margin_out, num_tiles, tile, g, gzo, num_oct_keys, null_oct,
            dx, dx_inv, d_inv, mass, {}};
   for (int i = 0; i < num_mp; ++i) p.mp[i] = mp[i];
-  g2p2g_kernel<M><<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(p);
+  const int blocks = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;
+  g2p2g_kernel<M><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <class M>
+int info(int tile, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, g2p2g_kernel<M>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  return (int)occupancy<M>(tile, &out[1], &out[2]);
 }
 
 }  // namespace
@@ -749,17 +1168,30 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
       const float* aux, const unsigned char* active, const int* pid,           \
       const float* dt, const float* next_dt, float* pos_out, float* F_out,     \
       float* aux_out, unsigned char* active_out, int* pid_out,                 \
-      float* next_pool, int num_tiles, int tile, int g, int gzo,               \
+      float* next_pool, unsigned int* margin_key, float* margin_out,           \
+      int num_tiles, int tile, int g, int gzo,                                 \
       int num_oct_keys, int null_oct, float dx, float dx_inv, float d_inv,     \
       float mass, const float* mp, int num_mp, void* stream) {                 \
     return launch<MAT>(pool_v, table, bcoord, tvalid, pos, F, aux, active,     \
                        pid, dt, next_dt, pos_out, F_out, aux_out, active_out,  \
-                       pid_out, next_pool, num_tiles, tile, g, gzo,            \
-                       num_oct_keys, null_oct, dx, dx_inv, d_inv, mass, mp,    \
-                       num_mp, stream);                                        \
+                       pid_out, next_pool, margin_key, margin_out, num_tiles,  \
+                       tile, g, gzo, num_oct_keys, null_oct, dx, dx_inv,       \
+                       d_inv, mass, mp, num_mp, stream);                       \
   }
 
 CM_G2P2G_ENTRY(cm_g2p2g_fixed_corotated, FixedCorotated)
 CM_G2P2G_ENTRY(cm_g2p2g_jfluid, JFluid)
 CM_G2P2G_ENTRY(cm_g2p2g_sand, Sand)
 CM_G2P2G_ENTRY(cm_g2p2g_nacc, NACC)
+
+// registers, blocks per SM and dynamic shared memory of a variant at a
+// tile size: out i32[3]; variant 0 FixedCorotated, 1 JFluid, 2 Sand, 3 NACC
+extern "C" int cm_g2p2g_info(int variant, int tile, int* out) {
+  switch (variant) {
+    case 0: return info<FixedCorotated>(tile, out);
+    case 1: return info<JFluid>(tile, out);
+    case 2: return info<Sand>(tile, out);
+    case 3: return info<NACC>(tile, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

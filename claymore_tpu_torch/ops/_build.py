@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
-_G2P2G = [_P] * 17 + [_I] * 6 + [_F] * 4 + [_P, _I, _P]
+_G2P2G = [_P] * 19 + [_I] * 6 + [_F] * 4 + [_P, _I, _P]
 # the probes: (x, shifts, out, tiles, stream) and
 # (pool, idx, out, rows, programs, runs, run_rows, stream)
 _LANEOPS = [_P, _P, _P, _I, _P]
@@ -55,6 +55,9 @@ SIGNATURES = {
     "cm_g2p2g_jfluid": _G2P2G,
     "cm_g2p2g_sand": _G2P2G,
     "cm_g2p2g_nacc": _G2P2G,
+    # (variant or probe, [tile,] out i32[3]): registers, blocks per SM, smem
+    "cm_g2p2g_info": [_I, _I, _P],
+    "cm_prof_laneops_info": [_I, _P],
 }
 
 

@@ -2,9 +2,12 @@
 
 On CUDA tensors it launches the kernel variant of the model's material,
 which replaces ``claymore_tpu/ops/pallas_g2p2g.py`` with the scatter-add
-and null-row zeroing around it; on CPU tensors it runs the plain PyTorch
-version, ``core/transfer.py:g2p2g_model``.  There is no fallback from the
-kernel: an unknown material or a span-4 arena raises.
+and null-row zeroing around it, and which also returns the drift margin of
+its output (``core/partition.py:arena_margin``, fused into its epilogue);
+on CPU tensors it runs the plain PyTorch version,
+``core/transfer.py:g2p2g_model``, and ``arena_margin`` of its output.
+There is no fallback from the kernel: an unknown material, a span-4 arena,
+a tile size outside 32..1024 or a misaligned tensor raises.
 """
 
 from __future__ import annotations
@@ -16,18 +19,19 @@ from typing import List, Tuple
 import torch
 
 from ..config import SimConfig
-from ..core import transfer
+from ..core import partition, transfer
 from ..core.types import ParticleModel
 from ..models.materials import JFluid, FixedCorotated, Material, NACC, Sand
 from .grid_kernel import _expect
 
-# material -> (kernel entry, F field, scalar field)
+# material -> (kernel entry, F field, scalar field, variant index of cm_g2p2g_info)
 _LAYOUT = {
-    FixedCorotated: ("g2p2g_fixed_corotated", "F", None),
-    JFluid: ("g2p2g_jfluid", None, "J"),
-    Sand: ("g2p2g_sand", "F", "logJp"),
-    NACC: ("g2p2g_nacc", "F", "logJp"),
+    FixedCorotated: ("g2p2g_fixed_corotated", "F", None, 0),
+    JFluid: ("g2p2g_jfluid", None, "J", 1),
+    Sand: ("g2p2g_sand", "F", "logJp", 2),
+    NACC: ("g2p2g_nacc", "F", "logJp", 3),
 }
+MIN_TILE, MAX_TILE = 32, 1024     # the kernel's range of particle_tile
 
 
 def kernel_params(material: Material) -> List[float]:
@@ -64,26 +68,32 @@ def g2p2g(
     next_dt: torch.Tensor,
     next_pool: torch.Tensor,
     tile_chunk: int = 32,
-) -> Tuple[ParticleModel, torch.Tensor]:
+) -> Tuple[ParticleModel, torch.Tensor, torch.Tensor]:
     """One material's transfer.  ``next_pool`` accumulates (m, mx, my, mz) in
     place and comes back with its null row zeroed; the particle state comes
-    back in new tensors (``tile_chunk`` only shapes the plain version)."""
+    back in new tensors (``tile_chunk`` only shapes the plain version).
+    Returns (model, next_pool, margin): ``margin`` is the 0-d drift margin
+    of the new model, ``arena_margin(cfg, model)``."""
     if not pool_v.is_cuda:
-        return transfer.g2p2g_model(cfg, material, pool_v, table, model, dt,
-                                    next_dt, next_pool, tile_chunk)
+        new, pool = transfer.g2p2g_model(cfg, material, pool_v, table, model, dt,
+                                         next_dt, next_pool, tile_chunk)
+        return new, pool, partition.arena_margin(cfg, new)
     if type(material) not in _LAYOUT:
         raise NotImplementedError(
             f"no CUDA transfer kernel for {type(material).__name__}")
     if cfg.arena_span != 2:
         raise NotImplementedError("the CUDA transfer kernel needs span-2 arenas "
                                   "(rebucket_every <= 2)")
+    if not MIN_TILE <= cfg.particle_tile <= MAX_TILE:
+        raise NotImplementedError(f"the CUDA transfer kernel takes particle_tile "
+                                  f"{MIN_TILE}..{MAX_TILE}, not {cfg.particle_tile}")
     return _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool)
 
 
 def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
     from . import _build
 
-    name, f_name, aux_name = _LAYOUT[type(material)]
+    name, f_name, aux_name, _ = _LAYOUT[type(material)]
     dev = pool_v.device
     tm = model.tiles
     num_tiles = tm.tvalid.shape[0]
@@ -107,6 +117,11 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
         _expect(model.fields[f_name], torch.float32, (9, s_cap), dev, f_name)
     if aux_name:
         _expect(model.fields[aux_name], torch.float32, (s_cap,), dev, aux_name)
+    # the kernel moves particle columns with 16-byte bulk copies
+    for key, x in (("pos", model.pos), ("active", model.active), ("pid", model.pid),
+                   ("pool_v", pool_v), ("next_pool", next_pool), *model.fields.items()):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{key} must be 16-byte aligned")
     fields_out = {k: torch.empty_like(v) for k, v in model.fields.items()}
 
     def ptr(fields, key):
@@ -115,6 +130,8 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
     pos_out = torch.empty_like(model.pos)
     active_out = torch.empty_like(model.active)
     pid_out = torch.empty_like(model.pid)
+    margin_key = torch.zeros((2,), dtype=torch.int32, device=dev)
+    margin = torch.empty((), dtype=torch.float32, device=dev)
     mp = kernel_params(material)
     mp_arr = (ctypes.c_float * len(mp))(*mp)
     entry = "cm_" + name
@@ -125,6 +142,7 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
         dt.data_ptr(), next_dt.data_ptr(), pos_out.data_ptr(),
         ptr(fields_out, f_name), ptr(fields_out, aux_name),
         active_out.data_ptr(), pid_out.data_ptr(), next_pool.data_ptr(),
+        margin_key.data_ptr(), margin.data_ptr(),
         num_tiles, cfg.particle_tile, cfg.grid_size, cfg.grid_size_zo,
         cfg.num_oct_keys, cfg.null_oct,
         cfg.dx, cfg.dx_inv, cfg.d_inv, material.mass, mp_arr, len(mp),
@@ -133,8 +151,20 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
     g2p2g.launches[name] += 1
     new_model = ParticleModel(pos=pos_out, fields=fields_out,
                               active=active_out, pid=pid_out, tiles=tm)
-    return new_model, next_pool
+    return new_model, next_pool, margin
+
+
+def kernel_info(material: Material, tile: int) -> dict:
+    """What the card gives the material's K1 variant at ``tile``: registers
+    per thread, resident blocks per SM (the persistent grid is SMs x this)
+    and dynamic shared memory per block in bytes."""
+    from . import _build
+
+    out = (ctypes.c_int * 3)()
+    err = _build.library().cm_g2p2g_info(_LAYOUT[type(material)][3], tile, out)
+    _build.check(err, "cm_g2p2g_info")
+    return {"registers": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
 # launches per kernel variant, counted where each is launched
-g2p2g.launches = {name: 0 for name, _, _ in _LAYOUT.values()}
+g2p2g.launches = {name: 0 for name, _, _, _ in _LAYOUT.values()}

@@ -174,6 +174,19 @@ def dyn_lane_read_wide(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return _launch_laneop("dyn_lane_read_wide", x, shifts, WIDE_LANES, 32)
 
 
+def laneop_info(name: str) -> dict:
+    """Registers per thread, resident blocks per SM and static shared memory
+    per block of P2's or P3's kernel on the current card."""
+    import ctypes
+
+    from . import _build
+
+    which = {"dyn_lane_read": 0, "dyn_lane_read_wide": 1}[name]
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().cm_prof_laneops_info(which, out), "cm_prof_laneops_info")
+    return {"registers": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
+
+
 def dyn_lane_write(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """P4 on G tiles: f32[G, 16, 128] -> f32[G, 16, 128], 0 <= s <= 80."""
     if not x.is_cuda:

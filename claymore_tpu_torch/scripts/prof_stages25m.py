@@ -75,8 +75,8 @@ def main(argv=None) -> int:
         m0 = s.models[0]
         md = dataclasses.replace(m0, tiles=dataclasses.replace(
             m0.tiles, tvalid=torch.zeros_like(m0.tiles.tvalid)))
-        m, nxt = g2p2g_kernel.g2p2g(cfg, mat, s.grid, s.partition.table, md, s.dt,
-                                    s.dt, torch.zeros_like(s.grid), eng.tile_chunk)
+        m, nxt, _ = g2p2g_kernel.g2p2g(cfg, mat, s.grid, s.partition.table, md, s.dt,
+                                       s.dt, torch.zeros_like(s.grid), eng.tile_chunk)
         m.tiles = m0.tiles
         return dataclasses.replace(s, grid=nxt, models=(m,))
 

@@ -4,7 +4,9 @@ Port of ``claymore_tpu/utils/timers.py``.  ``tock`` synchronises the CUDA
 device first when asked to, so the time includes the device work queued
 since ``tick`` (the JAX package blocks on a value instead).  ``device_ms``,
 ``best_ms`` and ``device_label`` time device work and name the device for
-``MPMEngine.profile_stages`` and the profiling scripts.
+``MPMEngine.profile_stages`` and the profiling scripts; ``profile_trace``
+records a ``torch.profiler`` trace (the JAX package's ``jax.profiler``
+trace).
 """
 
 from __future__ import annotations
@@ -66,6 +68,26 @@ def device_label(device) -> str:
     except (OSError, subprocess.TimeoutExpired):
         pass
     return torch.cuda.get_device_name(index)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """``torch.profiler`` over the block: host activity, and the CUDA
+    kernels when a card is present; on exit a Chrome trace (viewable in
+    chrome://tracing or Perfetto) is written into ``logdir``.  Yields the
+    profiler, whose ``events()`` and ``key_averages()`` stay readable after
+    the block."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
 
 
 class StageTimer:

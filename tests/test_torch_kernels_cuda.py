@@ -14,6 +14,7 @@ import torch
 
 import claymore_tpu_torch as ct
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
+from claymore_tpu_torch.scripts.prof_k1 import permute_tiles, stir
 
 pytestmark = pytest.mark.cuda
 
@@ -84,7 +85,37 @@ def test_g2p2g_kernel_matches_plain(card, name):
     state = eng.init_state([pos], [(0.3, -0.5, 0.2)])
     card.check_g2p2g_kernel(cfg, mat, state, tile_chunk=8, time_it=False)
     # a sheared, compressed velocity field takes the return maps' branches
-    card.check_g2p2g_kernel(cfg, mat, card.stir(state), tile_chunk=8, time_it=False)
+    card.check_g2p2g_kernel(cfg, mat, stir(state), tile_chunk=8, time_it=False)
+
+
+@pytest.mark.parametrize("order", ["permuted", "sorted"])
+def test_g2p2g_kernel_slot_orders_match_plain(card, order):
+    """K1 on a copy of a state whose tiles' slots are permuted, or sorted by
+    stencil base, agrees with the plain version on that copy."""
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=2048, default_dt=2e-4,
+                       particle_tile=512)
+    pos = sample_uniform_box_world(cfg.dx, [0.3, 0.45, 0.35], [0.55, 0.6, 0.5], cfg.ppc)
+    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.25))
+    mat = _material("fixed_corotated", cfg.default_volume())
+    eng = ct.MPMEngine(cfg, [mat], tile_chunk=8, device="cuda")
+    state = stir(eng.init_state([pos], [(0.3, -0.5, 0.2)]))
+    card.check_g2p2g_kernel(cfg, mat, permute_tiles(cfg, state, order), tile_chunk=8,
+                            time_it=False)
+
+
+@pytest.mark.parametrize("name", ["jfluid", "sand"])
+def test_g2p2g_kernel_margin_is_arena_margin(card, name):
+    """The drift margin K1 returns equals arena_margin of its output bit for
+    bit, on an engine's state after a few substeps (a multi-tile scene)."""
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=2048, default_dt=2e-4,
+                       particle_tile=256, rebucket_auto=True)
+    pos = sample_uniform_box_world(cfg.dx, [0.2, 0.3, 0.35], [0.5, 0.55, 0.5], cfg.ppc)
+    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.5))
+    eng = ct.MPMEngine(cfg, [_material(name, cfg.default_volume())], tile_chunk=8,
+                       device="cuda")
+    state = eng.run_steps(eng.init_state([pos], [(1.5, -1.0, 0.5)]), 10, 1.0)
+    margins = card.check_fused_margin(eng, state)
+    assert 0.0 < margins[0] < 6.0
 
 
 @pytest.mark.parametrize("name", ["dyn_roll", "dyn_lane_read", "dyn_lane_read_wide",

@@ -14,7 +14,7 @@ import claymore_tpu_torch as ct
 from claymore_tpu.core import grid as jgrid
 from claymore_tpu.core import transfer as jtransfer
 from claymore_tpu.utils.debug import pool_to_dense as jax_pool_to_dense
-from claymore_tpu_torch.core import grid, transfer
+from claymore_tpu_torch.core import grid, partition, transfer
 from claymore_tpu_torch.interop import state_to_numpy
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
 from claymore_tpu_torch.ops import g2p2g_kernel
@@ -125,10 +125,11 @@ def test_g2p2g_wrapper_runs_plain_version_on_cpu():
     jcfg, cfg, jmat, mat, pos, s = _scene()
     pool_v, mv = grid.grid_update(cfg, s.grid, s.partition, s.dt)
     before = dict(g2p2g_kernel.g2p2g.launches)
-    a, pa = g2p2g_kernel.g2p2g(cfg, mat, pool_v, s.partition.table, s.models[0],
-                               s.dt, s.dt, torch.zeros_like(s.grid), 4)
+    a, pa, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, s.partition.table, s.models[0],
+                                       s.dt, s.dt, torch.zeros_like(s.grid), 4)
     b, pb = transfer.g2p2g_model(cfg, mat, pool_v, s.partition.table, s.models[0],
                                  s.dt, s.dt, torch.zeros_like(s.grid), 4)
     assert g2p2g_kernel.g2p2g.launches == before       # no kernel on CPU
     assert torch.equal(pa, pb) and torch.equal(a.pos, b.pos)
     assert torch.equal(a.fields["F"], b.fields["F"]) and torch.equal(a.pid, b.pid)
+    assert torch.equal(margin, partition.arena_margin(cfg, b))
