@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``claymore_tpu_torch/csrc``, holds each against
-its plain PyTorch version on the card, and drives the port's main paths
-through ``MPMEngine`` with their invariants checked:
+its plain PyTorch version on the card (the collider grid kernels also on
+pools where every row crosses a collider surface, and their per-row cull
+against its plain twin), and drives the port's main paths through
+``MPMEngine`` with their invariants checked:
 
 * the ~25M-particle FixedCorotated sphere of ``bench.py --scene=sphere25m``
   and the ``run()`` entry point on the 1M-particle cube;
@@ -49,6 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from claymore_tpu_torch.utils.bounds import bound, g2p2g_bound, grid_bound
+
 SEED = 0
 DEVICE = "cuda"
 SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
@@ -83,93 +87,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2, batch: int = 1) -> float:
 
 
 # --------------------------------------------------------------------------
-# bounds: the least time an H100 SXM could take for a kernel's work, the
-# larger of its bytes over 3.35 TB/s and its float32 operations over
-# 67 TFLOP/s (the published peaks at 700 W).  Bytes: each input read once,
-# each output written once.  Operations: additions, multiplications,
-# divisions, square roots and transcendentals counted one each, per cell or
-# particle as the kernel source does them, for the work these inputs need.
+# bounds: the least time an H100 SXM could take for a kernel's work
+# (claymore_tpu_torch/utils/bounds.py holds K1's and K2's and the peaks)
 # --------------------------------------------------------------------------
-
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-
-# K2 per massive cell: 1/m, 3 momenta x 1/m, 3 gravity adds, |v|^2 (5)
-K2_OPS = 12
-# per collider and massive cell: world -> material (3 subtractions, 3
-# divisions; 15 more for a rotation) and the SDF of its type
-# (csrc/grid_update.cu: sdf_normal, sdf_grid); the projection of the cells
-# that hit is data-dependent and not counted
-K2_SDF_OPS = {"HalfSpace": 8, "Sphere": 14, "Box": 35,
-              "SignedDistanceCollider": 109}
-# K1 per active particle (csrc/g2p2g.cu): two stencils 132, G2P 783,
-# advection 6, P2G 876; and each material's update
-K1_OPS = 1797
-K1_MATERIAL_OPS = {"fixed_corotated": 576, "jfluid": 42, "sand": 1216, "nacc": 1251}
-K1_FIELD_FLOATS = {"fixed_corotated": 9, "jfluid": 1, "sand": 10, "nacc": 10}
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
-
-
-def grid_bound(cfg, pool, partition, colliders=(), t: float = 0.0) -> dict:
-    """K2's bound on ``pool``: the pool read and written, the keys and the
-    collider tables read once; K2_OPS per massive cell plus each collider's
-    transform and SDF, the SDF grid's only where the cell lies in its band
-    (the kernel samples nothing elsewhere)."""
-    from claymore_tpu_torch.core import grid
-    from claymore_tpu_torch.models.boundary import SignedDistanceCollider
-
-    massive = pool[:, 0:4] > 0.0
-    n_mass = int(massive.sum())
-    nbytes = 2 * pool.numel() * 4 + cfg.max_active_octs * 4 + len(colliders) * 96
-    ops = K2_OPS * n_mass
-    x3 = None
-    for c in colliders:
-        per = 6 + (15 if c.motion.rotating else 0)
-        name = type(c).__name__
-        if isinstance(c, SignedDistanceCollider):
-            nbytes += c.values.size * 16
-            if x3 is None:
-                x3 = tuple(a[massive] for a in grid.cell_positions(cfg, partition))
-            ops += per * n_mass + K2_SDF_OPS[name] * sdf_band_cells(c, x3, t)
-        else:
-            ops += (per + K2_SDF_OPS[name]) * n_mass
-    return bound(nbytes, ops)
-
-
-def sdf_band_cells(col, x3, t: float) -> int:
-    """How many of the world positions ``x3`` lie in the SDF collider's
-    interior band once posed at time ``t``."""
-    tt = torch.tensor(t, dtype=torch.float32, device=x3[0].device)
-    _, x_mat, _ = col.pose(x3, tt)
-    lo, hi = col.band
-    inside = torch.ones_like(x_mat[0], dtype=torch.bool)
-    for c in x_mat:
-        inside &= (c >= lo) & (c < hi)
-    return int(inside.sum())
-
-
-def g2p2g_bound(cfg, mat, state, model_idx: int = 0) -> dict:
-    """K1's bound on ``state``: every slot's position, fields, active flag
-    and id read and written, the tiles' coordinates and flags read, the
-    velocity rows of the active octs read and their 16 rows written;
-    K1_OPS plus the material's update per active particle."""
-    model = state.models[model_idx]
-    slots = model.pos.shape[1]
-    tiles = model.tiles.block.shape[0]
-    octs = int(state.partition.count[0])
-    n_act = int(model.active.sum())
-    nf = K1_FIELD_FLOATS[mat.name]
-    nbytes = (2 * slots * (12 + 4 * nf + 1 + 4) + tiles * 13
-              + octs * (12 + 16) * 512)
-    return bound(nbytes, n_act * (K1_OPS + K1_MATERIAL_OPS[mat.name]))
-
 
 def laneop_bound(name: str, tiles: int) -> dict:
     """P1-P4's bound on ``tiles`` tiles: the lanes each probe reads and
@@ -200,41 +120,15 @@ def dma_bound(idx, run_rows: int, rmw: bool = False) -> dict:
 # kernel checks (also used by tests/test_torch_kernels_cuda.py)
 # --------------------------------------------------------------------------
 
-def random_grid_inputs(cfg, n_active: int, seed: int = SEED):
-    """A random partition and pool on the device with boundary octs, empty
-    cells and mass in the null row (the cases of tests/test_pallas_grid.py)."""
-    from claymore_tpu_torch.core.types import Partition
-
-    dev = torch.device(DEVICE)
-    rng = np.random.default_rng(seed)
-    no, nb = cfg.num_oct_keys, cfg.max_active_octs
-    keys = np.full((nb,), no, np.int32)
-    keys[:n_active] = rng.choice(no, size=n_active, replace=False)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    pool = torch.zeros((nb + 1, 16, 128), dtype=torch.float32, device=dev)
-    mass = torch.rand((n_active, 4, 128), generator=gen, device=dev) * 2.0
-    mass[mass < 0.6] = 0.0
-    pool[:n_active, 0:4] = mass
-    pool[:n_active, 4:16] = torch.randn((n_active, 12, 128), generator=gen,
-                                        device=dev) * 1e-3
-    pool[-1, 0:4] = 1.0
-    pool[-1, 4:8] = 0.25
-    i32 = dict(dtype=torch.int32, device=dev)
-    part = Partition(table=torch.zeros((no + 1,), **i32),
-                     keys=torch.from_numpy(keys).to(dev),
-                     count=torch.full((1,), n_active, **i32),
-                     overflow=torch.zeros((1,), **i32))
-    return part, pool
-
-
 def check_grid_kernel(cfg, n_active: int, time_it: bool = True) -> dict:
     """K2 against core.grid.grid_update on the card: mass rows bit-equal,
     velocities within rtol 1e-5 / atol 1e-7 (FMA contraction), max |v|^2
     within 1e-6 relative, and a NaN momentum giving inf in both."""
     from claymore_tpu_torch.core import grid
     from claymore_tpu_torch.ops import grid_kernel
+    from claymore_tpu_torch.scripts import prof_k2
 
-    part, pool = random_grid_inputs(cfg, n_active)
+    part, pool = prof_k2.grid_inputs(cfg, n_active)
     dt = torch.tensor(3e-4, dtype=torch.float32, device=DEVICE)
     kv, km = grid_kernel.grid_update(cfg, pool, part, dt)
     pv, pm = grid.grid_update(cfg, pool, part, dt)
@@ -266,7 +160,16 @@ def check_grid_kernel(cfg, n_active: int, time_it: bool = True) -> dict:
         out["ms"] = cuda_ms(lambda: grid_kernel.grid_update(cfg, pool, part, dt))
         out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt))
         out.update(grid_bound(cfg, pool, part))
+        out.update(grid_info("grid_update"))
     return out
+
+
+def grid_info(name: str, num_colliders: int = 3) -> dict:
+    """Registers and blocks per SM of a grid kernel variant (kernel_info)."""
+    from claymore_tpu_torch.ops import grid_kernel
+
+    info = grid_kernel.kernel_info(name, num_colliders)
+    return {"registers": info["registers"], "blocks_per_sm": info["blocks_per_sm"]}
 
 
 def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
@@ -407,130 +310,113 @@ def check_fused_margin(eng, state) -> list:
     return margins
 
 
-def pallas_grid_colliders():
-    """The three colliders of tests/test_pallas_grid.py:92-99: a slip
-    half-space with friction, a moving, rotating separate sphere with
-    friction, and a sticky box."""
-    from claymore_tpu_torch.models.boundary import Box, HalfSpace, RigidMotion, Sphere
+def collider_pool(cfg, n_active: int, colliders, straddle: bool):
+    """(partition, pool, crossed).  The check pool (``n_active`` random
+    octs; ``crossed`` None) or, with ``straddle``, the straddle pool: the
+    octs whose cells lie on both sides of one of ``colliders``' surfaces,
+    repeated to fill every row (``prof_k2.straddle_octs``), and per row the
+    index in ``colliders`` of the surface it crosses, which may never be
+    culled there."""
+    from claymore_tpu_torch.scripts import prof_k2
 
-    return (
-        HalfSpace((0.0, 0.3, 0.0), (0.1, 1.0, 0.0), kind="slip", friction=0.3),
-        Sphere((0.5, 0.5, 0.5), 0.2, kind="separate", friction=0.1,
-               motion=RigidMotion(trans_vel=(0.05, 0.0, 0.0), omega=(0.0, 1.5, 0.0))),
-        Box((0.6, 0.1, 0.6), (0.9, 0.4, 0.9), kind="sticky"),
-    )
+    if not straddle:
+        return (*prof_k2.grid_inputs(cfg, n_active), None)
+    octs, crossed = prof_k2.straddle_octs(cfg, colliders)
+    if len(octs) == 0:
+        raise AssertionError("no oct straddles the colliders' surfaces")
+    rows = cfg.max_active_octs
+    return (*prof_k2.grid_inputs(cfg, octs=prof_k2.fill(octs, rows), seed=SEED + 1),
+            np.resize(crossed, rows))
 
 
-def check_grid_colliders_kernel(cfg, n_active: int, t: float = 0.37,
-                                time_it: bool = True) -> dict:
-    """K2 with the analytic colliders against core.grid.grid_update on the
+def check_collider_kernel(cfg, part, pool, cols, t: float, label: str, baseline=(),
+                          time_it: bool = True, plain_reps: int = 5, crossed=None) -> dict:
+    """K2-AC or K2-SDF (by ``cols``) against core.grid.grid_update on the
     card, at collider time ``t``: mass rows bit-equal, velocities within
     rtol 1e-5 / atol 1e-7 (sinf/cosf/sqrtf may round apart from PyTorch's
     by an ulp; everything else is the same IEEE operations in the same
-    order), max |v|^2 within 1e-6 relative, and the colliders changed
-    cells."""
+    order), max |v|^2 within 1e-6 relative, the colliders changed cells
+    (against the grid update with ``baseline`` only), the kernel's cull
+    decision per (row, collider) equal to ``grid_kernel.collider_row_mask``,
+    and, where ``crossed`` gives per row the index in ``cols`` of a surface
+    the row crosses, that collider kept on every such row."""
     from claymore_tpu_torch.core import grid
     from claymore_tpu_torch.ops import grid_kernel
 
-    part, pool = random_grid_inputs(cfg, n_active)
-    cols = pallas_grid_colliders()
-    table = grid_kernel.pack_colliders(cols, DEVICE)
-    dt = torch.tensor(3e-4, dtype=torch.float32, device=DEVICE)
-    tt = torch.tensor(t, dtype=torch.float32, device=DEVICE)
-    kv, km = grid_kernel.grid_update(cfg, pool, part, dt, cols, tt, table)
-    pv, pm = grid.grid_update(cfg, pool, part, dt, cols, tt)
-    free, _ = grid.grid_update(cfg, pool, part, dt)
-    torch.cuda.synchronize()
-    if not torch.equal(kv[:, 0:4], pv[:, 0:4]):
-        raise AssertionError("grid collider kernel: mass rows differ")
-    torch.testing.assert_close(kv[:, 4:16], pv[:, 4:16], rtol=1e-5, atol=1e-7)
-    km, pm = float(km), float(pm)
-    if not (pm > 0.0 and abs(km - pm) <= 1e-6 * pm):
-        raise AssertionError(f"grid collider kernel: max|v|^2 {km} vs {pm}")
-    hit = int((pv[:, 4:16] != free[:, 4:16]).sum())
-    if hit == 0:
-        raise AssertionError("grid collider kernel: no cell met a collider")
-    out = {"max_abs_err": float((kv - pv).abs().max()), "cells_changed": hit}
-    if time_it:
-        out["ms"] = cuda_ms(lambda: grid_kernel.grid_update(cfg, pool, part, dt, cols,
-                                                            tt, table))
-        out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols,
-                                                           tt), reps=5, warmup=1)
-        out.update(grid_bound(cfg, pool, part, cols, t))
-    return out
-
-
-def sdf_dome():
-    """bench.py's dambreak_sdf collider (bench.py:133-140): a solid dome
-    (sphere cap) on the floor, 128^3 nodes at 1/128, slip, friction 0.1."""
-    from claymore_tpu_torch.models.boundary import SignedDistanceCollider
-
-    res, sdx = 128, 1.0 / 128
-    ax = (np.arange(res, dtype=np.float32) + 0.5) * sdx
-    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
-    sdf = np.sqrt((X - 0.55) ** 2 + (Y - 0.02) ** 2 + (Z - 0.35) ** 2) - 0.12
-    return SignedDistanceCollider(sdf, sdx, kind="slip", friction=0.1)
-
-
-def sdf_spinner():
-    """An animated SDF collider: a 96x80x64 ellipsoid grid at 1/96 that
-    translates and rotates, separate with friction 0.3."""
-    from claymore_tpu_torch.models.boundary import RigidMotion, SignedDistanceCollider
-
-    dx = 1.0 / 96
-    ax = [np.arange(n, dtype=np.float32) * dx for n in (96, 80, 64)]
-    X, Y, Z = np.meshgrid(*ax, indexing="ij")
-    sdf = (np.sqrt(((X - 0.45) / 0.25) ** 2 + ((Y - 0.4) / 0.15) ** 2
-                   + ((Z - 0.33) / 0.2) ** 2) - 1.0) * 0.15
-    return SignedDistanceCollider(
-        sdf, dx, kind="separate", friction=0.3, bound_cells=4,
-        motion=RigidMotion(trans=(0.03, 0.05, 0.1), trans_vel=(0.1, 0.0, -0.05),
-                           omega=(0.4, 1.2, -0.3)))
-
-
-def check_grid_sdf_kernel(cfg, n_active: int, t: float = 0.37,
-                          time_it: bool = True) -> dict:
-    """K2 with SDF colliders (the static dome, the animated spinner and a
-    half-space between them) against core.grid.grid_update on the card, at
-    collider time ``t``: mass rows bit-equal, velocities within rtol 1e-5 /
-    atol 1e-7 (the bound of the analytic check: same IEEE operations in the
-    same order, sinf/cosf/sqrtf possibly an ulp apart), max |v|^2 within
-    1e-6 relative, and the SDF colliders changed cells."""
-    from claymore_tpu_torch.core import grid
-    from claymore_tpu_torch.models.boundary import HalfSpace
-    from claymore_tpu_torch.ops import grid_kernel
-
-    part, pool = random_grid_inputs(cfg, n_active)
-    cols = (sdf_dome(), HalfSpace((0.0, 0.3, 0.0), (0.1, 1.0, 0.0), kind="slip",
-                                  friction=0.3), sdf_spinner())
     table = grid_kernel.pack_colliders(cols, DEVICE)
     ptrs = grid_kernel.sdf_table_pointers(cols, DEVICE)
     dt = torch.tensor(3e-4, dtype=torch.float32, device=DEVICE)
     tt = torch.tensor(t, dtype=torch.float32, device=DEVICE)
+    mask = torch.zeros((pool.shape[0], len(cols)), dtype=torch.bool, device=DEVICE)
 
-    def kernel():
-        return grid_kernel.grid_update(cfg, pool, part, dt, cols, tt, table, ptrs)
+    def kernel(row_mask=None):
+        return grid_kernel.grid_update(cfg, pool, part, dt, cols, tt, table, ptrs,
+                                       row_mask)
 
-    kv, km = kernel()
+    kv, km = kernel(mask)
     pv, pm = grid.grid_update(cfg, pool, part, dt, cols, tt)
-    half, _ = grid.grid_update(cfg, pool, part, dt, cols[1:2], tt)
+    base, _ = grid.grid_update(cfg, pool, part, dt, baseline, tt)
+    twin = grid_kernel.collider_row_mask(cfg, part, cols, tt)
     torch.cuda.synchronize()
     if not torch.equal(kv[:, 0:4], pv[:, 0:4]):
-        raise AssertionError("grid SDF kernel: mass rows differ")
+        raise AssertionError(f"{label}: mass rows differ")
     torch.testing.assert_close(kv[:, 4:16], pv[:, 4:16], rtol=1e-5, atol=1e-7)
     km, pm = float(km), float(pm)
     if not (pm > 0.0 and abs(km - pm) <= 1e-6 * pm):
-        raise AssertionError(f"grid SDF kernel: max|v|^2 {km} vs {pm}")
-    hit = int((pv[:, 4:16] != half[:, 4:16]).sum())
+        raise AssertionError(f"{label}: max|v|^2 {km} vs {pm}")
+    hit = int((pv[:, 4:16] != base[:, 4:16]).sum())
     if hit == 0:
-        raise AssertionError("grid SDF kernel: no cell met an SDF collider")
-    out = {"max_abs_err": float((kv - pv).abs().max()), "cells_changed": hit}
+        raise AssertionError(f"{label}: no cell met a collider")
+    differ = int((mask != twin).sum())
+    if differ:
+        raise AssertionError(f"{label}: the kernel's cull differs from collider_row_mask "
+                             f"in {differ} of {mask.numel()} (row, collider) pairs")
+    if crossed is not None:
+        rows = torch.arange(len(crossed), device=DEVICE)
+        lost = int((~mask[rows, torch.from_numpy(crossed).to(DEVICE)]).sum())
+        if lost:
+            raise AssertionError(f"{label}: {lost} rows culled the collider whose surface "
+                                 f"they cross")
+    out = {"max_abs_err": float((kv - pv).abs().max()), "cells_changed": hit,
+           "culled_share": 1.0 - float(mask.float().mean()),
+           "culled_by_collider": [round(1.0 - float(c), 4)
+                                  for c in mask.float().mean(dim=0)]}
     if time_it:
         out["ms"] = cuda_ms(kernel)
-        out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols,
-                                                           tt), reps=3, warmup=1)
+        out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols, tt),
+                                  reps=plain_reps, warmup=1)
         out.update(grid_bound(cfg, pool, part, cols, t))
+        out.update(grid_info(grid_kernel_name(cols), len(cols)))
     return out
+
+
+def check_grid_colliders_kernel(cfg, n_active: int, t: float = 0.37,
+                                time_it: bool = True, straddle: bool = False) -> dict:
+    """K2-AC with the three analytic colliders of tests/test_pallas_grid.py
+    on the check pool or its straddle pool (``check_collider_kernel``)."""
+    from claymore_tpu_torch.scripts import prof_k2
+
+    cols = prof_k2.pallas_colliders()
+    part, pool, crossed = collider_pool(cfg, n_active, cols, straddle)
+    return check_collider_kernel(cfg, part, pool, cols, t, "grid collider kernel",
+                                 time_it=time_it, crossed=crossed)
+
+
+def check_grid_sdf_kernel(cfg, n_active: int, t: float = 0.37,
+                          time_it: bool = True, straddle: bool = False) -> dict:
+    """K2-SDF with the static dome, a half-space and the animated spinner on
+    the check pool or the straddle pool of the two SDF colliders
+    (``check_collider_kernel``; the SDF colliders must change cells beside
+    the half-space)."""
+    from claymore_tpu_torch.scripts import prof_k2
+
+    cols = prof_k2.sdf_colliders()
+    part, pool, crossed = collider_pool(cfg, n_active, (cols[0], cols[2]), straddle)
+    if crossed is not None:
+        crossed = np.array([0, 2])[crossed]        # into cols
+    return check_collider_kernel(cfg, part, pool, cols, t, "grid SDF kernel",
+                                 baseline=cols[1:2], time_it=time_it, plain_reps=3,
+                                 crossed=crossed)
 
 
 # --------------------------------------------------------------------------
@@ -802,15 +688,17 @@ def check_prof_stages_entry(facts: str) -> dict:
 def scene(name: str):
     """(cfg, materials, positions, velocities, colliders) of a bench.py
     scene, with the capacities bench.py gives it; sphere25m, dambreak12m,
-    sand and nacc are ``scripts/prof_k1.scene``'s."""
+    sand and nacc are ``scripts/prof_k1.scene``'s, dambreak_hs and
+    dambreak_sdf ``scripts/prof_k2.scene``'s."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.io.sampler import sample_uniform_box_world
-    from claymore_tpu_torch.models.boundary import HalfSpace
-    from claymore_tpu_torch.scripts import prof_k1
+    from claymore_tpu_torch.scripts import prof_k1, prof_k2
 
     if name in ("sphere25m", "dambreak12m", "sand", "nacc"):
         cfg, mat, pos, v0 = prof_k1.scene(name)
         return cfg, [mat], [pos], [v0], ()
+    if name in ("dambreak_hs", "dambreak_sdf"):
+        return prof_k2.scene(name)
     cfg = ct.SimConfig(domain_bits=8, max_active_blocks=8192, default_dt=1e-4,
                        rebucket_auto=True, particle_tile=512)
     box = sample_uniform_box_world
@@ -820,24 +708,6 @@ def scene(name: str):
         mats = [ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)]
         parts = [box(cfg.dx, [0.3, 0.5, 0.3], [0.5, 0.7, 0.5], cfg.ppc)]
         v0s = [(0.0, -0.5, 0.0)]
-    elif name == "dambreak_sdf":
-        # the column moves at 1 m/s and collapses onto bench.py's dome
-        # (bench.py:118-140); slack 2.5, not bench.py's 1.25, as for
-        # dambreak12m: the capacity must cover the spread state after
-        # 1750 substeps (2.5 kept every particle for 3000)
-        cfg = dataclasses.replace(cfg, max_active_blocks=24576)
-        mats = [ct.JFluid(volume=vol)]
-        parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.3, 0.5, 0.5], cfg.ppc)]
-        v0s = [(1.0, 0.0, 0.0)]
-        colliders = (sdf_dome(),)
-        slack = 2.5
-    elif name == "dambreak_hs":
-        cfg = dataclasses.replace(cfg, max_active_blocks=24576)
-        mats = [ct.JFluid(volume=vol)]
-        parts = [box(cfg.dx, [0.1, 0.1, 0.1], [0.3, 0.5, 0.5], cfg.ppc)]
-        colliders = (HalfSpace((0.0, 0.12, 0.0), (0.25, 1.0, 0.0), kind="slip",
-                               friction=0.2),)
-        v0s = [(0.0, 0.0, 0.0)]
     elif name == "multimat":
         cfg = dataclasses.replace(cfg, max_active_blocks=16384)
         h = 0.2
@@ -980,7 +850,8 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
     if failed:
         raise AssertionError(f"main path {name} checks failed: {failed} ({d}, "
                              f"launches {launches})")
-    return {"metrics": out, "engine": eng, "state": state, "cfg": cfg, "mats": mats}
+    return {"metrics": out, "engine": eng, "state": state, "cfg": cfg, "mats": mats,
+            "name": name}
 
 
 def positions_by_pid(model, n: int) -> np.ndarray:
@@ -1159,6 +1030,20 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
         "finalize_tiles": lambda: partition.finalize_tiles(cfg, part, tk, dr),
     }
     return {k: cuda_ms(f, reps=reps) for k, f in stages.items()}
+
+
+def scene_stages(run: dict, facts: str) -> dict:
+    """The stage breakdown of a collider scene's final state (``drive``'s
+    result), with its collider kernel's bound on that state."""
+    cfg, state, cols = run["cfg"], run["state"], run["engine"].colliders
+    stages = stage_breakdown(cfg, run["mats"], state, colliders=cols)
+    b = grid_bound(cfg, state.grid, state.partition, cols, float(state.t))
+    name = grid_kernel_name(cols)
+    log(f"{run['name']} stages on its final state (ms, median of 10): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; {name} bound on this state {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        f"{int((state.grid[:, 0:4] > 0.0).sum())} massive cells | {facts}")
+    return {"stages_ms": stages, "k2_bound_ms": b["bound_ms"]}
 
 
 def log_k1(label: str, k1: dict, facts: str) -> None:
@@ -1402,33 +1287,48 @@ def main() -> int:
     _build.build(verbose=True)
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR / _build.LIB_NAME}")
-    # K1's persistent grid is SMs x the blocks per SM the runtime allows
-    from claymore_tpu_torch.ops import g2p2g_kernel
+    # K1's and the collider K2s' persistent grids are SMs x the blocks per SM
+    # the runtime allows
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     vol = 1e-6
     for mat in (ct.FixedCorotated(volume=vol), ct.JFluid(volume=vol),
                 ct.Sand(volume=vol), ct.NACC(volume=vol)):
         log(f"K1 {mat.name} at particle_tile 512: "
             f"{g2p2g_kernel.kernel_info(mat, 512)} | {facts}")
+    for name in ("grid_update", "grid_update_colliders", "grid_update_sdf"):
+        log(f"K2 {name}: {grid_kernel.kernel_info(name)} | {facts}")
 
-    # 3. K2 and K2 with colliders at the flagship pool shape
+    # 3. K2 and K2 with colliders at the flagship pool shape: the check pool
+    #    (every oct of the domain) and, for the collider kernels, the
+    #    straddle pool (every row crosses a surface of one of their colliders)
     cfg25, mats25, parts25, v0s25, _ = scene("sphere25m")
     mat25, pos25, v0 = mats25[0], parts25[0], v0s25[0]
     k2 = check_grid_kernel(cfg25, n_active=cfg25.num_oct_keys)
     log(f"K2 grid_update vs plain, pool {cfg25.max_active_octs + 1}x16x128: "
         f"max_abs_err {k2['max_abs_err']:.3e}, kernel {k2['ms']:.4f} ms, "
-        f"plain {k2['plain_ms']:.4f} ms | {facts}")
+        f"plain {k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms | {facts}")
+
+    def log_colliders(label, r):
+        log(f"{label}: max_abs_err {r['max_abs_err']:.3e}, {r['cells_changed']} velocity "
+            f"values changed by the colliders, cull == collider_row_mask, culled "
+            f"{r['culled_share']:.4f} of (row, collider) pairs {r['culled_by_collider']}, "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['registers']} registers, "
+            f"{r['blocks_per_sm']} blocks/SM | {facts}")
+
+    pool_shape = f"pool {cfg25.max_active_octs + 1}x16x128"
     k2c = check_grid_colliders_kernel(cfg25, n_active=cfg25.num_oct_keys)
-    log(f"K2 grid_update_colliders vs plain, pool {cfg25.max_active_octs + 1}x16x128, "
-        f"3 colliders, t=0.37: max_abs_err {k2c['max_abs_err']:.3e}, "
-        f"{k2c['cells_changed']} velocity values changed by colliders, kernel "
-        f"{k2c['ms']:.4f} ms, plain {k2c['plain_ms']:.4f} ms | {facts}")
+    log_colliders(f"K2 grid_update_colliders vs plain, {pool_shape}, 3 colliders, t=0.37",
+                  k2c)
+    k2c_straddle = check_grid_colliders_kernel(cfg25, 0, straddle=True)
+    log_colliders(f"K2 grid_update_colliders vs plain, straddle {pool_shape}", k2c_straddle)
     k2s = check_grid_sdf_kernel(cfg25, n_active=cfg25.num_oct_keys)
-    log(f"K2 grid_update_sdf vs plain, pool {cfg25.max_active_octs + 1}x16x128, "
-        f"dome 128^3 + half-space + animated 96x80x64 SDF, t=0.37: max_abs_err "
-        f"{k2s['max_abs_err']:.3e}, {k2s['cells_changed']} velocity values changed "
-        f"by the SDF colliders, kernel {k2s['ms']:.4f} ms, plain "
-        f"{k2s['plain_ms']:.4f} ms | {facts}")
+    log_colliders(f"K2 grid_update_sdf vs plain, {pool_shape}, dome 128^3 + half-space + "
+                  f"animated 96x80x64 SDF, t=0.37", k2s)
+    k2s_straddle = check_grid_sdf_kernel(cfg25, 0, straddle=True)
+    log_colliders(f"K2 grid_update_sdf vs plain, straddle {pool_shape}", k2s_straddle)
+    torch.cuda.empty_cache()
 
     # 4. K1 on the 1.07M cube after init and one grid update
     cfgc, matsc, partsc, v0sc, _ = scene("cube")
@@ -1588,6 +1488,8 @@ def main() -> int:
             n_model = int(run["state"].models[model_idx].active.sum())
             log_k1(f"{key}, {name} state, model {model_idx}, {n_model} particles",
                    k1v[key], facts)
+        else:
+            paths[name].update(scene_stages(run, facts))
         del run
 
     # 9. dambreak_sdf: 4.3M JFluid onto the 128^3 SDF dome, 1750 substeps
@@ -1609,11 +1511,7 @@ def main() -> int:
         f"substep: {contact}; at the end {touched} | {facts}")
     if touched == 0:
         raise AssertionError("dambreak_sdf: the fluid never reached the SDF dome")
-    stages = stage_breakdown(sdfrun["cfg"], sdfrun["mats"], sdfrun["state"],
-                             colliders=sdfrun["engine"].colliders)
-    log("dambreak_sdf stages on its final state (ms, median of 10): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {facts}")
-    paths["dambreak_sdf"]["stages_ms"] = stages
+    paths["dambreak_sdf"].update(scene_stages(sdfrun, facts))
     del sdfrun
 
     # 10. the CLI, and the CLI on SDF assets with checkpoints and a resume
@@ -1643,6 +1541,11 @@ def main() -> int:
         entry("g2p2g_sand", "g2p2g.cu", k1_call, "sand", k1v["g2p2g_sand"]),
         entry("g2p2g_nacc", "g2p2g.cu", k1_call, "nacc", k1v["g2p2g_nacc"]),
     ]
+    # the collider kernels' cull and their straddle pools
+    for e, check, straddle in ((kernels[1], k2c, k2c_straddle), (kernels[2], k2s, k2s_straddle)):
+        e["culled_share"] = check["culled_share"]
+        e["straddle"] = {k: straddle[k] for k in ("ms", "plain_ms", "max_abs_err", "bound_ms",
+                                                  "culled_share")}
     paths["probes"] = paths_probe
     paths["regrow"] = regrow
     paths["prof_stages25m"] = prof_entry

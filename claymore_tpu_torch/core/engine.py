@@ -253,8 +253,9 @@ class MPMEngine:
     their plain PyTorch versions, and asking for CUDA without a card raises.
     Colliders are ``models/boundary.py``'s (analytic and SDF grid), resolved
     in list order; on a CUDA device their packed table and the SDF node
-    tables are uploaded here, once.  ``rebuilds`` counts the substeps that
-    rebucketed.
+    tables are uploaded here, once, and a list longer than the grid kernel
+    takes (``grid_kernel.max_colliders``) raises.  ``rebuilds`` counts the
+    substeps that rebucketed.
     """
 
     def __init__(self, cfg: SimConfig, materials: Sequence[Material],
@@ -275,6 +276,8 @@ class MPMEngine:
         self.materials = tuple(materials)
         self.colliders = tuple(colliders)
         on_card = bool(self.colliders) and self.device.type == "cuda"
+        if on_card:
+            grid_kernel.check_collider_count(len(self.colliders))
         self._collider_table = (
             grid_kernel.pack_colliders(self.colliders, self.device)
             if on_card else None)

@@ -24,9 +24,9 @@
 // The arithmetic follows the plain PyTorch version term by term; it is
 // built without --use_fast_math, so logf/expf/powf are the accurate ones.
 //
-// What bounds it on an H100.  chip_smoke.g2p2g_bound counts the function's
-// work: every slot's state read and written once and the arena rows once
-// (~106 bytes a slot) against ~2.4k operations per active particle (several
+// What bounds it on an H100.  utils/bounds.py:g2p2g_bound counts the
+// function's work: every slot's state read and written once and the arena
+// rows once (~106 bytes a slot) against ~2.4k operations per active particle (several
 // thousand with svd3); at sphere25m that is 1.35 ms of bytes against 0.9 ms
 // of operations, so the bound is set by bytes.  The kernel does not run at
 // either rate.  What held the first design (one 256-thread block per tile,
@@ -102,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -632,39 +634,6 @@ __host__ __device__ inline Layout layout(int n) {
   o += 2 * s.stage_stride;
   s.total = o;
   return s;
-}
-
-__device__ __forceinline__ uint32_t s_addr(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(s_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(s_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile("{\n\t.reg .pred p;\n\t"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                 "selp.u32 %0, 1, 0, p;\n\t}"
-                 : "=r"(done) : "r"(s_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// 1-D bulk copy global -> shared, completing on ``bar``
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1], %2, [%3];"
-               :: "r"(s_addr(dst)), "l"(src), "r"(bytes), "r"(s_addr(bar))
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

@@ -26,6 +26,7 @@ STICKY = "sticky"
 SLIP = "slip"
 SEPARATE = "separate"
 KINDS = (STICKY, SLIP, SEPARATE)
+BRICK = 8          # nodes per edge of a brick of SignedDistanceCollider.bricks
 
 Vec3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -265,6 +266,7 @@ class SignedDistanceCollider(ColliderBase):
         self.dx = float(dx)
         self.bound_cells = int(bound_cells)
         self._tables = {}
+        self._bricks = {}
 
     @classmethod
     def from_claymore_files(cls, prefix: str, resolution, dx: float,
@@ -306,6 +308,27 @@ class SignedDistanceCollider(ColliderBase):
             tab = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
             self._tables[dev] = tab
         return tab
+
+    def bricks(self, device) -> torch.Tensor:
+        """f32[ceil(n0/8), ceil(n1/8), ceil(n2/8)]: the least node value of
+        each brick of 8^3 nodes (the last brick of an axis holds what is
+        left of it; NaN nodes are left out), on ``device``, made on the first
+        call for that device and kept.  The CUDA grid kernel reads it to
+        skip the rows whose nodes are all positive."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        out = self._bricks.get(dev)
+        if out is None:
+            b = BRICK
+            nb = tuple(-(-n // b) for n in self.values.shape)
+            pad = np.full(tuple(n * b for n in nb), np.inf, np.float32)
+            n0, n1, n2 = self.values.shape
+            pad[:n0, :n1, :n2] = np.where(np.isnan(self.values), np.inf, self.values)
+            mins = pad.reshape(nb[0], b, nb[1], b, nb[2], b).min(axis=(1, 3, 5))
+            out = torch.from_numpy(np.ascontiguousarray(mins)).to(dev)
+            self._bricks[dev] = out
+        return out
 
     def sdf_and_normal_soa(self, x3):
         dev = x3[0].device

@@ -48,9 +48,12 @@ SIGNATURES = {
     "cm_prof_rmw_nonatomic": _DMA,
     "cm_grid_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "cm_grid_update_colliders": (
-        [_P] * 6 + [_I, _P] + [_I] * 6 + [_F] * 4 + [_P]),
+        [_P] * 6 + [_I, _P, _P] + [_I] * 6 + [_F] * 4 + [_P]),
     "cm_grid_update_sdf": (
-        [_P] * 6 + [_I, _P, _I, _P] + [_I] * 6 + [_F] * 4 + [_P]),
+        [_P] * 6 + [_I, _P, _I, _P, _P] + [_I] * 6 + [_F] * 4 + [_P]),
+    # (variant, colliders, out i32[4]): registers, blocks per SM, dynamic
+    # shared memory, the most colliders a launch takes
+    "cm_grid_update_info": [_I, _I, _P],
     "cm_g2p2g_fixed_corotated": _G2P2G,
     "cm_g2p2g_jfluid": _G2P2G,
     "cm_g2p2g_sand": _G2P2G,

@@ -1,0 +1,96 @@
+"""Bounds: the least time an H100 SXM could take for a kernel's work.
+
+The larger of its bytes over 3.35 TB/s and its float32 operations over
+67 TFLOP/s (the published peaks at 700 W).  Bytes: each input read once,
+each output written once.  Operations: additions, multiplications,
+divisions, square roots and transcendentals counted one each, per cell or
+particle as the kernel source does them, for the work these inputs need.
+
+``grid_bound`` is the grid kernels' (K2, K2-AC, K2-SDF), ``g2p2g_bound``
+the transfer kernel's (K1); ``chip_smoke.py`` and the profiling scripts
+report both beside the kernels' times.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+# K2 per massive cell: 1/m, 3 momenta x 1/m, 3 gravity adds, |v|^2 (5)
+K2_OPS = 12
+# per collider and massive cell: world -> material (3 subtractions, 3
+# divisions; 15 more for a rotation) and the SDF of its type
+# (csrc/grid_update.cu: analytic_sd and analytic_normal, sdf_value and
+# sdf_normal); the projection of the cells that hit is data-dependent and
+# not counted
+K2_SDF_OPS = {"HalfSpace": 8, "Sphere": 14, "Box": 35,
+              "SignedDistanceCollider": 109}
+# K1 per active particle (csrc/g2p2g.cu): two stencils 132, G2P 783,
+# advection 6, P2G 876; and each material's update
+K1_OPS = 1797
+K1_MATERIAL_OPS = {"fixed_corotated": 576, "jfluid": 42, "sand": 1216, "nacc": 1251}
+K1_FIELD_FLOATS = {"fixed_corotated": 9, "jfluid": 1, "sand": 10, "nacc": 10}
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def grid_bound(cfg, pool, partition, colliders=(), t: float = 0.0) -> dict:
+    """K2's bound on ``pool``: the pool read and written, the keys and the
+    collider tables read once; K2_OPS per massive cell plus each collider's
+    transform and SDF, the SDF grid's only where the cell lies in its band
+    (the kernel samples nothing elsewhere)."""
+    from ..core import grid
+    from ..models.boundary import SignedDistanceCollider
+
+    massive = pool[:, 0:4] > 0.0
+    n_mass = int(massive.sum())
+    nbytes = 2 * pool.numel() * 4 + cfg.max_active_octs * 4 + len(colliders) * 96
+    ops = K2_OPS * n_mass
+    x3 = None
+    for c in colliders:
+        per = 6 + (15 if c.motion.rotating else 0)
+        name = type(c).__name__
+        if isinstance(c, SignedDistanceCollider):
+            nbytes += c.values.size * 16
+            if x3 is None:
+                x3 = tuple(a[massive] for a in grid.cell_positions(cfg, partition))
+            ops += per * n_mass + K2_SDF_OPS[name] * sdf_band_cells(c, x3, t)
+        else:
+            ops += (per + K2_SDF_OPS[name]) * n_mass
+    return bound(nbytes, ops)
+
+
+def sdf_band_cells(col, x3, t: float) -> int:
+    """How many of the world positions ``x3`` lie in the SDF collider's
+    interior band once posed at time ``t``."""
+    tt = torch.tensor(t, dtype=torch.float32, device=x3[0].device)
+    _, x_mat, _ = col.pose(x3, tt)
+    lo, hi = col.band
+    inside = torch.ones_like(x_mat[0], dtype=torch.bool)
+    for c in x_mat:
+        inside &= (c >= lo) & (c < hi)
+    return int(inside.sum())
+
+
+def g2p2g_bound(cfg, mat, state, model_idx: int = 0) -> dict:
+    """K1's bound on ``state``: every slot's position, fields, active flag
+    and id read and written, the tiles' coordinates and flags read, the
+    velocity rows of the active octs read and their 16 rows written;
+    K1_OPS plus the material's update per active particle."""
+    model = state.models[model_idx]
+    slots = model.pos.shape[1]
+    tiles = model.tiles.block.shape[0]
+    octs = int(state.partition.count[0])
+    n_act = int(model.active.sum())
+    nf = K1_FIELD_FLOATS[mat.name]
+    nbytes = (2 * slots * (12 + 4 * nf + 1 + 4) + tiles * 13
+              + octs * (12 + 16) * 512)
+    return bound(nbytes, n_act * (K1_OPS + K1_MATERIAL_OPS[mat.name]))

@@ -216,7 +216,8 @@ def test_import_leaves_jax_out():
             "claymore_tpu_torch.io.meshsdf, claymore_tpu_torch.utils.timers, "
             "claymore_tpu_torch.ops.probe_kernels, claymore_tpu_torch.scripts.prof_dma, "
             "claymore_tpu_torch.scripts.prof_laneops, "
-            "claymore_tpu_torch.scripts.prof_stages25m;"
+            "claymore_tpu_torch.scripts.prof_stages25m, "
+            "claymore_tpu_torch.scripts.prof_k1, claymore_tpu_torch.scripts.prof_k2;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'claymore_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

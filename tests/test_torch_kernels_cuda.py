@@ -15,6 +15,7 @@ import torch
 import claymore_tpu_torch as ct
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
 from claymore_tpu_torch.scripts.prof_k1 import permute_tiles, stir
+from claymore_tpu_torch.scripts.prof_k2 import sdf_dome
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,86 @@ def test_grid_sdf_kernel_matches_plain(card):
     card.check_grid_sdf_kernel(cfg, n_active=cfg.num_oct_keys, t=0.37, time_it=False)
 
 
+@pytest.mark.parametrize("kernel", ["colliders", "sdf"])
+def test_grid_collider_kernels_straddle_pool(card, kernel):
+    """Every row crosses one collider's surface, so that collider is never
+    culled on it (check_collider_kernel's ``crossed``); the kernel matches
+    the plain version and its cull equals collider_row_mask."""
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=5000)
+    check = (card.check_grid_colliders_kernel if kernel == "colliders"
+             else card.check_grid_sdf_kernel)
+    r = check(cfg, 0, t=0.37, time_it=False, straddle=True)
+    assert r["culled_share"] < 1.0
+
+
+def _many_colliders(n, sdf):
+    """``n`` colliders in the unit box from a seed: moving, rotating and
+    scaled spheres, boxes and half-spaces of every kind, the dome first
+    when ``sdf``."""
+    import numpy as np
+
+    from claymore_tpu_torch.models.boundary import Box, HalfSpace, RigidMotion, Sphere
+
+    rng = np.random.default_rng(n)
+    cols = [sdf_dome()] if sdf else []
+    kinds = ("sticky", "slip", "separate")
+    while len(cols) < n:
+        i = len(cols)
+        c = tuple(float(v) for v in rng.uniform(0.2, 0.8, 3))
+        motion = RigidMotion(trans_vel=tuple(float(v) for v in rng.normal(0, 0.05, 3)),
+                             omega=(0.0, float(rng.normal(0, 1.0)), 0.0),
+                             scale=1.0, dsdt=float(rng.uniform(-0.2, 0.2)))
+        kw = dict(kind=kinds[i % 3], friction=float(rng.uniform(0, 0.3)), motion=motion)
+        if i % 3 == 0:
+            cols.append(Sphere(c, float(rng.uniform(0.03, 0.1)), **kw))
+        elif i % 3 == 1:
+            h = rng.uniform(0.02, 0.08, 3)
+            cols.append(Box(tuple(float(v) for v in c - h), tuple(float(v) for v in c + h),
+                            **kw))
+        else:
+            cols.append(HalfSpace((0.0, float(rng.uniform(0.02, 0.1)), 0.0),
+                                  tuple(float(v) for v in rng.normal(0, 0.1, 3) + (0, 1, 0)),
+                                  **kw))
+    return tuple(cols)
+
+
+@pytest.mark.parametrize("sdf", [False, True])
+@pytest.mark.parametrize("n", [17, 40])
+def test_grid_collider_kernels_take_long_lists(card, n, sdf):
+    """Lists past 16 and 32 colliders (the shared memory grows with the
+    list): the kernel matches the plain version and its cull the twin."""
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=5000)
+    part, pool, _ = card.collider_pool(cfg, cfg.num_oct_keys, (), False)
+    card.check_collider_kernel(cfg, part, pool, _many_colliders(n, sdf), 0.37,
+                               f"{n} colliders", time_it=False)
+
+
+def test_engine_refuses_more_colliders_than_the_kernel_takes(card):
+    from claymore_tpu_torch.models.boundary import Sphere
+    from claymore_tpu_torch.ops import grid_kernel
+
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=256)
+    mat = ct.JFluid(volume=cfg.default_volume())
+    n = grid_kernel.max_colliders()
+    assert n >= 40
+    cols = [Sphere((0.5, 0.5, 0.5), 0.1)] * (n + 1)
+    with pytest.raises(ValueError, match="at most"):
+        ct.MPMEngine(cfg, [mat], colliders=cols, device="cuda")
+    ct.MPMEngine(cfg, [mat], colliders=cols[:n], device="cuda")
+
+
+@pytest.mark.parametrize("t", [0.0, 2.0])
+@pytest.mark.parametrize("kernel", ["colliders", "sdf"])
+def test_grid_collider_kernels_cull_at_other_times(card, kernel, t):
+    """The kernel's per-(row, collider) cull equals collider_row_mask, and
+    the output the plain version's, with the colliders posed elsewhere."""
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=5000)
+    check = (card.check_grid_colliders_kernel if kernel == "colliders"
+             else card.check_grid_sdf_kernel)
+    r = check(cfg, n_active=cfg.num_oct_keys, t=t, time_it=False)
+    assert 0.0 < r["culled_share"] < 1.0
+
+
 def test_sdf_engine_launches_the_sdf_kernel(card):
     """An engine with an SDF collider on the card runs K2-SDF each substep
     and keeps mass and particles."""
@@ -55,7 +136,7 @@ def test_sdf_engine_launches_the_sdf_kernel(card):
     pos = sample_uniform_box_world(cfg.dx, [0.45, 0.1, 0.25], [0.65, 0.3, 0.45], cfg.ppc)
     cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.5))
     mat = ct.JFluid(volume=cfg.default_volume())
-    eng = ct.MPMEngine(cfg, [mat], colliders=(card.sdf_dome(),), tile_chunk=8,
+    eng = ct.MPMEngine(cfg, [mat], colliders=(sdf_dome(),), tile_chunk=8,
                        device="cuda")
     state = eng.init_state([pos], [(1.0, 0.0, 0.0)])
     before = grid_kernel.grid_update.launches["grid_update_sdf"]
