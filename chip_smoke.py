@@ -51,7 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from claymore_tpu_torch.utils.bounds import bound, g2p2g_bound, grid_bound
+from claymore_tpu_torch.utils.bounds import bound, dma_bound, g2p2g_bound, grid_bound
 
 SEED = 0
 DEVICE = "cuda"
@@ -100,20 +100,6 @@ def laneop_bound(name: str, tiles: int) -> dict:
 
     ops = tiles * 16 * 48 if name == "dyn_lane_write" else 0
     return bound(pk.laneop_bytes(name, tiles), ops)
-
-
-def dma_bound(idx, run_rows: int, rmw: bool = False) -> dict:
-    """P5's bound (P6's with ``rmw``) for the run starts ``idx`` i32[G, D]:
-    every distinct pool row the runs touch read once (and written once for
-    P6), the starts read, the output written (G rows for P5, G x 128 floats
-    for P6); one addition per float of every run's rows."""
-    g, d = idx.shape
-    r = torch.arange(run_rows, device=idx.device)
-    distinct = int(torch.unique(idx.long()[..., None] + r).numel())
-    row_bytes = 16 * 128 * 4
-    nbytes = (distinct * row_bytes * (2 if rmw else 1) + idx.numel() * 4
-              + g * (128 * 4 if rmw else row_bytes))
-    return bound(nbytes, g * d * run_rows * 16 * 128)
 
 
 # --------------------------------------------------------------------------
@@ -433,6 +419,8 @@ LANEOPS = {
 PROBE_TILES = 65536
 LANE_BATCH = 10                  # P1-P4 and their plain and library calls are
                                  # timed 10 back to back (0.1-0.4 ms each)
+DMA_BATCH = 10                   # P5/P6's ``ms_batch10``: a call enqueues up
+                                 # to three kernels and scratch
 DMA_ROWS = 65536                 # the TPU script's pool, 0.5 GiB
 # scripts/prof_dma.py:266-278 and :284: (G, D, R) without and with the
 # double buffer, and of the RMW
@@ -512,20 +500,33 @@ def _starts(starts, runs: int):
     return torch.from_numpy(np.asarray(starts, np.int32)).to(DEVICE).view(-1, runs)
 
 
+def p6_pool(rows: int, zero: bool = True):
+    """P6's pool on the card: zeros (the TPU script's), or 2**24 with 0.1 in
+    every odd lane, where adding 1.0 once per covering program and adding
+    the count once round differently."""
+    pool = torch.zeros((rows, 16, 128), dtype=torch.float32, device=DEVICE)
+    if not zero:
+        pool.fill_(2.0 ** 24)
+        pool[..., 1::2] = 0.1
+    return pool
+
+
 def check_dma(time_it: bool = True, rows: int = DMA_ROWS, p5=None, p6=None) -> dict:
-    """P5 (both variants) at the TPU script's eight configurations and P6
-    at its two, on the script's inputs (the pool ``arange(O * 2048)`` in
-    float32, O = 65,536, so the sums round past 2**24; the starts from
-    ``default_rng(0)``), against their plain versions on the card, bit for
-    bit: P5's kernels and plain version add the same rows in the same order
-    (d, then r), and the two variants agree; P6 adds whole numbers to a
-    zero pool, exact in any order.  P6's non-atomic mode on runs that share
-    no row equals its plain version (pool and ``out``) and the atomic mode.
-    Then times (the kernel's, the plain
-    version's, the library call's: ``embedding_bag(mode="sum")`` for P5,
-    ``index_add_`` of ones made beforehand for P6), payload GB/s and bounds.
-    ``rows``, ``p5`` and ``p6`` replace the pool size and the
-    configurations for a smaller check."""
+    """P5 (both variants, both plans) at the TPU script's eight
+    configurations and P6 at its two, on the script's inputs (the pool
+    ``arange(O * 2048)`` in float32, O = 65,536, so the sums round past
+    2**24; the starts from ``default_rng(0)``), against their plain versions
+    on the card, bit for bit: P5's kernels and plain version add the same
+    rows in the same order (d, then r; the two-pass plan's window sums are
+    the plain version's ``part``), and the variants and plans agree; P6 adds
+    1.0 once per covering program, as the plain version, on the zero pool
+    and on the 2**24/0.1 pool.  Then times (the kernel's by the plan
+    ``gather_plan`` picks and by the other plan, the plain version's, the
+    library call's: ``embedding_bag(mode="sum")`` for P5, ``index_add_`` of
+    ones made beforehand for P6; one call per pair of CUDA events, and the
+    kernel also DMA_BATCH calls back to back), payload GB/s, the bytes each
+    call moves (``probe_kernels.dma_bytes``) and bounds.  ``rows``, ``p5`` and ``p6``
+    replace the pool size and the configurations for a smaller check."""
     import torch.nn.functional as F
 
     from claymore_tpu_torch.ops import probe_kernels as pk
@@ -535,76 +536,78 @@ def check_dma(time_it: bool = True, rows: int = DMA_ROWS, p5=None, p6=None) -> d
     o = rows
     pool = torch.arange(o * 2048, dtype=torch.float32, device=dev).reshape(o, 16, 128)
     flat = pool.view(o, 2048)
-    out = {"dma_gather": [], "dma_gather_ring": [], "rmw": [], "rmw_nonatomic": []}
+    out = {"dma_gather": [], "dma_gather_ring": [], "rmw": []}
     for ring, configs in (P5_CONFIGS if p5 is None else p5).items():
         name = "dma_gather_ring" if ring else "dma_gather"
         for g, d, r in configs:
             idx = _starts(prof_dma.gather_starts(o, g, d, r), d)
-            k = pk.dma_gather(pool, idx, r, ring=ring)
-            other = pk.dma_gather(pool, idx, r, ring=not ring)
+            plan = pk.gather_plan(o, g, d, r)
+            plans = pk.PLANS if 2 <= r <= pk.MAX_WINDOW_ROWS else ("direct",)
             p = pk.plain_dma_gather(pool, idx, r)
-            torch.cuda.synchronize()
-            if not (torch.equal(k, p) and torch.equal(k, other)):
-                raise AssertionError(f"{name} {(g, d, r)}: kernel "
-                                     f"{float((k - p).abs().max())} "
-                                     f"from plain, {float((k - other).abs().max())} "
-                                     "from the other variant")
-            res = {"config": [g, d, r], "max_abs_err": float((k - p).abs().max())}
+            err = 0.0
+            for pl in plans:
+                for rg in (ring, not ring):
+                    k = pk._launch_gather(pool, idx, r, rg, pl)
+                    torch.cuda.synchronize()
+                    if not torch.equal(k, p):
+                        raise AssertionError(
+                            f"{name} {(g, d, r)}: the {'ring' if rg else 'register'} "
+                            f"variant's {pl} plan differs from plain by "
+                            f"{float((k - p).abs().max())}")
+                    err = max(err, float((k - p).abs().max()))
+                    del k
+            res = {"config": [g, d, r], "plan": plan, "plans_checked": list(plans),
+                   "max_abs_err": err,
+                   "moved_bytes": pk.dma_bytes("dma_gather", pool, idx, r, plan)}
             if time_it:
-                rows = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(g, d * r)
+                rows_ = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(g, d * r)
                 res["ms"] = cuda_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring))
+                res["ms_batch10"] = cuda_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring),
+                                            batch=DMA_BATCH)
+                if len(plans) > 1:
+                    other = plans[1 - plans.index(plan)]
+                    res["other_plan"] = other
+                    res["other_plan_ms"] = cuda_ms(
+                        lambda: pk._launch_gather(pool, idx, r, ring, other))
                 res["plain_ms"] = cuda_ms(lambda: pk.plain_dma_gather(pool, idx, r),
                                           reps=5, warmup=1)
-                res["library_ms"] = cuda_ms(lambda: F.embedding_bag(rows, flat, mode="sum"))
+                res["library_ms"] = cuda_ms(lambda: F.embedding_bag(rows_, flat, mode="sum"))
                 res["payload_gbs"] = g * d * r * 8192 / res["ms"] / 1e6
                 res.update(dma_bound(idx, r))
             out[name].append(res)
-            del k, other, p
+            del p
     for g, d, r in P6_CONFIGS if p6 is None else p6:
         idx = _starts(prof_dma.rmw_starts(o, g, d, r), d)
-        pk_pool = torch.zeros_like(pool)
-        pp_pool = torch.zeros_like(pool)
-        ko, po = pk.rmw(pk_pool, idx, r), pk.plain_rmw(pp_pool, idx, r)
-        torch.cuda.synchronize()
-        if not (torch.equal(pk_pool, pp_pool) and torch.equal(ko, po)):
-            raise AssertionError(f"rmw {(g, d, r)}: kernel differs from plain by "
-                                 f"{float((pk_pool - pp_pool).abs().max())}")
-        res = {"config": [g, d, r], "max_abs_err": float((pk_pool - pp_pool).abs().max()),
-               "max_count": float(pk_pool.max())}
+        err = 0.0
+        for zero in (True, False):
+            pk_pool, pp_pool = p6_pool(o, zero), p6_pool(o, zero)
+            ko, po = pk.rmw(pk_pool, idx, r), pk.plain_rmw(pp_pool, idx, r)
+            torch.cuda.synchronize()
+            if not (torch.equal(pk_pool, pp_pool) and torch.equal(ko, po)):
+                raise AssertionError(
+                    f"rmw {(g, d, r)} on the {'zero' if zero else '2**24/0.1'} pool: kernel "
+                    f"differs from plain by {float((pk_pool - pp_pool).abs().max())}")
+            err = max(err, float((pk_pool - pp_pool).abs().max()))
+            if zero:
+                max_count = float(pk_pool.max())
+            del pk_pool, pp_pool, ko, po
+        pk_pool, pp_pool = p6_pool(o), p6_pool(o)
+        res = {"config": [g, d, r], "max_abs_err": err, "max_count": max_count,
+               "pools_checked": ["zero", "2**24/0.1"],
+               "moved_bytes": pk.dma_bytes("rmw", pk_pool, idx, r)}
         if time_it:
-            rows = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(-1)
-            ones = torch.ones((rows.numel(), 2048), dtype=torch.float32, device=dev)
+            rows_ = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(-1)
+            ones = torch.ones((rows_.numel(), 2048), dtype=torch.float32, device=dev)
             kflat = pk_pool.view(o, 2048)
             res["ms"] = cuda_ms(lambda: pk.rmw(pk_pool, idx, r))
+            res["ms_batch10"] = cuda_ms(lambda: pk.rmw(pk_pool, idx, r), batch=DMA_BATCH)
             res["plain_ms"] = cuda_ms(lambda: pk.plain_rmw(pp_pool, idx, r), reps=5, warmup=1)
-            res["library_ms"] = cuda_ms(lambda: kflat.index_add_(0, rows, ones))
+            res["library_ms"] = cuda_ms(lambda: kflat.index_add_(0, rows_, ones))
             res["payload_gbs"] = 2 * g * d * r * 8192 / res["ms"] / 1e6
             res.update(dma_bound(idx, r, rmw=True))
             del ones
         out["rmw"].append(res)
         del pk_pool, pp_pool
-
-        starts, od = prof_dma.disjoint_starts(o, g, d, r)
-        idx = _starts(starts, d)
-        pa = torch.zeros((od, 16, 128), dtype=torch.float32, device=dev)
-        pn = torch.zeros_like(pa)
-        pp = torch.zeros_like(pa)
-        pk.rmw(pa, idx, r)
-        kn, po = pk.rmw(pn, idx, r, atomic=False), pk.plain_rmw(pp, idx, r)
-        torch.cuda.synchronize()
-        err = max(float((pn - pp).abs().max()), float((kn - po).abs().max()))
-        if not (torch.equal(pn, pp) and torch.equal(kn, po) and torch.equal(pa, pp)
-                and float(pp.max()) == 1.0):
-            raise AssertionError(f"rmw_nonatomic {(g, d, r)} on disjoint runs: "
-                                 f"{err} from plain")
-        res = {"config": [g, d, r], "rows": od, "max_abs_err": err}
-        del kn, po, pp
-        if time_it:
-            res["atomic_ms"] = cuda_ms(lambda: pk.rmw(pa, idx, r))
-            res["ms"] = cuda_ms(lambda: pk.rmw(pn, idx, r, atomic=False))
-            res.update(dma_bound(idx, r, rmw=True))
-        out["rmw_nonatomic"].append(res)
-        del pa, pn
     return out
 
 
@@ -651,7 +654,7 @@ def check_probe_entry_points(facts: str) -> dict:
             raise AssertionError(f"prof_laneops: no timed line of {name}:\n{lane_out}")
     dma_out = run_entry("prof_dma")
     timed = [ln for ln in dma_out.splitlines() if " ms " in ln]
-    if dma_out.count("== ") != 7 or len(timed) != 20:
+    if dma_out.count("== ") != 7 or len(timed) != 23:
         raise AssertionError(f"prof_dma: {len(timed)} timed lines:\n{dma_out}")
     wall = time.perf_counter() - t0
     lane_n, dma_n = entry_launches("prof_laneops", lane_out), entry_launches("prof_dma", dma_out)
@@ -1266,6 +1269,7 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.ops import _build
+    from claymore_tpu_torch.ops import probe_kernels as pk
     from claymore_tpu_torch.scripts import prof_k1
 
     t_start = time.perf_counter()
@@ -1353,13 +1357,18 @@ def main() -> int:
     dma = check_dma()
     for name, rows in dma.items():
         for r in rows:
-            log(f"{name} vs plain {tuple(r['config'])}: max_abs_err {r['max_abs_err']}, "
-                f"kernel {r['ms']:.4f} ms"
-                + (f" (atomic {r['atomic_ms']:.4f} ms), {r['rows']} rows"
-                   if name == "rmw_nonatomic" else
-                   f", plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                   f"payload {r['payload_gbs']:.1f} GB/s")
-                + f", bound {r['bound_ms']:.4f} ms | {facts}")
+            what = (f"plan {r['plan']} (checked {'/'.join(r['plans_checked'])}, both variants)"
+                    if name != "rmw" else "zero and 2**24/0.1 pools")
+            log(f"{name} vs plain {tuple(r['config'])}, {what}: max_abs_err "
+                f"{r['max_abs_err']}, kernel {r['ms']:.4f} ms"
+                + (f" ({r['other_plan']} {r['other_plan_ms']:.4f} ms)"
+                   if "other_plan" in r else "")
+                + f", plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                f"payload {r['payload_gbs']:.1f} GB/s, moves {r['moved_bytes'] / 1e9:.3f} GB, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%}) | {facts}")
+    dma_subs = {name: pk.dma_info(name) for name in ("dma_gather", "dma_gather_ring", "rmw")}
+    for name, subs in dma_subs.items():
+        log(f"{name} sub-kernels at R = 9: {subs} | {facts}")
     paths_probe = check_probe_entry_points(facts)
 
     # 5. main path 1: the 25M sphere, counted launches
@@ -1558,11 +1567,21 @@ def main() -> int:
     kernels += [probe_entry(name, "prof_laneops.cu", call, lane[name])
                 for name, (_, _, call) in LANEOPS.items()]
     # P5 and P6 at the TPU script's first configuration, (8192, 4, 9) and
-    # (4096, 4, 9); the other configurations are in the log above
-    kernels += [probe_entry("dma_gather", "prof_dma.cu", P5_CALL, dma["dma_gather"][0]),
-                probe_entry("dma_gather_ring", "prof_dma.cu", P5_CALL,
-                            dma["dma_gather_ring"][0]),
-                probe_entry("rmw", "prof_dma.cu", P6_CALL, dma["rmw"][0])]
+    # (4096, 4, 9); the other configurations are in the log above.  Their
+    # registers and blocks per SM are those of the sub-kernel that moves most
+    # of the bytes there (the window sums, the gather, the row stream)
+    main_sub = {"two_pass": "window", "direct": "gather"}
+    for name, check in (("dma_gather", dma["dma_gather"][0]),
+                        ("dma_gather_ring", dma["dma_gather_ring"][0]),
+                        ("rmw", dma["rmw"][0])):
+        e = probe_entry(name, "prof_dma.cu", P6_CALL if name == "rmw" else P5_CALL, check)
+        sub = dma_subs[name]["stream" if name == "rmw" else main_sub[check["plan"]]]
+        e.update({k: sub[k] for k in ("registers", "blocks_per_sm")})
+        e["sub_kernels"] = dma_subs[name]
+        e["ms_batch10"] = check["ms_batch10"]
+        if name != "rmw":
+            e["plan"] = check["plan"]
+        kernels.append(e)
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on its main path: {kernels}")
     log(f"paths: {json.dumps(paths)}")

@@ -33,10 +33,11 @@ _F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
 _G2P2G = [_P] * 19 + [_I] * 6 + [_F] * 4 + [_P, _I, _P]
-# the probes: (x, shifts, out, tiles, stream) and
-# (pool, idx, out, rows, programs, runs, run_rows, stream)
+# the probes: (x, shifts, out, tiles, stream); P5 (pool, idx, out, slot,
+# wsum, rows, programs, runs, run_rows, plan, stream); P6 (pool, idx, out,
+# cover, rows, programs, runs, run_rows, stream)
 _LANEOPS = [_P, _P, _P, _I, _P]
-_DMA = [_P, _P, _P, _I, _I, _I, _I, _P]
+_DMA = [_P] * 5 + [_I] * 5 + [_P]
 SIGNATURES = {
     "cm_prof_dyn_roll": _LANEOPS,
     "cm_prof_dyn_lane_read": _LANEOPS,
@@ -44,8 +45,9 @@ SIGNATURES = {
     "cm_prof_dyn_lane_write": _LANEOPS,
     "cm_prof_dma_gather": _DMA,
     "cm_prof_dma_gather_ring": _DMA,
-    "cm_prof_rmw": _DMA,
-    "cm_prof_rmw_nonatomic": _DMA,
+    "cm_prof_rmw": [_P] * 4 + [_I] * 4 + [_P],
+    # (sub-kernel, run_rows, out i32[3]): registers, blocks per SM, smem
+    "cm_prof_dma_info": [_I, _I, _P],
     "cm_grid_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "cm_grid_update_colliders": (
         [_P] * 6 + [_I, _P, _P] + [_I] * 6 + [_F] * 4 + [_P]),

@@ -14,6 +14,12 @@ with one shift per tile, ``shifts`` i32[G]; G = 1 is the TPU probe.  P5 and
 P6 take the pool f32[O, 16, 128] and the run starts ``idx`` i32[G, D] (the
 script's flat ``idx`` viewed as G programs of D runs), each run ``run_rows``
 (R) rows long.
+
+P5 and P6 run several kernels a call (``csrc/prof_dma.cu`` names them);
+each phase has a plain twin here: ``rmw_cover`` (P6's count),
+``gather_slots`` (P5's plan of distinct starts), ``window_entries`` (the
+rows each block of the window sums streams) and ``plain_window_sums``, and
+``gather_plan`` is the rule that picks P5's plan from (O, G, D, R).
 """
 
 from __future__ import annotations
@@ -111,22 +117,166 @@ def plain_dma_gather(pool: torch.Tensor, idx: torch.Tensor, run_rows: int) -> to
     return acc.reshape(idx.shape[0], ROWS, LANES)
 
 
-def plain_rmw(pool: torch.Tensor, idx: torch.Tensor, run_rows: int) -> torch.Tensor:
-    """P6: ``pool[idx[g, d] + r] += 1`` for every run, in place; returns
-    ``out`` f32[G, 128] with ``out[g, 0] = g`` and 0 elsewhere.
+# P5's two plans (csrc/prof_dma.cu): every named row gathered, or each
+# distinct start's window summed once and the sums gathered
+PLANS = ("direct", "two_pass")
+WINDOW_UNIT = 128       # pool rows per block of the window sums (kUnit)
+MAX_WINDOW_ROWS = 16    # the longest run the two-pass plan takes (kMaxWindowRows)
+# two_pass when it moves under this share of direct's rows: on an H100 the
+# two-pass plan moves its bytes at ~0.8-0.87 of the direct gather's rate
+# (scripts/prof_dma.py, PERF.md), so it loses at (2048, 4, 9), a share of 0.84
+TWO_PASS_SHARE = 0.75
 
-    Each row gets its count of covering runs in one add, which equals one
-    add of 1 per run wherever the sums are exact (integer-valued pool
-    values below 2**24, as in the script's zero pool)."""
-    rows = _run_rows("rmw", pool, idx, run_rows).reshape(-1)
+
+def gather_rows(o: int, g: int, d: int, r: int) -> dict:
+    """Pool rows each plan of P5 is expected to move for G D starts drawn
+    uniformly from [0, O - R) (the TPU script's): read and written, 8 KB
+    each.  Direct reads every named row and writes G; two-pass reads the
+    rows the windows cover (and again the halo rows past a block that a
+    window of its starts reaches), writes a sum per distinct start, reads
+    G D sums back and writes G."""
+    q = 1.0 - 1.0 / max(o - r, 1)
+    units = -(-o // WINDOW_UNIT)
+    # halo row j past a block is read if one of its last R - 1 - j rows starts
+    halo = units * sum(1.0 - q ** (g * d * m) for m in range(1, r))
+    two = (o * (1.0 - q ** (g * d * r)) + halo + (o - r) * (1.0 - q ** (g * d))
+           + g * d + g)
+    return {"direct": float(g * d * r + g), "two_pass": two}
+
+
+def gather_plan(o: int, g: int, d: int, r: int) -> str:
+    """The plan ``dma_gather`` runs at (O, G, D, R): two-pass where it is
+    expected to move under TWO_PASS_SHARE of the direct plan's rows; direct
+    for R = 1 (a window is its row) and for R past MAX_WINDOW_ROWS (the
+    ring would not fit a block's shared memory)."""
+    if r < 2 or r > MAX_WINDOW_ROWS:
+        return "direct"
+    est = gather_rows(o, g, d, r)
+    return "two_pass" if est["two_pass"] < TWO_PASS_SHARE * est["direct"] else "direct"
+
+
+def _valid(idx: torch.Tensor, rows: int, run_rows: int) -> torch.Tensor:
+    return (idx >= 0) & (idx <= rows - run_rows)
+
+
+def gather_slots(idx: torch.Tensor, rows: int, run_rows: int) -> torch.Tensor:
+    """Twin of P5's plan kernel: i32[rows], at each distinct start s
+    1 + the largest flat run index g D + d naming it, 0 elsewhere; starts
+    outside the pool are left out."""
+    flat = idx.reshape(-1).long()
+    k = torch.arange(1, flat.numel() + 1, device=idx.device)
+    ok = _valid(flat, rows, run_rows)
+    slot = torch.zeros(rows, dtype=torch.long, device=idx.device)
+    slot.scatter_reduce_(0, flat[ok], k[ok], "amax")
+    return slot.to(torch.int32)
+
+
+def window_entries(slot: torch.Tensor, run_rows: int, unit: int = WINDOW_UNIT):
+    """Twin of the window kernels' lists: ``(rows, need, win)``, each
+    [units, unit + R - 1].  Block u covers the starts in [u unit, (u + 1)
+    unit); ``rows[u, i]`` is row u unit + i, ``need`` says whether a window
+    of the block's starts spans it (the block streams exactly those rows,
+    in order), ``win`` is the W index of the window whose last row it is
+    (slot - 1), else -1."""
+    o, r = slot.shape[0], run_rows
+    units = -(-o // unit)
+    dev = slot.device
+    marks = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                       (slot > 0).long().cumsum(0)])           # marks before row i
+    b = torch.arange(units, device=dev)[:, None] * unit
+    e = (b + unit).clamp(max=o)
+    rows = b + torch.arange(unit + r - 1, device=dev)[None, :]
+    lo = torch.maximum(b, rows - r + 1).clamp(max=o)
+    hi = torch.minimum(e, rows + 1).clamp(max=o)
+    need = (rows < o) & (marks[hi] - marks[lo.clamp(max=hi)] > 0)
+    s = rows - r + 1
+    inside = (s >= b) & (s < e)
+    win = torch.where(inside, slot[s.clamp(0, o - 1)].long() - 1,
+                      torch.full_like(s, -1))
+    return rows, need, torch.where(need, win, torch.full_like(win, -1))
+
+
+def plain_window_sums(pool: torch.Tensor, slot: torch.Tensor, run_rows: int,
+                      windows: int) -> torch.Tensor:
+    """Twin of the window sums: f32[windows, 16, 128] with
+    ``W[slot[s] - 1] = row_s + ... + row_{s+R-1}`` (in that order) for each
+    start s, 0 in the rows no start names."""
+    flat = pool.reshape(pool.shape[0], ROW_FLOATS)
+    starts = torch.nonzero(slot > 0).reshape(-1)
+    part = flat[starts]
+    for r in range(1, run_rows):
+        part = part + flat[starts + r]
+    w = torch.zeros((windows, ROW_FLOATS), dtype=pool.dtype, device=pool.device)
+    w[slot[starts].long() - 1] = part
+    return w.reshape(windows, ROWS, LANES)
+
+
+def plain_dma_gather_two_pass(pool: torch.Tensor, idx: torch.Tensor,
+                              run_rows: int) -> torch.Tensor:
+    """P5 by the two-pass plan: each distinct start's window summed once,
+    then ``acc = ((0 + W_0) + W_1) + ...`` over each program's runs, the
+    same adds in the same order as ``plain_dma_gather``."""
+    _run_rows("dma_gather", pool, idx, run_rows)
+    slot = gather_slots(idx, pool.shape[0], run_rows)
+    w = plain_window_sums(pool, slot, run_rows, idx.numel()).reshape(-1, ROW_FLOATS)
+    acc = torch.zeros((idx.shape[0], ROW_FLOATS), dtype=pool.dtype, device=pool.device)
+    for d in range(idx.shape[1]):
+        acc = acc + w[slot[idx[:, d].long()].long() - 1]
+    return acc.reshape(idx.shape[0], ROWS, LANES)
+
+
+def rmw_cover(idx: torch.Tensor, rows: int, run_rows: int) -> torch.Tensor:
+    """Twin of P6's count kernel: i32[rows], how many programs' runs cover
+    each row (a row that two runs of one program share counts once);
+    starts outside the pool are left out."""
+    r = torch.arange(run_rows, device=idx.device)
+    span = idx.long()[..., None] + r                                  # [G, D, R]
+    prog = torch.arange(idx.shape[0], device=idx.device)[:, None, None].expand_as(span)
+    ok = _valid(idx, rows, run_rows)[..., None].expand_as(span)
+    pairs = torch.unique(prog[ok] * rows + span[ok])
+    return torch.bincount(pairs % rows, minlength=rows).to(torch.int32)
+
+
+def plain_rmw(pool: torch.Tensor, idx: torch.Tensor, run_rows: int) -> torch.Tensor:
+    """P6: ``pool[idx[g, d] + r] += 1`` in place, as the TPU grid adds:
+    program after program, each reading all its runs before writing them,
+    so a row gains 1.0 once per program whose runs cover it (``rmw_cover``),
+    one add at a time (1.0 is added to every row covered k or more times,
+    for k = 1 ... the largest count).  Returns ``out`` f32[G, 128] with
+    ``out[g, 0] = g`` and 0 elsewhere."""
+    _run_rows("rmw", pool, idx, run_rows)
     o = pool.shape[0]
-    counts = torch.bincount(rows, minlength=o).to(pool.dtype)
-    touched = counts > 0
-    flat = pool.view(o, ROW_FLOATS)
-    flat[touched] += counts[touched][:, None]
+    cover = rmw_cover(idx, o, run_rows)
+    touched = torch.nonzero(cover).reshape(-1)
+    if touched.numel():
+        flat = pool.view(o, ROW_FLOATS)
+        count = cover[touched][:, None]
+        vals = flat[touched]
+        for k in range(1, int(count.max()) + 1):
+            vals = torch.where(count >= k, vals + 1.0, vals)
+        flat[touched] = vals
     out = torch.zeros((idx.shape[0], LANES), dtype=pool.dtype, device=pool.device)
     out[:, 0] = torch.arange(idx.shape[0], dtype=pool.dtype, device=pool.device)
     return out
+
+
+def dma_bytes(name: str, pool: torch.Tensor, idx: torch.Tensor, run_rows: int,
+              plan: str = "direct") -> int:
+    """Bytes a P5 (``dma_gather``, by ``plan``) or P6 (``rmw``) call moves
+    on these inputs, as its kernels read and write them: rows of 8 KB, the
+    starts and the scratch."""
+    o, (g, d) = pool.shape[0], idx.shape
+    row = ROW_FLOATS * 4
+    if name == "rmw":
+        touched = int((rmw_cover(idx, o, run_rows) > 0).sum())
+        return 2 * touched * row + 3 * o * 4 + idx.numel() * 4 + g * LANES * 4
+    if plan == "direct":
+        return (g * d * run_rows + g) * row + idx.numel() * 4
+    slot = gather_slots(idx, o, run_rows)
+    _, need, _ = window_entries(slot, run_rows)
+    windows = int((slot > 0).sum())
+    return ((int(need.sum()) + windows + g * d + g) * row + 3 * o * 4
+            + 2 * idx.numel() * 4)
 
 
 # --------------------------------------------------------------------------
@@ -194,49 +344,102 @@ def dyn_lane_write(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return _launch_laneop("dyn_lane_write", x, shifts, LANES, LANES)
 
 
-def _launch_dma(name: str, pool: torch.Tensor, idx: torch.Tensor, run_rows: int,
-                out: torch.Tensor) -> None:
-    from . import _build
-
+def _check_dma(name: str, pool: torch.Tensor, idx: torch.Tensor, run_rows: int) -> None:
     if pool.dim() != 3 or idx.dim() != 2 or min(idx.shape) < 1 or run_rows < 1:
         raise ValueError(f"{name}: pool f32[O, 16, 128], idx i32[G, D], R >= 1 expected")
     _expect(pool, torch.float32, (pool.shape[0], ROWS, LANES), pool.device, "pool")
     _expect(idx, torch.int32, tuple(idx.shape), pool.device, "idx")
-    g, d = idx.shape
-    entry = "cm_prof_" + name
-    err = getattr(_build.library(), entry)(
-        pool.data_ptr(), idx.data_ptr(), out.data_ptr(), pool.shape[0], g, d,
-        run_rows, torch.cuda.current_stream(pool.device).cuda_stream)
-    _build.check(err, entry)
-    launches[name] += 1
 
 
 def dma_gather(pool: torch.Tensor, idx: torch.Tensor, run_rows: int,
                ring: bool = False) -> torch.Tensor:
     """P5: f32[G, 16, 128], the sum of each program's D runs of R rows;
-    ``ring`` streams the rows through the cp.async ring (the TPU probe's
-    ``double_buffer``).  Both variants give the same bits."""
+    ``ring`` streams the rows through the cp.async.bulk ring (the TPU
+    probe's ``double_buffer``).  The plan is ``gather_plan``'s; both
+    variants and both plans give the same bits."""
+    plan = gather_plan(pool.shape[0], *idx.shape, run_rows)
+    return _launch_gather(pool, idx, run_rows, ring, plan)
+
+
+def _launch_gather(pool: torch.Tensor, idx: torch.Tensor, run_rows: int, ring: bool,
+                   plan: str) -> torch.Tensor:
+    """``dma_gather`` by ``plan`` ("direct", or "two_pass" for
+    2 <= R <= MAX_WINDOW_ROWS): the tests and profilers force the plan
+    ``gather_plan`` did not pick through this."""
+    o = pool.shape[0]
+    if plan not in PLANS or (plan == "two_pass"
+                             and not 2 <= run_rows <= MAX_WINDOW_ROWS):
+        raise ValueError(f"dma_gather: no plan {plan!r} at R = {run_rows}")
     if not pool.is_cuda:
-        return plain_dma_gather(pool, idx, run_rows)
-    out = torch.empty((idx.shape[0], ROWS, LANES), dtype=torch.float32,
-                      device=pool.device)
-    _launch_dma("dma_gather_ring" if ring else "dma_gather", pool, idx, run_rows, out)
+        fn = plain_dma_gather_two_pass if plan == "two_pass" else plain_dma_gather
+        return fn(pool, idx, run_rows)
+    from . import _build
+
+    name = "dma_gather_ring" if ring else "dma_gather"
+    _check_dma(name, pool, idx, run_rows)
+    g, d = idx.shape
+    out = torch.empty((g, ROWS, LANES), dtype=torch.float32, device=pool.device)
+    slot = wsum = None
+    if plan == "two_pass":
+        slot = torch.zeros(o, dtype=torch.int32, device=pool.device)
+        wsum = torch.empty((g * d, ROWS, LANES), dtype=torch.float32, device=pool.device)
+    entry = "cm_prof_" + name
+    err = getattr(_build.library(), entry)(
+        pool.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        None if slot is None else slot.data_ptr(), None if wsum is None else wsum.data_ptr(),
+        o, g, d, run_rows, PLANS.index(plan),
+        torch.cuda.current_stream(pool.device).cuda_stream)
+    _build.check(err, entry)
+    launches[name] += 1
     return out
 
 
-def rmw(pool: torch.Tensor, idx: torch.Tensor, run_rows: int,
-        atomic: bool = True) -> torch.Tensor:
-    """P6: add 1 to every row of every run of ``pool`` in place; returns
-    ``out`` f32[G, 128] (``out[g, 0] = g``).  ``atomic=False`` adds with a
-    plain load-add-store, right only when no two runs share a row."""
+def rmw(pool: torch.Tensor, idx: torch.Tensor, run_rows: int) -> torch.Tensor:
+    """P6: add 1 in place to every row of ``pool`` once per program whose
+    runs cover it (``plain_rmw``); returns ``out`` f32[G, 128]
+    (``out[g, 0] = g``; NaN for a program with a start outside the pool,
+    whose other runs still count)."""
     if not pool.is_cuda:
         return plain_rmw(pool, idx, run_rows)
-    out = torch.empty((idx.shape[0], LANES), dtype=torch.float32, device=pool.device)
-    _launch_dma("rmw" if atomic else "rmw_nonatomic", pool, idx, run_rows, out)
+    from . import _build
+
+    _check_dma("rmw", pool, idx, run_rows)
+    g, d = idx.shape
+    out = torch.empty((g, LANES), dtype=torch.float32, device=pool.device)
+    cover = torch.zeros(pool.shape[0], dtype=torch.int32, device=pool.device)
+    err = _build.library().cm_prof_rmw(
+        pool.data_ptr(), idx.data_ptr(), out.data_ptr(), cover.data_ptr(), pool.shape[0],
+        g, d, run_rows, torch.cuda.current_stream(pool.device).cuda_stream)
+    _build.check(err, "cm_prof_rmw")
+    launches["rmw"] += 1
     return out
+
+
+# the sub-kernels of P5 and P6 (csrc/prof_dma.cu, cm_prof_dma_info's order)
+DMA_SUBKERNELS = {
+    "dma_gather": {"gather": 0, "plan": 2, "window": 3},
+    "dma_gather_ring": {"gather": 1, "plan": 2, "window": 4},
+    "rmw": {"count": 5, "stream": 6},
+}
+
+
+def dma_info(name: str, run_rows: int = 9) -> dict:
+    """Registers per thread, resident blocks per SM and shared memory per
+    block (static and dynamic, at ``run_rows``) of each sub-kernel of P5 or
+    P6 on the current card: {sub-kernel: {...}}."""
+    import ctypes
+
+    from . import _build
+
+    info = {}
+    for sub, which in DMA_SUBKERNELS[name].items():
+        out = (ctypes.c_int * 3)()
+        _build.check(_build.library().cm_prof_dma_info(which, run_rows, out),
+                     "cm_prof_dma_info")
+        info[sub] = {"registers": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
+    return info
 
 
 # launches per kernel, counted where each is launched
 launches = {"dyn_roll": 0, "dyn_lane_read": 0, "dyn_lane_read_wide": 0,
-            "dyn_lane_write": 0, "dma_gather": 0, "dma_gather_ring": 0, "rmw": 0,
-            "rmw_nonatomic": 0}
+            "dyn_lane_write": 0, "dma_gather": 0, "dma_gather_ring": 0, "rmw": 0}

@@ -8,19 +8,21 @@ The port of ``scripts/prof_dma.py``, with its configurations on a pool of
 ``--rows`` rows f32[16, 128] (65,536 rows, 0.5 GiB, as there; ``--scale k``
 divides every program count by k, for a small run on the CPU).  Program g
 of P5 sums D runs of R rows starting at random rows (the TPU kernel's DMA
-gather; its double buffer becomes a ring of cp.async copies); P6 adds 1 to
-every row of the same kind of runs in place.  The TPU script's XLA
+gather; its double buffer becomes a ring of cp.async.bulk copies); P6 adds
+1 to every row of the same kind of runs in place.  The TPU script's XLA
 baselines become the same work in one torch call each: ``index_select`` of
 every run's rows, ``index_add_`` of ones into them, and ``index_add_`` with
 sorted indices.
 Each line gives the milliseconds per call, best of 3 runs of 10 calls (CUDA
 events on a card), and the payload over that time (every row as often as a
 run names it; P6 and the scatters read and write it); P5 also microseconds
-per run.  A last section times P6's atomic adds against a plain
-load-add-store on runs that share no row.  The last line, ``launches
-{...}``, gives the kernel launches of the run per probe
-(``probe_kernels.launches``; 0 on the CPU).  Exits 2 when ``--device cuda``
-finds no card.
+per run.  Every P5 and P6 line also names the plan its call ran (P5:
+``probe_kernels.gather_plan``'s choice, direct or two_pass; P6: count, then
+stream), the bound (``utils.bounds.dma_bound``) and the share of the bound
+that time reaches.  A section times P5 by the plan the rule did not pick,
+where R > 1.  The last line, ``launches {...}``, gives the kernel launches
+of the run per probe (``probe_kernels.launches``; 0 on the CPU).  Exits 2
+when ``--device cuda`` finds no card.
 """
 
 from __future__ import annotations
@@ -69,13 +71,6 @@ def rmw_starts(o: int, g: int, d: int, r: int) -> np.ndarray:
     """The TPU script's run starts of P6: ``default_rng(0).permutation(O - R)``
     (distinct starts; the runs overlap for R > 1)."""
     return np.random.default_rng(0).permutation(o - r)[: g * d]
-
-
-def disjoint_starts(o: int, g: int, d: int, r: int):
-    """Starts of G D runs of R rows that share no row, and the pool rows
-    they need (at least O)."""
-    o = max(o, g * d * r)
-    return np.random.default_rng(0).permutation(o // r)[: g * d] * r, o
 
 
 def index_gather_bench(o, g, d, r, dev):
@@ -133,40 +128,35 @@ def index_add_sorted_bench(o, g, s=8, dups=0.1, dev="cuda"):
     return ms, _gbs(s * g * ROW_BYTES, ms)
 
 
-def dma_gather_bench(o, g, d, r, dev, ring: bool = False):
-    """P5: program g sums D runs of R rows from random starts."""
+def dma_gather_bench(o, g, d, r, dev, ring: bool = False, plan=None):
+    """P5: program g sums D runs of R rows from random starts, by ``plan``
+    (``gather_plan``'s when None): (ms, GB/s, plan, bound ms)."""
     from ..ops import probe_kernels as pk
+    from ..utils.bounds import dma_bound
     from ..utils.timers import best_ms
 
     pool = _pool(o, dev)
     idx = _idx(gather_starts(o, g, d, r), d, dev)
-    ms = best_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring), dev)
-    return ms, _gbs(g * d * r * ROW_BYTES, ms)
+    plan = pk.gather_plan(o, g, d, r) if plan is None else plan
+    ms = best_ms(lambda: pk._launch_gather(pool, idx, r, ring, plan), dev)
+    return ms, _gbs(g * d * r * ROW_BYTES, ms), plan, dma_bound(idx, r)["bound_ms"]
 
 
 def rmw_bench(o, g, d, r, dev):
-    """P6: each of G programs adds 1 to its D runs of R rows in place."""
+    """P6: each of G programs adds 1 to its D runs of R rows in place:
+    (ms, GB/s, bound ms)."""
     from ..ops import probe_kernels as pk
+    from ..utils.bounds import dma_bound
     from ..utils.timers import best_ms
 
     pool = _pool(o, dev, zero=True)
     idx = _idx(rmw_starts(o, g, d, r), d, dev)
     ms = best_ms(lambda: pk.rmw(pool, idx, r), dev)
-    return ms, _gbs(2 * g * d * r * ROW_BYTES, ms)
+    return ms, _gbs(2 * g * d * r * ROW_BYTES, ms), dma_bound(idx, r, rmw=True)["bound_ms"]
 
 
-def rmw_disjoint_bench(o, g, d, r, dev):
-    """P6 on runs that share no row: the float4 atomics and the plain
-    load-add-store, (ms, ms, pool rows)."""
-    from ..ops import probe_kernels as pk
-    from ..utils.timers import best_ms
-
-    starts, o = disjoint_starts(o, g, d, r)
-    pool = _pool(o, dev, zero=True)
-    idx = _idx(starts, d, dev)
-    atomic = best_ms(lambda: pk.rmw(pool, idx, r), dev)
-    plain = best_ms(lambda: pk.rmw(pool, idx, r, atomic=False), dev)
-    return atomic, plain, o
+def _plan_tail(plan: str, bound: float, ms: float) -> str:
+    return f"  plan {plan}  bound {bound:.4f} ms ({bound / ms:.0%})"
 
 
 def main(argv=None) -> int:
@@ -204,30 +194,33 @@ def main(argv=None) -> int:
                          (8192, 4, 3, True)]:
         ms, bw = index_add_bench(o, gs(g), d, r, dup, dev)
         print(f"  G={gs(g)} D={d} R={r} dup={dup}: {ms:7.3f} ms  {bw:7.1f} GB/s")
+    p5 = {False: [(8192, 4, 9), (8192, 8, 1), (2048, 4, 9), (8192, 4, 3)],
+          True: [(8192, 4, 9), (8192, 8, 1), (8192, 4, 3), (5120, 16, 1)]}
     for ring, title in ((False, "P5 gather kernel (no double buffer)"),
-                        (True, "P5 gather kernel (double buffered: cp.async ring)")):
+                        (True, "P5 gather kernel (double buffered: cp.async.bulk ring)")):
         print(f"== {title} ==")
-        configs = ([(8192, 4, 9), (8192, 8, 1), (8192, 4, 3), (5120, 16, 1)] if ring
-                   else [(8192, 4, 9), (8192, 8, 1), (2048, 4, 9), (8192, 4, 3)])
-        for g, d, r in configs:
-            ms, bw = dma_gather_bench(o, gs(g), d, r, dev, ring=ring)
+        for g, d, r in p5[ring]:
+            ms, bw, plan, bound = dma_gather_bench(o, gs(g), d, r, dev, ring=ring)
             print(f"  G={gs(g)} D={d} R={r}: {ms:7.3f} ms  {bw:7.1f} GB/s  "
-                  f"{ms * 1e3 / (gs(g) * d):.3f} us/run")
+                  f"{ms * 1e3 / (gs(g) * d):.3f} us/run" + _plan_tail(plan, bound, ms))
     print("== torch index_add_, sorted near-unique per-slot indices ==")
     for g, s in [(10240, 8), (10240, 1)]:
         ms, bw = index_add_sorted_bench(o, gs(g), s, dev=dev)
         print(f"  G={gs(g)} S={s}: {ms:7.3f} ms  {bw:7.1f} GB/s")
-    print("== P6 RMW read+add+write (float4 atomics) ==")
+    print("== P5 by the plan the rule did not pick (R > 1) ==")
+    for ring in (False, True):
+        for g, d, r in p5[ring]:
+            if not 2 <= r <= pk.MAX_WINDOW_ROWS:
+                continue
+            other = pk.PLANS[1 - pk.PLANS.index(pk.gather_plan(o, gs(g), d, r))]
+            ms, bw, plan, bound = dma_gather_bench(o, gs(g), d, r, dev, ring=ring, plan=other)
+            print(f"  {'ring' if ring else 'registers'} G={gs(g)} D={d} R={r}: {ms:7.3f} ms  "
+                  f"{bw:7.1f} GB/s" + _plan_tail(plan, bound, ms))
+    print("== P6 RMW read+add+write (count, then stream) ==")
     for g, d, r in [(4096, 4, 9), (4096, 4, 3)]:
-        ms, bw = rmw_bench(o, gs(g), d, r, dev)
-        print(f"  G={gs(g)} D={d} R={r}: {ms:7.3f} ms  {bw:7.1f} GB/s (r+w)")
-    print("== P6 on runs that share no row: atomic vs plain load-add-store ==")
-    for g, d, r in [(4096, 4, 9), (4096, 4, 3)]:
-        atomic, plain, rows = rmw_disjoint_bench(o, gs(g), d, r, dev)
-        nbytes = 2 * gs(g) * d * r * ROW_BYTES
-        print(f"  G={gs(g)} D={d} R={r} ({rows} rows): atomic {atomic:7.3f} ms "
-              f"{_gbs(nbytes, atomic):7.1f} GB/s, plain {plain:7.3f} ms "
-              f"{_gbs(nbytes, plain):7.1f} GB/s (r+w)")
+        ms, bw, bound = rmw_bench(o, gs(g), d, r, dev)
+        print(f"  G={gs(g)} D={d} R={r}: {ms:7.3f} ms  {bw:7.1f} GB/s (r+w)"
+              + _plan_tail("count+stream", bound, ms))
     print(f"launches {json.dumps(pk.launches)}")
     return 0
 

@@ -7,8 +7,9 @@ divisions, square roots and transcendentals counted one each, per cell or
 particle as the kernel source does them, for the work these inputs need.
 
 ``grid_bound`` is the grid kernels' (K2, K2-AC, K2-SDF), ``g2p2g_bound``
-the transfer kernel's (K1); ``chip_smoke.py`` and the profiling scripts
-report both beside the kernels' times.
+the transfer kernel's (K1), ``dma_bound`` the pool-row probes' (P5, P6);
+``chip_smoke.py`` and the profiling scripts report them beside the
+kernels' times.
 """
 
 from __future__ import annotations
@@ -94,3 +95,17 @@ def g2p2g_bound(cfg, mat, state, model_idx: int = 0) -> dict:
     nbytes = (2 * slots * (12 + 4 * nf + 1 + 4) + tiles * 13
               + octs * (12 + 16) * 512)
     return bound(nbytes, n_act * (K1_OPS + K1_MATERIAL_OPS[mat.name]))
+
+
+def dma_bound(idx, run_rows: int, rmw: bool = False) -> dict:
+    """P5's bound (P6's with ``rmw``) for the run starts ``idx`` i32[G, D]:
+    every distinct pool row the runs touch read once (and written once for
+    P6), the starts read, the output written (G rows for P5, G x 128 floats
+    for P6); one addition per float of every run's rows."""
+    g, d = idx.shape
+    r = torch.arange(run_rows, device=idx.device)
+    distinct = int(torch.unique(idx.long()[..., None] + r).numel())
+    row_bytes = 16 * 128 * 4
+    nbytes = (distinct * row_bytes * (2 if rmw else 1) + idx.numel() * 4
+              + g * (128 * 4 if rmw else row_bytes))
+    return bound(nbytes, g * d * run_rows * 16 * 128)

@@ -209,3 +209,96 @@ def test_dma_probe_kernels_match_plain(card):
     card.check_dma(time_it=False, rows=4096,
                    p5={False: [(256, 4, 9), (300, 8, 1)], True: [(256, 4, 9), (200, 16, 1)]},
                    p6=[(64, 4, 9), (100, 4, 3)])
+
+
+def test_dma_probe_kernels_match_plain_at_the_script_configs(card):
+    """P5 (both variants, both plans) at every configuration of
+    P5_CONFIGS and P6 at P6_CONFIGS, on the 0.5 GiB pool; P6 on the zero
+    and the 2**24/0.1 pools."""
+    r = card.check_dma(time_it=False)
+    assert len(r["dma_gather"]) == len(r["dma_gather_ring"]) == 4 and len(r["rmw"]) == 2
+    assert {e["plan"] for e in r["dma_gather"]} == {"direct", "two_pass"}
+
+
+def _dma_inputs(o, starts, runs):
+    import numpy as np
+
+    pool = torch.arange(o * 2048, dtype=torch.float32, device="cuda").reshape(o, 16, 128)
+    idx = torch.from_numpy(np.asarray(starts, np.int32)).cuda().view(-1, runs)
+    return pool, idx
+
+
+def _all_gathers(pk, pool, idx, r):
+    plans = pk.PLANS if 2 <= r <= pk.MAX_WINDOW_ROWS else ("direct",)
+    return {(ring, plan): pk._launch_gather(pool, idx, r, ring, plan)
+            for ring in (False, True) for plan in plans}
+
+
+@pytest.mark.parametrize("r", [1, 3, 9])
+def test_dma_kernels_one_start_repeated(card, r):
+    """One start named G D times, the most overlap: every P5 variant and
+    plan equals the plain version, and P6 adds 1.0 G times (once per
+    program) on the 2**24/0.1 pool, as its plain version."""
+    from claymore_tpu_torch.ops import probe_kernels as pk
+
+    o, g, d = 4096, 512, 4
+    pool, idx = _dma_inputs(o, [1000] * (g * d), d)
+    want = pk.plain_dma_gather(pool, idx, r)
+    for key, got in _all_gathers(pk, pool, idx, r).items():
+        assert torch.equal(got, want), key
+    kp, pp = card.p6_pool(o, zero=False), card.p6_pool(o, zero=False)
+    ko, po = pk.rmw(kp, idx, r), pk.plain_rmw(pp, idx, r)
+    assert torch.equal(kp, pp) and torch.equal(ko, po)
+    zp = card.p6_pool(o)
+    pk.rmw(zp, idx, r)
+    assert float(zp.max()) == g and int((zp.view(o, -1)[:, 0] > 0).sum()) == r
+
+
+def test_dma_kernels_out_of_range_starts(card):
+    """A start outside [0, O - R]: P5 writes NaN for its program and the
+    other programs' sums are right, in every variant and plan; P6 writes NaN
+    to out[g, 0], the run adds nothing and the program's other runs still
+    count; starts that all lie outside leave the pool untouched."""
+    import numpy as np
+
+    from claymore_tpu_torch.ops import probe_kernels as pk
+
+    o, g, d, r = 4096, 64, 4, 9
+    rng = np.random.default_rng(3)
+    starts = rng.integers(0, o - r + 1, size=(g, d))
+    bad = starts.copy()
+    bad[5, 2], bad[9, 0], bad[17, 3] = -1, o - r + 1, 10 ** 6
+    pool, idx = _dma_inputs(o, bad.reshape(-1), d)
+    _, good = _dma_inputs(o, starts.reshape(-1), d)
+    want = pk.plain_dma_gather(pool, good, r)
+    rows_bad = torch.tensor([5, 9, 17], device="cuda")
+    keep = torch.ones(g, dtype=torch.bool, device="cuda")
+    keep[rows_bad] = False
+    for key, got in _all_gathers(pk, pool, idx, r).items():
+        assert bool(got[rows_bad].isnan().all()), key
+        assert torch.equal(got[keep], want[keep]), key
+    # under P6 a repeated start of one program adds nothing: the plain
+    # version of the good runs has each bad start replaced by its
+    # program's first start
+    same = starts.copy()
+    same[5, 2], same[9, 0], same[17, 3] = same[5, 0], same[9, 1], same[17, 0]
+    _, alike = _dma_inputs(o, same.reshape(-1), d)
+    kp, pp = card.p6_pool(o, zero=False), card.p6_pool(o, zero=False)
+    ko, po = pk.rmw(kp, idx, r), pk.plain_rmw(pp, alike, r)
+    assert torch.equal(kp, pp)
+    assert bool(ko[rows_bad, 0].isnan().all()) and torch.equal(ko[keep], po[keep])
+    none = card.p6_pool(o, zero=False)
+    before = none.clone()
+    _, outside = _dma_inputs(o, [-5, o - r + 1] * 8, 2)
+    ko = pk.rmw(none, outside, r)
+    assert torch.equal(none, before) and bool(ko[:, 0].isnan().all())
+
+
+def test_dma_info_names_every_sub_kernel(card):
+    from claymore_tpu_torch.ops import probe_kernels as pk
+
+    for name, subs in pk.DMA_SUBKERNELS.items():
+        info = pk.dma_info(name)
+        assert set(info) == set(subs)
+        for v in info.values():
+            assert 0 < v["registers"] <= 255 and v["blocks_per_sm"] >= 1
