@@ -21,17 +21,24 @@ against its plain twin), and drives the port's main paths through
 * the CLI, ``python -m claymore_tpu_torch -f scenes/dambreak.json``, and the
   CLI on a scene built from SDF assets it writes itself (an ``.obj`` turned
   into an ``.sdf`` model, an ``sdf`` and an ``sdf_file`` collider) with a
-  checkpoint after every frame and a resume from the first.
+  checkpoint after every frame and a resume from the first; that model also
+  seeded with ``"sampling": "poisson"`` (the g++-built sample elimination);
+* the rebucket schedules: sphere25m at span 4 (``rebucket_every=4``, fixed
+  cadence and drift-triggered) beside span 2; K1's span-4 variant of every
+  material against its plain version; dambreak12m and dambreak_sdf with
+  the incremental rebucket (``defrag_every=4``), and the incremental plan
+  on the card against the CPU, bit for bit.
 
 It also holds the probes P1-P6 (the kernels of the profiling scripts)
 against their plain versions at the TPU scripts' inputs and drives the
-profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches)
-and ``prof_stages25m`` as subprocesses, ``MPMEngine.profile_stages``
+profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches),
+``prof_stages25m`` and ``prof_rebuild`` as subprocesses, ``MPMEngine.profile_stages``
 on the sphere25m state, ``run(..., auto_grow=True)`` regrowing a tight
 sphere25m engine against an ample one, and ``update_material`` on the
 cube.
 
-Every phase raises on failure.  The line before the last is a JSON object
+Every phase raises on failure (the two incremental-rebucket paths at the
+end of the run, after the kernels line).  The line before the last is a JSON object
 with one entry per kernel (its launches on its main path, its error
 against its plain version, its time, the plain version's time, the time of
 one library call doing the same where there is one, and its bound on this
@@ -160,7 +167,7 @@ def grid_info(name: str, num_colliders: int = 3) -> dict:
 
 def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                        reps: int = 20, model_idx: int = 0,
-                       time_plain: bool = True) -> dict:
+                       time_plain: bool = True, plain_reps: int = 0) -> dict:
     """K1 (the variant of ``mat``) against core.transfer.g2p2g_model on the
     card, from one grid update of ``state``: dense grids within 1e-5 x the
     largest grid value (float atomics reorder the sums), identical active
@@ -168,7 +175,10 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     J, logJp) within 1e-5 x max(1, its largest value), but for the few
     NACC particles its discontinuous return map sends to another branch
     (see below); and the margin K1 returns equal, bit for bit, to
-    ``arena_margin`` of its output."""
+    ``arena_margin`` of its output.  The kernel is the variant of the
+    state's arena span (``cfg.arena_span``); ``plain_reps`` > 0 times the
+    plain version that many calls with no warm-up (the span-4 plain version
+    takes seconds a call)."""
     from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
     from claymore_tpu_torch.utils.debug import pool_to_dense
@@ -243,11 +253,40 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         acc = torch.zeros_like(state.grid)
         out["ms"] = cuda_ms(lambda: kernel(acc), reps=reps)
         if time_plain:
-            out["plain_ms"] = cuda_ms(lambda: plain(acc), reps=max(3, reps // 4),
-                                      warmup=1)
+            out["plain_ms"] = cuda_ms(lambda: plain(acc),
+                                      reps=plain_reps or max(3, reps // 4),
+                                      warmup=0 if plain_reps else 1)
         out.update(g2p2g_bound(cfg, mat, state, model_idx))
-        out.update(g2p2g_kernel.kernel_info(mat, cfg.particle_tile))
+        out.update(g2p2g_kernel.kernel_info(mat, cfg.particle_tile, cfg.arena_span))
     return out
+
+
+def check_incremental_plan(cfg, model) -> dict:
+    """``incremental_plan`` of ``model`` on the card against the same call on
+    a CPU copy: every output bit for bit (it only moves data, so a sort
+    that is not stable or a scatter order that differs would show).
+    Returns the movers, the deferred and the card's milliseconds."""
+    from claymore_tpu_torch.core import partition as part
+    from claymore_tpu_torch.utils.timers import device_ms
+
+    tk = part.tile_block_keys(cfg, model.tiles)
+    cpu = dataclasses.replace(
+        model, pos=model.pos.cpu(), fields={k: v.cpu() for k, v in model.fields.items()},
+        active=model.active.cpu(), pid=model.pid.cpu(), tiles=None)
+    out = {}
+    ms = device_ms(lambda: out.update(card=part.incremental_plan(cfg, model, tk)), DEVICE)
+    m2, tk2, d2 = out["card"]
+    c2, ctk2, cd2 = part.incremental_plan(cfg, cpu, tk.cpu())
+    pairs = [("pos", m2.pos, c2.pos), ("active", m2.active, c2.active),
+             ("pid", m2.pid, c2.pid), ("tile_keys", tk2, ctk2), ("deferred", d2, cd2)]
+    pairs += [(k, m2.fields[k], c2.fields[k]) for k in model.fields]
+    for name, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"incremental_plan on the card differs from the CPU in {name}")
+    key = part.flatten_key(cfg, part.home_block(cfg, model.pos))
+    movers = int((model.active & (key != tk.repeat_interleave(cfg.particle_tile))).sum())
+    return {"movers": movers, "deferred": int(d2[0]), "ms": ms,
+            "slots": int(model.pos.shape[1]), "active": int(model.active.sum())}
 
 
 def k1_order_sensitivity(cfg, mat, state, as_is: dict, facts: str) -> dict:
@@ -287,7 +326,7 @@ def check_fused_margin(eng, state) -> list:
     margins = []
     for mat, model in zip(eng.materials, state.models):
         new, acc, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table,
-                                              model, state.dt, next_dt, acc)
+                                              model, state.dt, next_dt, acc, eng.tile_chunk)
         want = partition.arena_margin(cfg, new)
         if not torch.equal(margin, want):
             raise AssertionError(f"fused margin {float(margin)!r} vs arena_margin "
@@ -684,6 +723,21 @@ def check_prof_stages_entry(facts: str) -> dict:
     return {"wall_s": wall, "stages_ms": stages, "particle_stream_floor_ms": floor}
 
 
+def check_prof_rebuild_entry(facts: str) -> dict:
+    """``prof_rebuild`` as a subprocess on the 1M cube: exit 0, one JSON
+    line with the JAX script's three stages, each finite and positive."""
+    t0 = time.perf_counter()
+    out = run_entry("prof_rebuild")
+    wall = time.perf_counter() - t0
+    res = json.loads(out.strip().splitlines()[-1])
+    stages = ("sort", "sort_permute", "table_rebuild+remap")
+    if res.get("particles") != 1061208 or not all(
+            np.isfinite(res[k]) and res[k] > 0.0 for k in stages):
+        raise AssertionError(f"prof_rebuild output:\n{out}")
+    log(f"entry point prof_rebuild: exit 0 in {wall:.1f} s: {json.dumps(res)} | {facts}")
+    return {"wall_s": wall, **res}
+
+
 # --------------------------------------------------------------------------
 # scenes (bench.py:48-177)
 # --------------------------------------------------------------------------
@@ -691,13 +745,13 @@ def check_prof_stages_entry(facts: str) -> dict:
 def scene(name: str):
     """(cfg, materials, positions, velocities, colliders) of a bench.py
     scene, with the capacities bench.py gives it; sphere25m, dambreak12m,
-    sand and nacc are ``scripts/prof_k1.scene``'s, dambreak_hs and
+    sand, nacc and cube are ``scripts/prof_k1.scene``'s, dambreak_hs and
     dambreak_sdf ``scripts/prof_k2.scene``'s."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.io.sampler import sample_uniform_box_world
     from claymore_tpu_torch.scripts import prof_k1, prof_k2
 
-    if name in ("sphere25m", "dambreak12m", "sand", "nacc"):
+    if name in ("sphere25m", "dambreak12m", "sand", "nacc", "cube"):
         cfg, mat, pos, v0 = prof_k1.scene(name)
         return cfg, [mat], [pos], [v0], ()
     if name in ("dambreak_hs", "dambreak_sdf"):
@@ -707,11 +761,7 @@ def scene(name: str):
     box = sample_uniform_box_world
     vol = cfg.default_volume()
     slack, colliders = 1.25, ()
-    if name == "cube":
-        mats = [ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)]
-        parts = [box(cfg.dx, [0.3, 0.5, 0.3], [0.5, 0.7, 0.5], cfg.ppc)]
-        v0s = [(0.0, -0.5, 0.0)]
-    elif name == "multimat":
+    if name == "multimat":
         cfg = dataclasses.replace(cfg, max_active_blocks=16384)
         h = 0.2
         mats = [ct.FixedCorotated(volume=vol, e=5e3, nu=0.4), ct.JFluid(volume=vol),
@@ -768,18 +818,28 @@ def grid_kernel_name(colliders) -> str:
 
 
 def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
-          on_step=None) -> dict:
-    """One main path: build the bench scene ``name``, zero the launch
-    counts, init, one warm-up substep and ``steps`` timed substeps (each
-    ended by a synchronise, so rebuilding substeps are timed apart), read
-    the counts, and check the invariants and K1's fused margin on the final
-    state (``check_fused_margin``).  ``on_step(i, engine, state)``
-    runs after timed substep ``i``, outside the timing and the peak memory,
-    and must launch no counted kernel.  Returns the metrics, the engine and the final state."""
+          on_step=None, strict: bool = True, **cfg_kw) -> dict:
+    """One main path: build the bench scene ``name`` (its configuration
+    with ``cfg_kw`` replaced), zero the launch counts, init, one warm-up
+    substep and ``steps`` timed substeps (each ended by a synchronise, so
+    rebuilding substeps are timed apart), read the counts, and check the
+    invariants and K1's fused margin on the final state
+    (``check_fused_margin``).  Each timed rebuild is logged with its
+    substep, its kind by the step number (full sort or incremental plan,
+    ``full_rebuild``), whether an incremental plan fell back to the full
+    sort (``engine.last_rebuild``: its plan would have deferred the movers
+    logged as ``plan_deferred``), its milliseconds and the movers left
+    deferred (``tiles.dropped``, read after the clock), which must be 0.
+    ``on_step(i, engine, state)`` runs after timed substep ``i``, outside the timing and the peak memory, and must
+    launch no counted kernel.  Returns the metrics, the engine and the
+    final state; a failed check raises, or with ``strict=False`` is
+    returned as ``failed`` for the caller to fail the run with later."""
     import claymore_tpu_torch as ct
-    from claymore_tpu_torch.ops.g2p2g_kernel import _LAYOUT
+    from claymore_tpu_torch.core.engine import full_rebuild
+    from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
 
     cfg, mats, parts, v0s, cols = scene(name)
+    cfg = dataclasses.replace(cfg, **cfg_kw)
     n = sum(p.shape[0] for p in parts)
     eng = ct.MPMEngine(cfg, mats, cols, tile_chunk=tile_chunk, device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
@@ -793,14 +853,20 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
     fe = np.float32(1e9)
     state = eng.substep(state, fe)
     torch.cuda.synchronize()
-    plain_ms, rebuild_ms, peak = [], [], 0
+    plain_ms, rebuild_ms, rebuild_log, peak = [], [], [], 0
     for i in range(steps):
         before = eng.rebuilds
+        step = 1 + i
         t0 = time.perf_counter()
         state = eng.substep(state, fe)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         (rebuild_ms if eng.rebuilds > before else plain_ms).append(ms)
+        if eng.rebuilds > before:
+            kind, plan_deferred = eng.last_rebuild
+            rebuild_log.append({"step": step, "full": full_rebuild(cfg, step), "kind": kind,
+                                "ms": ms, "plan_deferred": plan_deferred,
+                                "deferred": [int(m.tiles.dropped[0]) for m in state.models]})
         if on_step is not None:
             # the hook's temporaries stay out of the path's peak memory
             peak = max(peak, torch.cuda.max_memory_allocated())
@@ -817,7 +883,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
     disp = min(float(np.abs(probe(state, n_probe[i], i) - p0[i]).max())
                for i in range(len(mats)))
     grid_name = grid_kernel_name(cols)
-    used = [grid_name] + [_LAYOUT[type(m)][0] for m in mats]
+    used = [grid_name] + [variant_name(m, cfg.arena_span) for m in mats]
     margins = check_fused_margin(eng, state)
     checks = {
         "mass": mass_err < 1e-5,
@@ -830,8 +896,13 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "launches": (launches[grid_name] == substeps
                      and min(launches[k] for k in used) >= substeps),
         "steps": d["step"] == substeps,
+        "deferred": all(max(r["deferred"]) == 0 for r in rebuild_log),
+        "rebuild_kind": all((r["kind"] == "full") == r["full"] for r in rebuild_log),
     }
     total_ms = sum(plain_ms) + sum(rebuild_ms)
+    full = [r["ms"] for r in rebuild_log if r["full"]]
+    inc = [r["ms"] for r in rebuild_log if r["kind"] == "incremental"]
+    fell = [r["ms"] for r in rebuild_log if r["kind"] == "fallback"]
     out = {
         "particles": n, "substeps": substeps, "ms_per_substep": total_ms / steps,
         "mpps": n * steps / total_ms / 1e3, "rebuilds": eng.rebuilds,
@@ -839,11 +910,30 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "ms_drift_only": float(np.mean(plain_ms)) if plain_ms else None,
         "init_s": init_s, "peak_gib": peak_gib, "mass_rel_err": mass_err,
         "displacement": disp, "launches": {k: launches[k] for k in used},
-        "fused_margins": margins,
+        "fused_margins": margins, "arena_span": cfg.arena_span,
+        "defrag_every": cfg.defrag_every,
+        "rebuilds_full": len(full), "rebuilds_incremental": len(inc),
+        "rebuilds_fallback": len(fell),
+        "ms_rebuilding_full": float(np.mean(full)) if full else None,
+        "ms_rebuilding_incremental": float(np.mean(inc)) if inc else None,
+        "ms_rebuilding_fallback": float(np.mean(fell)) if fell else None,
+        "plan_deferred_by_rebuild": [r["plan_deferred"] for r in rebuild_log
+                                     if not r["full"]],
+        "deferred_by_rebuild": [r["deferred"] for r in rebuild_log],
     }
-    log(f"main path {name}: {n} particles, {substeps} substeps, "
+    def r3(x):
+        return x if x is None else round(x, 3)
+
+    label = name + "".join(f" {k}={v}" for k, v in cfg_kw.items())
+    log(f"main path {label}: {n} particles, {substeps} substeps, "
         f"{out['ms_per_substep']:.3f} ms/substep, {out['mpps']:.2f} M particle-steps/s, "
-        f"rebuilds {eng.rebuilds} (auto), rebuilding substep "
+        f"span {cfg.arena_span}, rebuilds {eng.rebuilds} "
+        f"({'auto' if cfg.rebucket_auto else f'every {cfg.rebucket_every}'}; timed: "
+        f"{len(full)} full at {r3(out['ms_rebuilding_full'])} ms, {len(inc)} incremental at "
+        f"{r3(out['ms_rebuilding_incremental'])} ms, {len(fell)} incremental fallen back to "
+        f"the full sort at {r3(out['ms_rebuilding_fallback'])} ms, plan deferrals "
+        f"{out['plan_deferred_by_rebuild']}, left deferred by rebuild "
+        f"{out['deferred_by_rebuild']}), rebuilding substep "
         f"{out['ms_rebuilding'] if out['ms_rebuilding'] is None else round(out['ms_rebuilding'], 3)} ms, "
         f"drift-only substep {out['ms_drift_only'] if out['ms_drift_only'] is None else round(out['ms_drift_only'], 3)} ms, "
         f"init {init_s:.2f} s, peak {peak_gib:.2f} GiB, mass_rel_err {mass_err:.3e}, "
@@ -851,10 +941,14 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         f"{margins} == arena_margin | {facts}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"main path {name} checks failed: {failed} ({d}, "
-                             f"launches {launches})")
+        msg = (f"main path {label} checks failed: {failed} ({d}, launches {launches}, "
+               f"deferred {out['deferred_by_rebuild']})")
+        if strict:
+            raise AssertionError(msg)
+        log("FAILED " + msg)
+    out["failed_checks"] = failed
     return {"metrics": out, "engine": eng, "state": state, "cfg": cfg, "mats": mats,
-            "name": name}
+            "name": name, "failed": failed}
 
 
 def positions_by_pid(model, n: int) -> np.ndarray:
@@ -1259,7 +1353,50 @@ def run_cli_sdf(facts: str, fps: int = 24) -> dict:
         raise AssertionError(f"resumed frame 2 differs by {diff} > {RESUME_POS_BOUND}")
     if contact == 0:
         raise AssertionError("the CLI scene's fluid never met its SDF colliders")
+    report["poisson"] = check_poisson_model(assets["doc"], scene_file.parent, facts)
     return report
+
+
+def check_poisson_model(doc: dict, base: Path, facts: str) -> dict:
+    """The CLI scene's ``.sdf`` model loaded with ``"sampling": "poisson"``
+    (the scene loader's own path): the port's g++-built weighted sample
+    elimination ran (no fallback), the cloud holds within 10% of the
+    uniform lattice's particles, no two coincide, and its 5th-percentile
+    nearest-neighbour spacing beats a lattice jittered by +-0.45 spacings
+    at equal count by 1.5x (tests/test_io.py's blue-noise check)."""
+    from scipy.spatial import cKDTree
+
+    from claymore_tpu_torch.config import SimConfig
+    from claymore_tpu_torch.io.scene import _model_positions
+    from claymore_tpu_torch.ops import _build
+
+    g = doc["grid"]
+    cfg = SimConfig(domain_bits=g["domain_bits"], max_active_blocks=g["max_active_blocks"])
+    model = dict(doc["models"][0])
+    t0 = time.perf_counter()
+    uni = _model_positions(model, cfg, str(base))
+    model["sampling"] = "poisson"
+    pois = _model_positions(model, cfg, str(base))
+    wall = time.perf_counter() - t0
+    if _build.host_library() is None:
+        raise AssertionError("the host library (csrc/sample_elim.cpp) did not build")
+    rng = np.random.default_rng(SEED)
+    h = cfg.dx / cfg.ppc ** (1.0 / 3.0)
+    jit = (uni + rng.uniform(-0.45, 0.45, uni.shape) * h)[:len(pois)]
+    k = min(len(pois), len(jit))
+
+    def nn(p):
+        return cKDTree(p).query(p, k=2)[0][:, 1]
+
+    d_pois, d_jit = nn(pois[:k]), nn(jit[:k])
+    res = {"particles": int(len(pois)), "uniform_particles": int(len(uni)),
+           "min_nn": float(d_pois.min()), "q05_nn": float(np.quantile(d_pois, 0.05)),
+           "q05_nn_jittered": float(np.quantile(d_jit, 0.05)), "wall_s": wall}
+    log(f"poisson sampling of the CLI scene's cube.sdf model: {res} | {facts}")
+    if not (abs(len(pois) - len(uni)) <= 0.1 * len(uni) and res["min_nn"] > 0.0
+            and res["q05_nn"] > 1.5 * res["q05_nn_jittered"]):
+        raise AssertionError(f"poisson sampling: {res}")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1298,8 +1435,10 @@ def main() -> int:
     vol = 1e-6
     for mat in (ct.FixedCorotated(volume=vol), ct.JFluid(volume=vol),
                 ct.Sand(volume=vol), ct.NACC(volume=vol)):
-        log(f"K1 {mat.name} at particle_tile 512: "
-            f"{g2p2g_kernel.kernel_info(mat, 512)} | {facts}")
+        for span in (2, 4):
+            log(f"K1 {mat.name} span {span}: " + ", ".join(
+                f"tile {tile} {g2p2g_kernel.kernel_info(mat, tile, span)}"
+                for tile in (256, 512, 1024)) + f" | {facts}")
     for name in ("grid_update", "grid_update_colliders", "grid_update_sdf"):
         log(f"K2 {name}: {grid_kernel.kernel_info(name)} | {facts}")
 
@@ -1342,6 +1481,14 @@ def main() -> int:
     k1c = check_g2p2g_kernel(cfgc, matc, sc, tile_chunk=64)
     log_k1(f"g2p2g_fixed_corotated, cube {posc.shape[0]} particles", k1c, facts)
     del sc
+    # K1-FC at span 4 on the cube's span-4 initial state (the plain version
+    # is timed once: at span 4 it takes seconds)
+    cfgc4 = dataclasses.replace(cfgc, rebucket_every=4)
+    sc4 = ct.MPMEngine(cfgc4, [matc], tile_chunk=64, device=DEVICE).init_state([posc], [v0c])
+    k1c4 = check_g2p2g_kernel(cfgc4, matc, sc4, tile_chunk=64, plain_reps=1)
+    log_k1(f"g2p2g_fixed_corotated_span4, cube {posc.shape[0]} particles, span-4 init",
+           k1c4, facts)
+    del sc4
 
     # 4b. the probes P1-P6 against their plain versions at the TPU scripts'
     #     inputs (not counted), then the probe path: the two probe entry
@@ -1451,6 +1598,29 @@ def main() -> int:
     del state, eng, eng_every, before
     torch.cuda.empty_cache()
 
+    # 5b. sphere25m at span 4: a fixed cadence of 4 and drift-triggered
+    #     rebuilds, beside the span-2 drift-triggered path in the same call;
+    #     K1-FC timed alone on each final state, and at span 4 held against
+    #     its plain version there (timed once: ~14 s a call)
+    spans = {}
+    for key, kw in (("span2_auto", {}),
+                    ("span4_every4", dict(rebucket_every=4, rebucket_auto=False)),
+                    ("span4_auto", dict(rebucket_every=4))):
+        run = drive("sphere25m", steps=60, facts=facts, **kw)
+        k1ms = prof_k1.k1_ms(run["cfg"], mat25, run["state"], reps=10)
+        spans[key] = {**run["metrics"], "k1_ms": k1ms}
+        log(f"sphere25m {key}: K1 {run['metrics']['launches']} alone on the final state "
+            f"{k1ms:.4f} ms | {facts}")
+        if key == "span4_every4":
+            k1s4 = check_g2p2g_kernel(run["cfg"], mat25, run["state"], tile_chunk=64,
+                                      reps=10, plain_reps=1)
+            log_k1("g2p2g_fixed_corotated_span4, sphere25m span-4 state", k1s4, facts)
+        del run
+        torch.cuda.empty_cache()
+    log("sphere25m span 4 vs span 2 (ms/substep, rebuilds, K1 ms): "
+        + ", ".join(f"{k} {v['ms_per_substep']:.3f} / {v['rebuilds']} / {v['k1_ms']:.4f}"
+                    for k, v in spans.items()) + f" | {facts}")
+
     # 6. the run() entry point on the cube
     engc = ct.MPMEngine(cfgc, [matc], tile_chunk=64, device=DEVICE)
     sc = engc.init_state([posc], [v0c])
@@ -1480,6 +1650,33 @@ def main() -> int:
     log("dambreak12m stages on its final state (ms, median of 10): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {facts}")
     del db
+    torch.cuda.empty_cache()
+
+    # 7b. the same path with the incremental rebucket (defrag_every=4: every
+    #     4th rebuild, by substep number, a full sort), then the incremental
+    #     plan on its final state on the card against the CPU, bit for bit.
+    #     An incremental rebuild whose plan would defer movers runs the full
+    #     sort instead (``engine.rebucket``); both kinds are timed apart.
+    #     Its checks (and 9b's) fail the run at the end, after every other
+    #     phase has run
+    dbi = drive("dambreak12m", steps=80, facts=facts, strict=False, defrag_every=4)
+    failures = {"dambreak12m defrag_every=4": dbi["failed"]} if dbi["failed"] else {}
+    m_dbi = dbi["metrics"]
+    if m_dbi["rebuilds_incremental"] + m_dbi["rebuilds_fallback"] == 0:
+        raise AssertionError("dambreak12m defrag_every=4: no incremental rebuild was timed")
+    paths["dambreak12m_incremental"] = dbi["metrics"]
+    st = dbi["state"]
+    plan = check_incremental_plan(dbi["cfg"], st.models[0])
+    if plan["movers"] == 0:       # the last substep rebuilt: one more has movers
+        st = dbi["engine"].substep(st, np.float32(1e9))
+        plan = check_incremental_plan(dbi["cfg"], st.models[0])
+    if plan["movers"] == 0:
+        raise AssertionError("dambreak12m: no mover for the card-vs-CPU incremental plan")
+    paths["incremental_plan_card_vs_cpu"] = plan
+    log(f"incremental_plan on the card == on the CPU, bit for bit, dambreak12m state: "
+        f"{plan} | {facts}")
+    del dbi, st
+    torch.cuda.empty_cache()
 
     # 8. scenes at bench size; each material's K1 variant held against its
     #    plain version on a stirred copy of the scene's final state (not
@@ -1500,6 +1697,23 @@ def main() -> int:
         else:
             paths[name].update(scene_stages(run, facts))
         del run
+
+    # 8b. sand, nacc and multimat at span 4 (rebucket_every=4); each
+    #     material's span-4 K1 held against its plain version on a stirred
+    #     copy of the final state (the plain version timed once)
+    for name, steps, model_idx in (("sand", 20, 0), ("nacc", 20, 0), ("multimat", 20, 1)):
+        run = drive(name, steps=steps, facts=facts, rebucket_every=4)
+        paths[name + "_span4"] = run["metrics"]
+        mat = run["mats"][model_idx]
+        key = f"g2p2g_{mat.name}_span4"
+        k1v[key] = check_g2p2g_kernel(run["cfg"], mat, prof_k1.stir(run["state"]),
+                                      tile_chunk=64, reps=10, model_idx=model_idx,
+                                      plain_reps=1)
+        n_model = int(run["state"].models[model_idx].active.sum())
+        log_k1(f"{key}, {name} span-4 state, model {model_idx}, {n_model} particles",
+               k1v[key], facts)
+        del run
+        torch.cuda.empty_cache()
 
     # 9. dambreak_sdf: 4.3M JFluid onto the 128^3 SDF dome, 1750 substeps
     #    (0.175 s at dt 1e-4; the fluid enters the dome's band after ~1300);
@@ -1522,10 +1736,26 @@ def main() -> int:
         raise AssertionError("dambreak_sdf: the fluid never reached the SDF dome")
     paths["dambreak_sdf"].update(scene_stages(sdfrun, facts))
     del sdfrun
+    torch.cuda.empty_cache()
+
+    # 9b. dambreak_sdf with the incremental rebucket (defrag_every=4)
+    sdfi = drive("dambreak_sdf", steps=SDF_STEPS, facts=facts, strict=False, defrag_every=4)
+    if sdfi["failed"]:
+        failures["dambreak_sdf defrag_every=4"] = sdfi["failed"]
+    paths["dambreak_sdf_incremental"] = sdfi["metrics"]
+    m_full, m_inc = paths["dambreak_sdf"], sdfi["metrics"]
+    log(f"dambreak_sdf rebuilding substeps: full-sort path {m_full['rebuilds']} rebuilds at "
+        f"{m_full['ms_rebuilding']:.3f} ms; defrag_every=4 path {m_inc['rebuilds_full']} full "
+        f"at {m_inc['ms_rebuilding_full']} ms, {m_inc['rebuilds_incremental']} incremental "
+        f"at {m_inc['ms_rebuilding_incremental']} ms, {m_inc['rebuilds_fallback']} incremental "
+        f"fallen back to the full sort at {m_inc['ms_rebuilding_fallback']} ms | {facts}")
+    del sdfi
+    torch.cuda.empty_cache()
 
     # 10. the CLI, and the CLI on SDF assets with checkpoints and a resume
     run_cli(facts)
     paths["cli_sdf"] = run_cli_sdf(facts)
+    paths["prof_rebuild"] = check_prof_rebuild_entry(facts)
 
     src = "claymore_tpu_torch/csrc/"
     k2_call = "claymore_tpu/ops/pallas_grid.py:192"
@@ -1550,6 +1780,19 @@ def main() -> int:
         entry("g2p2g_sand", "g2p2g.cu", k1_call, "sand", k1v["g2p2g_sand"]),
         entry("g2p2g_nacc", "g2p2g.cu", k1_call, "nacc", k1v["g2p2g_nacc"]),
     ]
+    # K1 at span 4: the TPU kernel refuses span 4, the JAX package runs it on
+    # its XLA path; the variant is held against the plain version where the
+    # span-2 one is
+    paths["sphere25m_span4"] = spans["span4_every4"]
+    for name, path, check in (
+            ("g2p2g_fixed_corotated_span4", "sphere25m_span4", k1s4),
+            ("g2p2g_jfluid_span4", "multimat_span4", k1v["g2p2g_jfluid_span4"]),
+            ("g2p2g_sand_span4", "sand_span4", k1v["g2p2g_sand_span4"]),
+            ("g2p2g_nacc_span4", "nacc_span4", k1v["g2p2g_nacc_span4"])):
+        e = entry(name, "g2p2g.cu", k1_call, path, check)
+        e["span4_on_the_tpu"] = "claymore_tpu/core/transfer.py:127 (XLA)"
+        kernels.append(e)
+    paths["sphere25m_spans"] = spans
     # the collider kernels' cull and their straddle pools
     for e, check, straddle in ((kernels[1], k2c, k2c_straddle), (kernels[2], k2s, k2s_straddle)):
         e["culled_share"] = check["culled_share"]
@@ -1587,6 +1830,8 @@ def main() -> int:
     log(f"paths: {json.dumps(paths)}")
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    if failures:
+        raise AssertionError(f"main paths failed their checks: {failures}")
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,11 +45,18 @@ class SimConfig:
 
     # --- rebucketing ---
     # Rebuild buckets/partition every K substeps; K <= 2 keeps the 2^3-block
-    # transfer arena (one cell of drift tolerance).
+    # transfer arena (one cell of drift tolerance), K 3..8 takes the 4^3-block
+    # arena (span 4, one block of slack below the home block).
     rebucket_every: int = 1
-    # Every defrag_every-th rebucket is a full sort; 1 = always (the only
-    # value the port supports so far).
+    # Every defrag_every-th rebucket is a full sort; the others move only
+    # the particles whose home block changed (core/partition.py:
+    # incremental_plan).  1 = always a full sort.
     defrag_every: int = 1
+    # The incremental rebucket's mover buffer, as a share of the slots;
+    # movers past it (or past the free tiles) stay in their old tile and are
+    # counted in TileMap.dropped; one that then leaves that tile's arena is
+    # deactivated, as in the JAX package.
+    mover_capacity_frac: float = 0.125
     # Drift-triggered rebucketing: rebuild only when some particle could
     # leave its tile's transfer arena on the next substep.
     rebucket_auto: bool = False

@@ -15,7 +15,10 @@ pointers.  The host synchronises with the device at exactly these points:
 
 * ``substep_impl``: reading the rebuild decision, once per substep
   (``margin <= drift * safety`` under ``rebucket_auto``, or the step count
-  for a fixed cadence of 2);
+  for a fixed cadence of 2..8), and on a rebuilding substep with
+  ``defrag_every > 1`` the step count, for the choice between the full sort
+  and the incremental plan, and after an incremental plan its deferred
+  counts, for the fall-back to the full sort;
 * ``MPMEngine.run_frame``: the loop test ``t < frame_end`` and the substep
   cap, once per substep;
 * ``run`` / ``check_health`` / ``diagnostics`` / ``get_positions``: once per
@@ -131,20 +134,53 @@ def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
     )
 
 
-def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models):
-    """Full rebucket: every model's particles into new tiles, the active oct
-    set recomputed and the pool remapped.  Returns (partition, pool,
-    models)."""
+def full_rebuild(cfg: SimConfig, step) -> bool:
+    """Whether the rebuild at the end of substep ``step`` (0-based, an int
+    or a 0-d tensor, read only when ``defrag_every > 1``) runs the full
+    sort: always when ``defrag_every <= 1``, else every ``defrag_every``-th
+    rebuild counted as ``(step + 1) // rebucket_every`` (under
+    ``rebucket_auto`` that count is the substep number, as in the JAX
+    package)."""
+    if cfg.defrag_every <= 1:
+        return True
+    return ((int(step) + 1) // max(cfg.rebucket_every, 1)) % cfg.defrag_every == 0
+
+
+def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
+             full: bool = True):
+    """Rebucket every model's particles, recompute the active oct set and
+    remap the pool.  ``full``: the full sort into new tiles; else the
+    incremental plan, which moves only the particles that changed home
+    block.  A model whose plan would defer movers (past the mover capacity
+    or past the free tiles) takes the full sort instead: a deferred mover
+    stays in a tile of another block, and once it drifts out of that
+    tile's arena it is lost (the JAX package keeps the deferral and loses
+    them).  Reading the deferred counts is one host synchronisation.
+
+    Returns (partition, pool, models, kind, deferred): ``kind`` is "full",
+    "incremental" or "fallback" (some model's plan deferred and it took the
+    full sort), ``deferred`` the movers each model's plan would have
+    deferred (empty for "full")."""
     permuted, tile_keys, droppeds = [], [], []
-    for m in models:
-        pm, tk, dr = part.sort_permute(cfg, m, m.tiles.block.shape[0])
+    if not full:
+        plans = [part.incremental_plan(cfg, m, part.tile_block_keys(cfg, m.tiles))
+                 for m in models]
+        deferred = [int(d) for d in torch.cat([dr for _, _, dr in plans]).tolist()]
+    for i, m in enumerate(models):
+        if full or deferred[i] > 0:
+            pm, tk, dr = part.sort_permute(cfg, m, m.tiles.block.shape[0])
+        else:
+            pm, tk, dr = plans[i]
         permuted.append(pm)
         tile_keys.append(tk)
         droppeds.append(dr)
     partition, pool = part.rebuild(cfg, pool, partition, tuple(tile_keys))
     for pm, tk, dr in zip(permuted, tile_keys, droppeds):
         pm.tiles = part.finalize_tiles(cfg, partition, tk, dr)
-    return partition, pool, tuple(permuted)
+    if full:
+        return partition, pool, tuple(permuted), "full", []
+    kind = "fallback" if max(deferred) > 0 else "incremental"
+    return partition, pool, tuple(permuted), kind, deferred
 
 
 def clone_state(x):
@@ -195,7 +231,8 @@ def time_state_loop(fn, state: SimState, iters: int, reps: int, device) -> float
 def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
                  state: SimState, frame_end: torch.Tensor, collider_table=None,
                  sdf_pointers=None):
-    """One explicit MPM substep.  Returns (new_state, rebuilt: bool).
+    """One explicit MPM substep.  Returns (new_state, rebuilt): ``rebuilt``
+    is None, or ``rebucket``'s (kind, deferred) on a rebuilding substep.
 
     The colliders are posed at the substep's start time ``state.t``;
     ``collider_table`` and ``sdf_pointers`` are their packed form and the
@@ -233,17 +270,18 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
     else:
         do_rebuild = (int(state.step) + 1) % k_every == 0
 
-    partition = state.partition
+    partition, rebuilt = state.partition, None
     if do_rebuild:
-        partition, next_pool, new_models = rebucket(cfg, next_pool, partition,
-                                                    new_models)
+        partition, next_pool, new_models, kind, deferred = rebucket(
+            cfg, next_pool, partition, new_models, full_rebuild(cfg, state.step))
+        rebuilt = (kind, deferred)
 
     new_state = SimState(
         grid=next_pool, partition=partition, models=tuple(new_models),
         dt=next_dt, max_vel=torch.sqrt(max_vel_sqr), t=t_after,
         step=state.step + 1, mig_dropped=state.mig_dropped,
         halo_overflow=state.halo_overflow)
-    return new_state, do_rebuild
+    return new_state, rebuilt
 
 
 class MPMEngine:
@@ -255,7 +293,9 @@ class MPMEngine:
     in list order; on a CUDA device their packed table and the SDF node
     tables are uploaded here, once, and a list longer than the grid kernel
     takes (``grid_kernel.max_colliders``) raises.  ``rebuilds`` counts the
-    substeps that rebucketed.
+    substeps that rebucketed, ``fallbacks`` those of them whose incremental
+    plan deferred movers and so ran the full sort, and ``last_rebuild`` is
+    the latest rebuild's (kind, deferred) from ``rebucket``.
     """
 
     def __init__(self, cfg: SimConfig, materials: Sequence[Material],
@@ -264,14 +304,6 @@ class MPMEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
         check_colliders(colliders)
-        if cfg.defrag_every != 1:
-            raise ValueError(
-                "defrag_every must be 1: the incremental mover path is not "
-                "ported; use rebucket_auto=True")
-        if cfg.arena_span != 2:
-            raise ValueError(
-                "rebucket_every <= 2 required (span-2 arenas); the span-4 "
-                "arena is not ported")
         self.cfg = cfg
         self.materials = tuple(materials)
         self.colliders = tuple(colliders)
@@ -286,6 +318,8 @@ class MPMEngine:
             if on_card else None)
         self.tile_chunk = tile_chunk
         self.rebuilds = 0
+        self.fallbacks = 0
+        self.last_rebuild = None
         self._num_tiles: List[int] = []
 
     # ------------------------------------------------------------------
@@ -340,7 +374,10 @@ class MPMEngine:
                                       self.tile_chunk, state,
                                       self._frame_end(frame_end),
                                       self._collider_table, self._sdf_pointers)
-        self.rebuilds += int(rebuilt)
+        if rebuilt is not None:
+            self.rebuilds += 1
+            self.fallbacks += rebuilt[0] == "fallback"
+            self.last_rebuild = rebuilt
         return state
 
     def run_steps(self, state: SimState, n: int, frame_end) -> SimState:
@@ -540,7 +577,7 @@ class MPMEngine:
             return dataclasses.replace(s, grid=nxt, models=tuple(models))
 
         def rebuild_stage(s):
-            partition, pool, models = rebucket(cfg, s.grid, s.partition, s.models)
+            partition, pool, models, _, _ = rebucket(cfg, s.grid, s.partition, s.models)
             return dataclasses.replace(s, grid=pool, partition=partition, models=models)
 
         def substep_stage(s):

@@ -1,10 +1,11 @@
 """Sparse block partition: activation, compaction, tile building.
 
-Port of ``claymore_tpu/core/partition.py`` (full-sort rebucket only).  The
-particle state moves into its new tile layout by one stable key sort and
-one gather per channel; the padded destination slots come from the same
-segment arithmetic as the JAX package, so slot order, tile keys and the
-partition agree exactly.
+Port of ``claymore_tpu/core/partition.py``.  The full rebucket moves the
+particle state into its new tile layout by one stable key sort and one
+gather per channel; the incremental one moves only the particles whose
+home block changed into free tiles.  The padded destination slots come
+from the same segment arithmetic as the JAX package, so slot order, tile
+keys and the partition agree exactly.
 
 Nothing here reads a value back to the host: variable-length results
 (nonzero, dropped elements) are written through a trailing dummy slot
@@ -166,6 +167,114 @@ def arena_margin(cfg: SimConfig, model) -> torch.Tensor:
     m = torch.minimum(c, (cfg.arena_cells - 2) - c)
     live = model.active.reshape(1, t, tile) & tm.tvalid[None, :, None]
     return torch.where(live, m, torch.inf).min()
+
+
+def _first_marked(mark: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Indices of the first ``size`` True entries of ``mark`` in ascending
+    order, ``fill`` past the last one: ``jnp.nonzero(mark, size=size,
+    fill_value=fill)`` without a host synchronisation."""
+    rank = torch.cumsum(mark, dim=0) - 1
+    dest = torch.where(mark & (rank < size), rank, torch.full_like(rank, size))
+    iota = torch.arange(mark.shape[0], dtype=torch.int64, device=mark.device)
+    return _compact_into(size, dest, iota, fill)
+
+
+def tile_block_keys(cfg: SimConfig, tiles: TileMap) -> torch.Tensor:
+    """i32[T]: each tile's block key as the TileMap stands (G^3 for a tile
+    that is not valid), the input of ``incremental_plan``."""
+    n3 = cfg.grid_size ** 3
+    key = flatten_key(cfg, tiles.bcoord)
+    return torch.where(tiles.tvalid, key, torch.full_like(key, n3)).to(torch.int32)
+
+
+def incremental_plan(cfg: SimConfig, model, tile_keys: torch.Tensor):
+    """Stable-tile rebucket: move only the particles whose home block is no
+    longer their tile's block; the others keep their slots.
+
+    Movers (the first ``mover_capacity_frac`` of the slots' worth, in slot
+    order) are sorted stably by their new home block, packed into
+    tile-aligned runs and placed into the tiles that hold no active
+    particle, in ascending tile order.  Movers past the capacity or past
+    the free tiles stay active where they are and are counted in
+    ``deferred``.  Tiles left empty release their key; each mover tile takes
+    its movers' key.  Slots a mover left, and the slots of a free tile no
+    mover fills, keep their old contents, inactive.
+
+    Returns (model, tile_keys i32[T], deferred i32[1]), equal to the JAX
+    package's ``incremental_plan``."""
+    s_cap = model.pos.shape[1]
+    tile = cfg.particle_tile
+    num_tiles = tile_keys.shape[0]
+    n3 = cfg.grid_size ** 3
+    m_cap = max(tile, int(s_cap * cfg.mover_capacity_frac))
+    dev = model.pos.device
+
+    key = flatten_key(cfg, home_block(cfg, model.pos))
+    key = torch.where(model.active, key, torch.full_like(key, n3)).to(torch.int32)
+    tk_slot = tile_keys.repeat_interleave(tile)
+    stay = model.active & (key == tk_slot)
+    mover = model.active & ~stay
+
+    midx = _first_marked(mover, m_cap, s_cap)
+    got_m = midx < s_cap
+    deferred = mover.sum(dtype=torch.int32) - got_m.sum(dtype=torch.int32)
+    gmid = torch.clamp(midx, max=s_cap - 1)
+    mkey = torch.where(got_m, key[gmid], torch.full_like(gmid, n3, dtype=torch.int32))
+
+    # pack movers into fresh tiles: sort by key, pad to tile boundaries
+    iota_m = torch.arange(m_cap, dtype=torch.int64, device=dev)
+    skey, sord = torch.sort(mkey, stable=True)
+    act_s = skey < n3
+    skey64 = skey.long()
+    boundary = (skey64 != _shift_right(skey64, -1)) & act_s
+    seg_start = _last_marked(boundary, iota_m)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    prev_len = torch.where(boundary, iota_m - _shift_right(seg_start, 0), zero)
+    waste = torch.where(boundary, (-prev_len) % tile, zero)
+    mslot = iota_m + torch.cumsum(waste, dim=0)         # mover-local padded slot
+
+    # free tiles: no active slot at all (movers count: a tile whose movers
+    # may be deferred must not be handed out under them)
+    occ = model.active.reshape(num_tiles, tile).sum(dim=1)
+    free = occ == 0
+    ftile = _first_marked(free, num_tiles, num_tiles)
+    n_free = free.sum()
+
+    # mover tile j -> tile ftile[j]; past the free tiles: deferred
+    mtile = torch.div(mslot, tile, rounding_mode="floor")
+    placeable = act_s & (mtile < n_free)
+    deferred = deferred + (act_s & ~placeable).sum(dtype=torch.int32)
+    gt = ftile[torch.clamp(mtile, max=num_tiles - 1)]
+    # each unplaced mover lands in a slot of its own past the end
+    dest = torch.where(placeable, gt * tile + mslot % tile, s_cap + iota_m)
+
+    src = gmid[sord]
+
+    def place(x):
+        buf = torch.cat([x, x.new_zeros(x.shape[:-1] + (m_cap,))], dim=-1)
+        buf[..., dest] = x[..., src]
+        return buf[..., :s_cap].contiguous()
+
+    pos2 = place(model.pos)
+    fields2 = {k: place(v) for k, v in model.fields.items()}
+    pid2 = place(model.pid)
+    ext = torch.cat([stay, torch.zeros((m_cap,), dtype=torch.bool, device=dev)])
+    ext[dest] = placeable
+    # deferred movers (past the capacity or the free tiles) stay active
+    placed_from = _mark(s_cap, torch.where(placeable, src, s_cap), dev)
+    active2 = ext[:s_cap] | (mover & ~placed_from)
+
+    # freed tiles release their key, mover tiles bind theirs (tiles are
+    # key-pure: a mover tile's key is the key at its first slot)
+    tile_keys2 = torch.where(free, torch.full_like(tile_keys, n3), tile_keys)
+    starts = placeable & (mslot % tile == 0)
+    buf = torch.cat([tile_keys2, tile_keys2.new_zeros(1)])
+    buf.scatter_(0, torch.where(starts, gt, torch.full_like(gt, num_tiles)), skey)
+    tile_keys2 = buf[:num_tiles]
+
+    new_model = type(model)(pos=pos2, fields=fields2, active=active2, pid=pid2,
+                            tiles=model.tiles)
+    return new_model, tile_keys2.to(torch.int32), deferred.reshape(1)
 
 
 def finalize_tiles(cfg: SimConfig, partition: Partition, tile_keys: torch.Tensor,

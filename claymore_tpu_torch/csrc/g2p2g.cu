@@ -72,7 +72,7 @@
 //    read-add-writes).
 //  * The flush adds each nonzero float4 of the arena with one vector global
 //    atomic (native on sm_90), skipping the null oct.
-//  * The drift margin, min over axes of min(c, 6 - c) with
+//  * The drift margin, min over axes of min(c, 6 - c) (span 4: 14 - c) with
 //    c = x dx_inv - 0.5 - origin for every particle that ends active, is
 //    computed with _rn intrinsics (bit-equal to arena_margin) and reduced to
 //    one atomicMax per block on an order-reversing integer image; the last
@@ -92,6 +92,26 @@
 // particle axis are matrix products only because the TPU has nothing else
 // fast; here the sums are direct.
 //
+// The arena span.  The kernel is a template on it too.  Span 2 (rebucket_every
+// <= 2) is the design above: the 2^3 blocks from the home block up, 8 cells a
+// side, 6^3 stencil bases.  Span 4 (rebucket_every 3..8, the lazy rebucket)
+// reaches one block below the home block and two above: 4^3 = 64 blocks, 16
+// cells a side, 14^3 = 2,744 bases, arena origin (bcoord - 1) * 4, margin
+// min(c, 14 - c).  A literal copy of the span-2 layout needs ~266 KB of shared
+// memory a block at tile 512, over the 227 KB a block may have, so span 4
+// keeps no velocity arena: G2P reads its 27 nodes from pool_v through the
+// read-only cache, which leaves ~166 KB (FixedCorotated, tile 512; one block
+// per SM).  The velocity arena was a copy of 64 blocks per tile of which the
+// particles touch a few, while the (m, mv) arena is what turns the P2G's
+// scatter into shared atomics, so it stays.  The histogram of 2,745 bins is
+// scanned by the whole block instead of one warp.  ``cm_g2p2g_info`` reports
+// the shared memory and blocks per SM of every (material, span, tile); a
+// (span, tile) pair whose layout does not fit reports 0 blocks, and the
+// wrapper raises for it (FixedCorotated, Sand and NACC take tile <= 512 at
+// span 4).  Measured on an H100 at 700 W (chip_smoke.py): 240-244 registers,
+// one block per SM, 1.55-1.7x the span-2 time (FixedCorotated 9.2-9.5 ms on
+// a sphere25m span-4 state against 5.5-5.7), 8-11% of the same bound.
+//
 // Layouts (the JAX package's): pool f32[O+1, 16, 128], rows (channel c, cx),
 // lanes (z8, cy, cz), row O the null oct; a block address is
 // oct_row * 8 + z8.  Particles are slot-major and component-leading:
@@ -108,16 +128,30 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCells = 8;                     // arena cells per axis (2 blocks)
-constexpr int kXS = 68;                       // arena strides in floats, padded
-constexpr int kYS = 8;                        // so that the P2G's lanes (bases
-constexpr int kChan = kCells * kXS + 8;       // x channels) spread over the banks
+constexpr int kWarps = kThreads / 32;
 constexpr int kRowFloats = 16 * 128;
 constexpr int kMaxParams = 16;
-constexpr int kBases = 216;                   // 6^3 stencil bases in an arena
-constexpr int kBins = kBases + 1;             // + slots with no stencil
 constexpr int kMinTile = 32, kMaxTile = 1024;
 constexpr int kP2G = 12;                      // m v (3) and Q (9) per particle
+
+// the transfer arena of span kSpan blocks a side
+template <int kSpan_>
+struct Arena {
+  static constexpr int kSpan = kSpan_;
+  static constexpr int kLo = kSpan == 2 ? 0 : -1;   // first block, from the home block
+  static constexpr int kCells = 4 * kSpan;          // cells per axis
+  static constexpr int kNb = kSpan * kSpan * kSpan; // neighbour blocks
+  static constexpr int kNbShift = kSpan == 2 ? 3 : 6;
+  static constexpr int kYS = kCells;                // strides in floats, padded so
+  static constexpr int kXS = kCells * kCells + 4;   // that the P2G's lanes (bases x
+  static constexpr int kChan = kCells * kXS + 8;    // channels) spread over the banks
+  static constexpr int kW = kCells - 2;             // stencil bases per axis
+  static constexpr int kBases = kW * kW * kW;
+  static constexpr int kBins = kBases + 1;          // + slots with no stencil
+  static constexpr bool kVelArena = kSpan == 2;     // G2P from a staged velocity arena
+};
+using Span2 = Arena<2>;
+using Span4 = Arena<4>;
 
 struct Params {
   const float* pool_v;
@@ -609,25 +643,27 @@ struct Stage {
 __host__ __device__ constexpr int round_up(int x, int a) { return (x + a - 1) / a * a; }
 
 struct Layout {                 // byte offsets into the dynamic shared memory
-  int bars, nb, misc, hist, blist, perm, sbin, srank, varena, oarena, p2g, stage,
+  int bars, nb, misc, wsum, hist, blist, perm, sbin, srank, varena, oarena, p2g, stage,
       stage_stride, total;
 };
 
-template <class M>
+template <class M, class A>
 __host__ __device__ inline Layout layout(int n) {
   Layout s;
   int o = 0;
   s.bars = o;   o += 16;                      // two mbarriers
-  s.nb = o;     o += 2 * 8 * 4;               // neighbour block addresses per stage
+  s.nb = o;     o += 2 * A::kNb * 4;          // neighbour block addresses per stage
   s.misc = o;   o += 16;                      // margin key, count of occupied bins
-  s.hist = o;   o += round_up(kBins, 4) * 4;  // bin counts, then bin starts
-  s.blist = o;  o += round_up(2 * kBases, 16);  // the occupied bins
+  s.wsum = o;   o += 2 * kWarps * 4;          // per warp: bins and occupied bins
+  s.hist = o;   o += round_up(A::kBins, 4) * 4;  // bin counts, then bin starts
+  s.blist = o;  o += round_up(2 * A::kBases, 16);  // the occupied bins
   s.perm = o;   o += round_up(2 * n, 16);     // sorted position -> slot
   s.sbin = o;   o += round_up(2 * n, 16);     // per slot: its bin, its rank in it
   s.srank = o;  o += round_up(2 * n, 16);
   o = round_up(o, 128);
-  s.varena = o; o += 2 * 3 * kChan * 4;       // velocity arenas, one per stage
-  s.oarena = o; o += 4 * kChan * 4;           // (m, mv) arena
+  s.varena = o;                               // velocity arenas, one per stage
+  if (A::kVelArena) o += 2 * 3 * A::kChan * 4;
+  s.oarena = o; o += 4 * A::kChan * 4;        // (m, mv) arena
   s.p2g = o;    o += kP2G * n * 4;            // per slot: m v and Q, for the P2G
   s.stage = o;
   s.stage_stride = round_up(Stage<M>::bytes(n), 128);
@@ -662,10 +698,14 @@ __device__ __forceinline__ void load_stage(const Params& p, int t, int n, size_t
   bulk_load(stage + L::kWords * 4 * n, p.active + s0, (uint32_t)n, bar);
 }
 
-// block address of neighbour ``k`` of tile t (the null block when inactive)
+// block address of neighbour ``k`` = (bx, by, bz) of tile t's arena (the null
+// block when inactive)
+template <class A>
 __device__ __forceinline__ int neighbour(const Params& p, int t, int k) {
-  const int cx = p.bcoord[t] + (k >> 2), cy = p.bcoord[p.num_tiles + t] + ((k >> 1) & 1),
-            cz = p.bcoord[2 * p.num_tiles + t] + (k & 1);
+  constexpr int S = A::kSpan;
+  const int cx = p.bcoord[t] + k / (S * S) + A::kLo,
+            cy = p.bcoord[p.num_tiles + t] + (k / S) % S + A::kLo,
+            cz = p.bcoord[2 * p.num_tiles + t] + k % S + A::kLo;
   const bool valid = cx >= 0 && cx < p.g && cy >= 0 && cy < p.g && cz >= 0 && cz < p.g;
   const int okey = valid ? (cx * p.g + cy) * p.gzo + (cz >> 3) : p.num_oct_keys;
   const int oslot = p.table[okey];
@@ -675,23 +715,29 @@ __device__ __forceinline__ int neighbour(const Params& p, int t, int k) {
 // arena offset of float4 ``i`` of a 3- or 4-channel arena, and the pool
 // offset it maps to: i = (channel, neighbour block, cx, cy), the float4
 // holding cz = 0..3
+template <class A>
 __device__ __forceinline__ int arena_off4(int i) {
-  const int ch = i >> 7, blk = (i >> 4) & 7, cx = (i >> 2) & 3, cy = i & 3;
-  return ch * kChan + ((blk >> 2) * 4 + cx) * kXS + (((blk >> 1) & 1) * 4 + cy) * kYS
-         + (blk & 1) * 4;
+  constexpr int S = A::kSpan;
+  const int ch = i >> (A::kNbShift + 4), blk = (i >> 4) & (A::kNb - 1), cx = (i >> 2) & 3,
+            cy = i & 3;
+  return ch * A::kChan + (blk / (S * S) * 4 + cx) * A::kXS + ((blk / S) % S * 4 + cy) * A::kYS
+         + (blk % S) * 4;
 }
 
+template <class A>
 __device__ __forceinline__ size_t pool_off4(int i, int br, int row0) {
-  const int ch = i >> 7, cx = (i >> 2) & 3, cy = i & 3;
+  const int ch = i >> (A::kNbShift + 4), cx = (i >> 2) & 3, cy = i & 3;
   return ((size_t)(br >> 3) * 16 + row0 + ch * 4 + cx) * 128 + (br & 7) * 16 + cy * 4;
 }
 
-// the velocity arena of a tile, pool rows 4..15 of its 8 neighbour blocks;
+// the velocity arena of a tile, pool rows 4..15 of its neighbour blocks;
 // inactive neighbours read the null row, as the plain version does
+template <class A>
 __device__ __forceinline__ void stage_velocity(const Params& p, const int* nb,
                                                float* varena, int tid) {
-  for (int i = tid; i < 3 * 128; i += kThreads)
-    cp_async16(varena + arena_off4(i), p.pool_v + pool_off4(i, nb[(i >> 4) & 7], 4));
+  for (int i = tid; i < 3 * 16 * A::kNb; i += kThreads)
+    cp_async16(varena + arena_off4<A>(i),
+               p.pool_v + pool_off4<A>(i, nb[(i >> 4) & (A::kNb - 1)], 4));
 }
 
 // ---------------------------------------------------------------------------
@@ -700,6 +746,7 @@ __device__ __forceinline__ void stage_velocity(const Params& p, const int* nb,
 
 // quadratic B-spline weights and moment weights w * (cell - x) per axis;
 // returns false when the stencil leaves the arena (it is then clamped in)
+template <class A>
 __device__ __forceinline__ bool stencil(const Params& p, const float x[3],
                                         const int org[3], int l[3],
                                         float w[3][3], float mw[3][3]) {
@@ -710,8 +757,8 @@ __device__ __forceinline__ bool stencil(const Params& p, const float x[3],
     const int base = (int)floorf(xs + 0.5f) - 1;
     const float d = xs - (float)base;
     const int rel = base - org[a];
-    in_range = in_range && rel >= 0 && rel <= kCells - 3;
-    l[a] = min(max(rel, 0), kCells - 3);
+    in_range = in_range && rel >= 0 && rel <= A::kCells - 3;
+    l[a] = min(max(rel, 0), A::kCells - 3);
     const float t0 = 1.5f - d, t1 = d - 1.0f, t2 = d - 0.5f;
     w[a][0] = 0.5f * (t0 * t0);
     w[a][1] = 0.75f - t1 * t1;
@@ -739,50 +786,67 @@ __device__ __forceinline__ float margin_value(uint32_t key) {
   return __uint_as_float((img & 0x80000000u) ? (img & 0x7FFFFFFFu) : ~img);
 }
 
+// the 3 velocity components of arena cell (ax, ay, az): from the staged
+// velocity arena at span 2, from pool_v through the read-only cache at span 4
+template <class A>
+__device__ __forceinline__ void node_velocity(const Params& p, const float* varena,
+                                              const int* nbs, int ax, int ay, int az,
+                                              float vr[3]) {
+  if constexpr (A::kVelArena) {
+    const int idx = ax * A::kXS + ay * A::kYS + az;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) vr[r] = varena[r * A::kChan + idx];
+  } else {
+    constexpr int S = A::kSpan;
+    const int br = nbs[((ax >> 2) * S + (ay >> 2)) * S + (az >> 2)];
+    const float* src = p.pool_v + ((size_t)(br >> 3) * 16 + 4 + (ax & 3)) * 128
+                       + (br & 7) * 16 + (ay & 3) * 4 + (az & 3);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) vr[r] = __ldg(src + r * 4 * 128);
+  }
+}
+
 // one particle of a live tile, in place in the stage: G2P, the material,
 // advection, the range checks and the margin; m v and Q go to the slot's
 // column of ``pg`` for the P2G.  Returns the post-advection stencil base,
-// 0..215, or kBases when the particle left the arena
-template <class M>
+// 0..kBases-1, or kBases when the particle left the arena
+template <class M, class Ar>
 __device__ __forceinline__ int transfer_particle(
     const Params& p, int n, int q, float* sw, unsigned char* sact,
-    const float* varena, float* pg, const int org[3], float dt, float next_dt,
-    uint32_t& kmax) {
+    const float* varena, const int* nbs, float* pg, const int org[3], float dt,
+    float next_dt, uint32_t& kmax) {
   using L = Stage<M>;
   float x[3] = {sw[q], sw[n + q], sw[2 * n + q]};
 
   // ---- G2P: velocity and APIC moment, A[r*3+c] ----
   int l[3];
   float w[3][3], mw[3][3];
-  const bool in_pre = stencil(p, x, org, l, w, mw);
+  const bool in_pre = stencil<Ar>(p, x, org, l, w, mw);
   float v[3] = {0.0f, 0.0f, 0.0f};
   float A[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) A[k] = 0.0f;
-  {
-    const float* vb = varena + l[0] * kXS + l[1] * kYS + l[2];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 3; ++i) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float wxy = w[0][i] * w[1][j];
-        const float mxwy = mw[0][i] * w[1][j];
-        const float wxmy = w[0][i] * mw[1][j];
+    for (int j = 0; j < 3; ++j) {
+      const float wxy = w[0][i] * w[1][j];
+      const float mxwy = mw[0][i] * w[1][j];
+      const float wxmy = w[0][i] * mw[1][j];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float W = wxy * w[2][k];
-          const float Wx = mxwy * w[2][k];
-          const float Wy = wxmy * w[2][k];
-          const float Wz = wxy * mw[2][k];
-          const int idx = i * kXS + j * kYS + k;
+      for (int k = 0; k < 3; ++k) {
+        const float W = wxy * w[2][k];
+        const float Wx = mxwy * w[2][k];
+        const float Wy = wxmy * w[2][k];
+        const float Wz = wxy * mw[2][k];
+        float vr[3];
+        node_velocity<Ar>(p, varena, nbs, l[0] + i, l[1] + j, l[2] + k, vr);
 #pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            const float vr = vb[r * kChan + idx];
-            v[r] += W * vr;
-            A[r * 3 + 0] += Wx * vr;
-            A[r * 3 + 1] += Wy * vr;
-            A[r * 3 + 2] += Wz * vr;
-          }
+        for (int r = 0; r < 3; ++r) {
+          v[r] += W * vr[r];
+          A[r * 3 + 0] += Wx * vr[r];
+          A[r * 3 + 1] += Wy * vr[r];
+          A[r * 3 + 2] += Wz * vr[r];
         }
       }
     }
@@ -798,14 +862,14 @@ __device__ __forceinline__ int transfer_particle(
     x[a] = x[a] + v[a] * dt;
     sw[a * n + q] = x[a];
   }
-  const bool ok = in_pre && stencil(p, x, org, l, w, mw);
+  const bool ok = in_pre && stencil<Ar>(p, x, org, l, w, mw);
   sact[q] = ok ? 1 : 0;
-  if (!ok) return kBases;
+  if (!ok) return Ar::kBases;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     // arena_margin: c = x dx_inv - 0.5 - origin, min(c, (cells - 2) - c)
     const float c = __fsub_rn(__fsub_rn(__fmul_rn(x[a], p.dx_inv), 0.5f), (float)org[a]);
-    kmax = max(kmax, max(margin_key(c), margin_key(__fsub_rn((float)(kCells - 2), c))));
+    kmax = max(kmax, max(margin_key(c), margin_key(__fsub_rn((float)(Ar::kCells - 2), c))));
   }
 
   // ---- what the P2G needs besides the position: m v and Q ----
@@ -814,13 +878,14 @@ __device__ __forceinline__ int transfer_particle(
 #pragma unroll
   for (int k = 0; k < 9; ++k)
     pg[(3 + k) * n + q] = (A[k] * p.mass - contrib[k] * next_dt) * p.d_inv;
-  return (l[0] * (kCells - 2) + l[1]) * (kCells - 2) + l[2];
+  return (l[0] * Ar::kW + l[1]) * Ar::kW + l[2];
 }
 
 // the P2G of one channel (0 mass, 1..3 momentum) of the particles of one
 // stencil base b, slots perm[start .. start + cnt): each particle's 27 node
 // terms w m (mass) or w (m v_r + Q_r. (x_i - x_p)) sum in registers, and
 // the base's 27 nodes take one shared atomicAdd each
+template <class Ar>
 __device__ __forceinline__ void p2g_base(const Params& p, int n, int b, int ch, int start,
                                          int cnt, const unsigned short* perm,
                                          const float* sw, const float* pg, float* oarena,
@@ -833,7 +898,7 @@ __device__ __forceinline__ void p2g_base(const Params& p, int n, int b, int ch, 
     const float x[3] = {sw[q], sw[n + q], sw[2 * n + q]};
     int l[3];
     float w[3][3], mw[3][3];
-    stencil(p, x, org, l, w, mw);
+    stencil<Ar>(p, x, org, l, w, mw);
     // the factors of w and of the three moment weights; the mass channel's
     // moment terms are zero
     float f0 = p.mass, f1 = 0.0f, f2 = 0.0f, f3 = 0.0f;
@@ -857,29 +922,78 @@ __device__ __forceinline__ void p2g_base(const Params& p, int n, int b, int ch, 
       }
     }
   }
-  const int lx = b / ((kCells - 2) * (kCells - 2)), ly = (b / (kCells - 2)) % (kCells - 2),
-            lz = b % (kCells - 2);
-  float* ob = oarena + ch * kChan + lx * kXS + ly * kYS + lz;
+  const int lx = b / (Ar::kW * Ar::kW), ly = (b / Ar::kW) % Ar::kW, lz = b % Ar::kW;
+  float* ob = oarena + ch * Ar::kChan + lx * Ar::kXS + ly * Ar::kYS + lz;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        atomicAdd(&ob[i * kXS + j * kYS + k], acc[(i * 3 + j) * 3 + k]);
+        atomicAdd(&ob[i * Ar::kXS + j * Ar::kYS + k], acc[(i * 3 + j) * 3 + k]);
 }
 
-template <class M>
-__global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Params p) {
+// exclusive scan of the bin counts in ``hist`` in place, the occupied bins
+// (not the last, "no stencil") listed in ``blist`` and counted in ``n_occ``.
+// Each thread scans a run of consecutive bins, the warps' totals meet in
+// ``wsum``.  The caller synchronises before and after
+template <class A>
+__device__ __forceinline__ void scan_bins(int* hist, unsigned short* blist, int* n_occ,
+                                          int* wsum, int tid) {
+  constexpr int kPer = (A::kBins + kThreads - 1) / kThreads;
+  const int lane = tid & 31, warp = tid >> 5, b0 = tid * kPer;
+  int c[kPer], sum = 0, occ = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int b = b0 + j;
+    c[j] = b < A::kBins ? hist[b] : 0;
+    sum += c[j];
+    occ += (b < A::kBases && c[j] > 0);
+  }
+  int inc = sum, inc_occ = occ;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, d);
+    const int z = __shfl_up_sync(0xffffffffu, inc_occ, d);
+    if (lane >= d) {
+      inc += y;
+      inc_occ += z;
+    }
+  }
+  if (lane == 31) {
+    wsum[warp] = inc;
+    wsum[kWarps + warp] = inc_occ;
+  }
+  __syncthreads();
+  int run = inc - sum, slot = inc_occ - occ;
+  for (int k = 0; k < warp; ++k) {
+    run += wsum[k];
+    slot += wsum[kWarps + k];
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int b = b0 + j;
+    if (b < A::kBins) hist[b] = run;
+    if (b < A::kBases && c[j] > 0) blist[slot++] = (unsigned short)b;
+    run += c[j];
+  }
+  if (tid == kThreads - 1) *n_occ = slot;
+}
+
+template <class M, class Ar>
+__global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
+    g2p2g_kernel(const Params p) {
   using L = Stage<M>;
+  constexpr int kNb = Ar::kNb;
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = p.tile;
-  const Layout lay = layout<M>(n);
+  const Layout lay = layout<M, Ar>(n);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bars);
   int* nb = reinterpret_cast<int*>(smem + lay.nb);
   uint32_t* blk_key = reinterpret_cast<uint32_t*>(smem + lay.misc);
   int* hist = reinterpret_cast<int*>(smem + lay.hist);
   int* n_occ = reinterpret_cast<int*>(smem + lay.misc) + 1;
+  int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
   unsigned short* blist = reinterpret_cast<unsigned short*>(smem + lay.blist);
   unsigned short* perm = reinterpret_cast<unsigned short*>(smem + lay.perm);
   unsigned short* sbin = reinterpret_cast<unsigned short*>(smem + lay.sbin);
@@ -887,7 +1001,7 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
   float* varenas = reinterpret_cast<float*>(smem + lay.varena);
   float* oarena = reinterpret_cast<float*>(smem + lay.oarena);
   float* pg = reinterpret_cast<float*>(smem + lay.p2g);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const size_t S = (size_t)p.num_tiles * n;
   const int n4 = n >> 2;
   const int n4_shift = __ffs(n4) - 1;
@@ -898,8 +1012,8 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     *blk_key = 0u;
   }
-  for (int i = tid; i < 4 * kChan; i += kThreads) oarena[i] = 0.0f;
-  for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+  for (int i = tid; i < 4 * Ar::kChan; i += kThreads) oarena[i] = 0.0f;
+  for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
   // the null row absorbs nothing from this kernel (null-block flushes are
   // skipped), so one block clears it without racing anyone
   if (blockIdx.x == 0) {
@@ -916,9 +1030,11 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
   // prologue: the first tile's stage, neighbours and velocities
   int t = blockIdx.x;
   if (tid == 0) load_stage<M>(p, t, n, S, smem + lay.stage, &bar[0]);
-  if (tid < 8) nb[tid] = neighbour(p, t, tid);
+  for (int k = tid; k < kNb; k += kThreads) nb[k] = neighbour<Ar>(p, t, k);
   __syncthreads();
-  if (p.tvalid[t]) stage_velocity(p, nb, varenas, tid);
+  if constexpr (Ar::kVelArena) {
+    if (p.tvalid[t]) stage_velocity<Ar>(p, nb, varenas, tid);
+  }
   asm volatile("cp.async.commit_group;" ::: "memory");
 
   for (int it = 0; t < p.num_tiles; ++it, t += gridDim.x) {
@@ -927,8 +1043,8 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
     float* sw = reinterpret_cast<float*>(st);
     unsigned char* sact = st + L::kWords * 4 * n;
     const int* spid = reinterpret_cast<const int*>(sw + L::kPid * n);
-    const float* varena = varenas + s * 3 * kChan;
-    const int* nbs = nb + s * 8;
+    const float* varena = varenas + s * 3 * Ar::kChan;
+    const int* nbs = nb + s * kNb;
 
     // the next tile streams into the other stage while this one computes;
     // the end-of-iteration barrier freed that stage and its neighbour list
@@ -938,28 +1054,32 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
       if (tid == 0)
         load_stage<M>(p, tn, n, S, smem + lay.stage + (s ^ 1) * lay.stage_stride,
                       &bar[s ^ 1]);
-      if (tid < 8) nb[(s ^ 1) * 8 + tid] = neighbour(p, tn, tid);
+      for (int k = tid; k < kNb; k += kThreads) nb[(s ^ 1) * kNb + k] = neighbour<Ar>(p, tn, k);
     }
     mbar_wait(&bar[s], (it >> 1) & 1);
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();                      // this tile's velocities, next's neighbours
-    if (next && p.tvalid[tn])
-      stage_velocity(p, nb + (s ^ 1) * 8, varenas + (s ^ 1) * 3 * kChan, tid);
+    if constexpr (Ar::kVelArena) {
+      if (next && p.tvalid[tn])
+        stage_velocity<Ar>(p, nb + (s ^ 1) * kNb, varenas + (s ^ 1) * 3 * Ar::kChan, tid);
+    }
     asm volatile("cp.async.commit_group;" ::: "memory");
 
     const bool live = p.tvalid[t];
     if (live) {
-      const int org[3] = {p.bcoord[t] * 4, p.bcoord[p.num_tiles + t] * 4,
-                          p.bcoord[2 * p.num_tiles + t] * 4};
+      const int org[3] = {(p.bcoord[t] + Ar::kLo) * 4,
+                          (p.bcoord[p.num_tiles + t] + Ar::kLo) * 4,
+                          (p.bcoord[2 * p.num_tiles + t] + Ar::kLo) * 4};
       // the transfer, one slot per thread in slot order; each particle's
       // post-advection stencil base is its P2G bin (kBases: no P2G).  Bins
       // and ranks wait in shared memory: held in registers across the
       // transfer they would spill at JFluid's 80-register budget
 #pragma unroll 1
       for (int q = tid; q < n; q += kThreads)
-        sbin[q] = (unsigned short)(sact[q] ? transfer_particle<M>(p, n, q, sw, sact, varena,
-                                                                  pg, org, dt, next_dt, kmax)
-                                           : kBases);
+        sbin[q] = (unsigned short)(sact[q] ? transfer_particle<M, Ar>(
+                                                 p, n, q, sw, sact, varena, nbs, pg, org, dt,
+                                                 next_dt, kmax)
+                                           : Ar::kBases);
       // counting sort of the slots by bin.  Lanes with one bin add to its
       // count once; the loop is uniform over a warp since n is a multiple of 32
       for (int q = tid; q < n; q += kThreads) {
@@ -972,40 +1092,11 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
                                     + __popc(peers & ((1u << lane) - 1u)));
       }
       __syncthreads();
-      if (warp == 0) {        // exclusive scan of the 217 counts, occupied bins listed
-        constexpr int kPer = (kBins + 31) / 32;
-        int c[kPer], sum = 0, occ = 0;
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int b = lane * kPer + j;
-          c[j] = b < kBins ? hist[b] : 0;
-          sum += c[j];
-          occ += (b < kBases && c[j] > 0);
-        }
-        int inc = sum, inc_occ = occ;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, inc, d);
-          const int z = __shfl_up_sync(0xffffffffu, inc_occ, d);
-          if (lane >= d) {
-            inc += y;
-            inc_occ += z;
-          }
-        }
-        int run = inc - sum, slot = inc_occ - occ;
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int b = lane * kPer + j;
-          if (b < kBins) hist[b] = run;
-          if (b < kBases && c[j] > 0) blist[slot++] = (unsigned short)b;
-          run += c[j];
-        }
-        if (lane == 31) *n_occ = inc_occ;
-      }
+      scan_bins<Ar>(hist, blist, n_occ, wsum, tid);
       __syncthreads();
       for (int q = tid; q < n; q += kThreads) {
         const int b = sbin[q];
-        if (b < kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
+        if (b < Ar::kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
       }
       __syncthreads();
 
@@ -1015,23 +1106,23 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
       const int n_items = 4 * *n_occ;
       for (int it = tid; it < n_items; it += kThreads) {
         const int b = blist[it >> 2];
-        p2g_base(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg, oarena,
-                 org);
+        p2g_base<Ar>(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg, oarena,
+                     org);
       }
       __syncthreads();
 
       // flush the (m, mv) arena into the next pool, zeroing it for the next
       // tile; skip zero float4s and the null oct
-      for (int i = tid; i < 4 * 128; i += kThreads) {
-        float4* a = reinterpret_cast<float4*>(oarena + arena_off4(i));
+      for (int i = tid; i < 4 * 16 * kNb; i += kThreads) {
+        float4* a = reinterpret_cast<float4*>(oarena + arena_off4<Ar>(i));
         const float4 val = *a;
         *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
-        const int br = nbs[(i >> 4) & 7];
+        const int br = nbs[(i >> 4) & (kNb - 1)];
         if ((br >> 3) == p.null_oct) continue;
-        atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4(i, br, 0)), val);
+        atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4<Ar>(i, br, 0)), val);
       }
-      for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+      for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
     }
 
     // the tile's state leaves in 16-byte stores: pos, F, aux as they now
@@ -1072,18 +1163,26 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks) g2p2g_kernel(const Pa
   }
 }
 
-template <class M>
+// shared memory and resident blocks per SM of a variant at a tile size; a
+// layout past the card's per-block limit reports 0 blocks
+template <class M, class A>
 cudaError_t occupancy(int tile, int* blocks_per_sm, int* smem_bytes) {
-  const int bytes = layout<M>(tile).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      g2p2g_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  const int bytes = layout<M, A>(tile).total;
   *smem_bytes = bytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, g2p2g_kernel<M>,
+  *blocks_per_sm = 0;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess || bytes > limit) return err;
+  err = cudaFuncSetAttribute(g2p2g_kernel<M, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, g2p2g_kernel<M, A>,
                                                        kThreads, bytes);
 }
 
-template <class M>
+template <class M, class A>
 int launch(const float* pool_v, const int* table, const int* bcoord,
            const unsigned char* tvalid, const float* pos, const float* F,
            const float* aux, const unsigned char* active, const int* pid,
@@ -1101,7 +1200,7 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
       (M::kAux && (aux == nullptr || aux_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   int per_sm = 0, bytes = 0, dev = 0, sms = 0;
-  cudaError_t err = occupancy<M>(tile, &per_sm, &bytes);
+  cudaError_t err = occupancy<M, A>(tile, &per_sm, &bytes);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1113,23 +1212,31 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
            dx, dx_inv, d_inv, mass, {}};
   for (int i = 0; i < num_mp; ++i) p.mp[i] = mp[i];
   const int blocks = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;
-  g2p2g_kernel<M><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(p);
+  g2p2g_kernel<M, A><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <class M>
+template <class M, class A>
 int info(int tile, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, g2p2g_kernel<M>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, g2p2g_kernel<M, A>);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
-  return (int)occupancy<M>(tile, &out[1], &out[2]);
+  return (int)occupancy<M, A>(tile, &out[1], &out[2]);
+}
+
+template <class M>
+int info_span(int span, int tile, int* out) {
+  if (span == 2) return info<M, Span2>(tile, out);
+  if (span == 4) return info<M, Span4>(tile, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // one C entry per material, all with the same arguments; F/aux and their
-// outputs are null where the material has no such field
+// outputs are null where the material has no such field; ``span`` is the
+// arena span, 2 or 4
 #define CM_G2P2G_ENTRY(NAME, MAT)                                              \
   extern "C" int NAME(                                                         \
       const float* pool_v, const int* table, const int* bcoord,                \
@@ -1138,14 +1245,24 @@ int info(int tile, int* out) {
       const float* dt, const float* next_dt, float* pos_out, float* F_out,     \
       float* aux_out, unsigned char* active_out, int* pid_out,                 \
       float* next_pool, unsigned int* margin_key, float* margin_out,           \
-      int num_tiles, int tile, int g, int gzo,                                 \
+      int num_tiles, int tile, int span, int g, int gzo,                       \
       int num_oct_keys, int null_oct, float dx, float dx_inv, float d_inv,     \
       float mass, const float* mp, int num_mp, void* stream) {                 \
-    return launch<MAT>(pool_v, table, bcoord, tvalid, pos, F, aux, active,     \
-                       pid, dt, next_dt, pos_out, F_out, aux_out, active_out,  \
-                       pid_out, next_pool, margin_key, margin_out, num_tiles,  \
-                       tile, g, gzo, num_oct_keys, null_oct, dx, dx_inv,       \
-                       d_inv, mass, mp, num_mp, stream);                       \
+    if (span == 2)                                                             \
+      return launch<MAT, Span2>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
+                                active, pid, dt, next_dt, pos_out, F_out,      \
+                                aux_out, active_out, pid_out, next_pool,       \
+                                margin_key, margin_out, num_tiles, tile, g,    \
+                                gzo, num_oct_keys, null_oct, dx, dx_inv,       \
+                                d_inv, mass, mp, num_mp, stream);              \
+    if (span == 4)                                                             \
+      return launch<MAT, Span4>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
+                                active, pid, dt, next_dt, pos_out, F_out,      \
+                                aux_out, active_out, pid_out, next_pool,       \
+                                margin_key, margin_out, num_tiles, tile, g,    \
+                                gzo, num_oct_keys, null_oct, dx, dx_inv,       \
+                                d_inv, mass, mp, num_mp, stream);              \
+    return (int)cudaErrorInvalidValue;                                         \
   }
 
 CM_G2P2G_ENTRY(cm_g2p2g_fixed_corotated, FixedCorotated)
@@ -1153,14 +1270,15 @@ CM_G2P2G_ENTRY(cm_g2p2g_jfluid, JFluid)
 CM_G2P2G_ENTRY(cm_g2p2g_sand, Sand)
 CM_G2P2G_ENTRY(cm_g2p2g_nacc, NACC)
 
-// registers, blocks per SM and dynamic shared memory of a variant at a
-// tile size: out i32[3]; variant 0 FixedCorotated, 1 JFluid, 2 Sand, 3 NACC
-extern "C" int cm_g2p2g_info(int variant, int tile, int* out) {
+// registers, blocks per SM and dynamic shared memory of a variant at an
+// arena span and a tile size: out i32[3]; variant 0 FixedCorotated, 1
+// JFluid, 2 Sand, 3 NACC.  0 blocks per SM: the layout does not fit
+extern "C" int cm_g2p2g_info(int variant, int span, int tile, int* out) {
   switch (variant) {
-    case 0: return info<FixedCorotated>(tile, out);
-    case 1: return info<JFluid>(tile, out);
-    case 2: return info<Sand>(tile, out);
-    case 3: return info<NACC>(tile, out);
+    case 0: return info_span<FixedCorotated>(span, tile, out);
+    case 1: return info_span<JFluid>(span, tile, out);
+    case 2: return info_span<Sand>(span, tile, out);
+    case 3: return info_span<NACC>(span, tile, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

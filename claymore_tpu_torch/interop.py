@@ -20,12 +20,10 @@ from .models import boundary
 from .models.materials import MATERIALS, Material
 from .utils.debug import to_numpy
 
-# JAX config fields that only steer the TPU kernels, plus the incremental
-# rebucket's mover buffer (that path is not ported)
+# JAX config fields that only steer the TPU kernels
 _JAX_ONLY = frozenset({
     "mxu_precision", "force_mxu_split", "g2p_dot_precision", "g2p_arena_dtype",
     "g2p_window_dma", "pallas_chunk", "pallas_macro_tiles",
-    "mover_capacity_frac",
 })
 
 # the JAX containers' field names, for states handed back as numpy
@@ -38,11 +36,7 @@ SimStateNP = collections.namedtuple("SimStateNP", [f.name for f in dataclasses.f
 def config_from_jax(d: Mapping[str, Any]) -> SimConfig:
     """``dataclasses.asdict`` of a ``claymore_tpu.SimConfig`` -> SimConfig.
 
-    Drops the TPU-only fields; raises on values the port cannot honour."""
-    if d.get("rebucket_every", 1) > 2:
-        raise ValueError("rebucket_every > 2 needs the span-4 arena, not ported")
-    if d.get("defrag_every", 1) != 1:
-        raise ValueError("defrag_every != 1 needs the incremental rebucket, not ported")
+    Drops the TPU-only fields; raises on a field the port does not know."""
     names = {f.name for f in dataclasses.fields(SimConfig)}
     kw = {k: v for k, v in d.items() if k not in _JAX_ONLY}
     unknown = set(kw) - names

@@ -1,7 +1,10 @@
 """Geometry sampling: particle seeding (numpy).
 
-A copy of the two samplers of ``claymore_tpu/io/sampler.py`` the port needs;
-importing the JAX package would import JAX.
+A copy of the samplers of ``claymore_tpu/io/sampler.py`` the port needs;
+importing the JAX package would import JAX.  ``poisson_disk_sample`` runs
+the port's own C++ weighted sample elimination (``csrc/sample_elim.cpp``,
+built by ``ops/_build.py:host_library``), or the JAX package's stratified
+thinning where no library can be built.
 """
 
 from __future__ import annotations
@@ -30,3 +33,50 @@ def sample_sphere(dx: float, center, radius: float, ppc: float = 8.0) -> np.ndar
     pts = sample_uniform_box_world(dx, lo, hi, ppc)
     keep = np.sum((pts - center) ** 2, axis=-1) <= radius * radius
     return pts[keep]
+
+
+def sample_elimination(points: np.ndarray, target: int):
+    """Indices of the ``target`` points that weighted sample elimination
+    keeps, ascending, or None where the host library cannot be built (the
+    JAX package's ``native.sample_elimination_native``)."""
+    import ctypes
+
+    from ..ops import _build
+
+    lib = _build.host_library()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(points, np.float32)
+    n = pts.shape[0]
+    lo = pts.min(axis=0)
+    pts0 = pts - lo
+    ext = np.maximum(pts0.max(axis=0), 1e-6)
+    out = np.zeros(max(target, 1), np.int32)
+    k = lib.cm_sample_elimination(pts0.ctypes.data_as(ctypes.c_void_p), n, target,
+                                  float(ext[0]), float(ext[1]), float(ext[2]),
+                                  out.ctypes.data_as(ctypes.c_void_p))
+    return out[:k]
+
+
+def poisson_disk_sample(points: np.ndarray, target_count: int, seed: int = 0) -> np.ndarray:
+    """Down-select a candidate cloud to ``target_count`` points of blue-noise
+    spacing by weighted sample elimination; where the host library cannot
+    be built, jittered stratified thinning from ``seed``."""
+    n = points.shape[0]
+    if target_count >= n:
+        return points
+    kept = sample_elimination(points, target_count)
+    if kept is not None:
+        return points[kept]
+    rng = np.random.default_rng(seed)
+    # stratify by a coarse grid, keep proportional counts per cell
+    lo = points.min(axis=0)
+    hi = points.max(axis=0) + 1e-9
+    cells = max(1, int(round((target_count / 2.0) ** (1.0 / 3.0))))
+    idx = np.floor((points - lo) / (hi - lo) * cells).astype(np.int64)
+    key = (idx[:, 0] * cells + idx[:, 1]) * cells + idx[:, 2]
+    order = np.argsort(key, kind="stable")
+    stride = n / target_count
+    picks = order[(np.arange(target_count) * stride
+                   + rng.uniform(0, stride, target_count)).astype(np.int64) % n]
+    return points[picks]

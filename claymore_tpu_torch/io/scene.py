@@ -9,7 +9,8 @@ Port of ``claymore_tpu/io/scene.py``:
       "models": [
         {"constitutive": "fixed_corotated" | "jfluid" | "sand" | "nacc",
          "shape": {"type": "box" | "sphere"}
-           or  "file": "x.npy" | "x.bin" | "x.sdf" (+ "sampling": "uniform"),
+           or  "file": "x.npy" | "x.bin" | "x.sdf"
+                (+ "sampling": "uniform" | "poisson"),
          "offset": [x,y,z], "span": [x,y,z], "velocity": [x,y,z],
          "rho": ..., "volume": ..., material parameters ...}
       ],
@@ -23,10 +24,9 @@ ignored, as in the JAX package); an ``sdf_file`` collider reads the
 reference's raw asset (``"prefix"``, ``"resolution"``, ``"dx"`` defaulting
 to the grid's, ``"bound_cells"``).  Collider paths are taken as given
 (relative to the working directory), model files relative to the scene
-file, as in the JAX package.  Refused with ``NotImplementedError``:
-``"sampling": "poisson"`` for ``.sdf`` models (ROADMAP Queue 1, poisson
-sampling) and a ``device`` block asking for several devices (ROADMAP
-Queue 1, multiple devices).  ``device.use_pallas`` steers the TPU kernels
+file, as in the JAX package.  Refused with ``NotImplementedError``: a
+``device`` block asking for several devices (ROADMAP Queue 1, multiple
+devices).  ``device.use_pallas`` steers the TPU kernels
 and is ignored.  The device the engine runs on is the caller's.
 """
 

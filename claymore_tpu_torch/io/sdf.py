@@ -1,13 +1,9 @@
 """Signed-distance-field ingest and particle seeding.
 
 Port of ``claymore_tpu/io/sdf.py`` (host numpy, set-up only): read and
-write the SDFGen ASCII ``.sdf`` level set, seed particles on a regular
-lattice inside its zero level set, and scale them into the world box
-[offset, offset + span].
-
-``mode="poisson"`` (blue-noise seeding by weighted sample elimination) is
-not ported: the JAX package runs it in its native runtime
-(``claymore_tpu/native/src/runtime.cpp``), and it raises here.
+write the SDFGen ASCII ``.sdf`` level set, seed particles inside its zero
+level set, on a regular lattice or with blue-noise spacing (``"poisson"``),
+and scale them into the world box [offset, offset + span].
 """
 
 from __future__ import annotations
@@ -61,15 +57,15 @@ def _trilinear(values: np.ndarray, x: np.ndarray) -> np.ndarray:
 
 def sample_sdf(values: np.ndarray, sdf_dx: float, ppc: float, domain_dx: float,
                offset, span, mode: str = "uniform", seed: int = 0) -> np.ndarray:
-    """Particles f32[n, 3] inside the zero level set, on a lattice of
-    ``ppc`` particles per cell of size ``domain_dx``, with the level set's
-    box scaled onto [offset, offset + span].  ``seed`` steers only the
-    unported ``"poisson"`` mode."""
-    if mode == "poisson":
-        raise NotImplementedError(
-            "sampling 'poisson' (weighted sample elimination) is not ported "
-            "(ROADMAP Queue 1: poisson sampling); use 'uniform'")
-    if mode != "uniform":
+    """Particles f32[n, 3] inside the zero level set, at ``ppc`` particles
+    per cell of size ``domain_dx``, with the level set's box scaled onto
+    [offset, offset + span].
+
+    ``"uniform"``: a regular lattice.  ``"poisson"``: twice as many
+    candidates on a lattice jittered from ``seed``, thinned to half by
+    weighted sample elimination (``sampler.poisson_disk_sample``): blue-noise
+    spacing, as the reference's read_sdf -> GeneratePoissonSamples."""
+    if mode not in ("uniform", "poisson"):
         raise ValueError(f"unknown sampling mode {mode!r}")
     offset = np.asarray(offset, np.float64)
     span = np.asarray(span, np.float64)
@@ -79,14 +75,29 @@ def sample_sdf(values: np.ndarray, sdf_dx: float, ppc: float, domain_dx: float,
     h = domain_dx / ppc ** (1.0 / 3.0)
     scale = span / extent
     h_sdf = h / np.min(scale.clip(min=1e-12))
-    spans = [np.arange(h_sdf / 2, extent[d], h_sdf) for d in range(3)]
-    if any(len(s) == 0 for s in spans):
-        pts = np.zeros((0, 3), np.float64)
-    else:
+
+    def lattice(spacing, jitter):
+        spans = [np.arange(spacing / 2, extent[d], spacing) for d in range(3)]
+        if any(len(s) == 0 for s in spans):
+            return np.zeros((0, 3), np.float64)
         gx, gy, gz = np.meshgrid(*spans, indexing="ij")
         pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
-    sd = _trilinear(values, pts / sdf_dx)
-    inside = pts[sd <= 0.0]
+        if jitter:
+            rng = np.random.default_rng(seed)
+            pts = pts + rng.uniform(-0.45, 0.45, pts.shape) * spacing
+        return pts
+
+    if mode == "poisson":
+        from .sampler import poisson_disk_sample
+
+        over = 2.0                      # candidates per particle kept
+        pts = lattice(h_sdf / over ** (1.0 / 3.0), jitter=True)
+        candidates = pts[_trilinear(values, pts / sdf_dx) <= 0.0]
+        target = int(round(candidates.shape[0] / over))
+        inside = poisson_disk_sample(candidates.astype(np.float32), target, seed=seed)
+    else:
+        pts = lattice(h_sdf, jitter=False)
+        inside = pts[_trilinear(values, pts / sdf_dx) <= 0.0]
     world = offset + inside / extent * span
     return world.astype(np.float32)
 

@@ -6,6 +6,11 @@ plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/claymore_tpu_torch/`` at the repository root and is rebuilt when the
 SHA-256 of the sources changes.  Import this module only where a kernel is
 about to launch: machines without ``nvcc`` import the package fine.
+
+The host code in ``csrc/*.cpp`` (weighted sample elimination) is built the
+same way by ``g++`` into a library of its own (``host_library``), which is
+None where no compiler is found or the build fails: its callers have a
+plain fallback.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
-_G2P2G = [_P] * 19 + [_I] * 6 + [_F] * 4 + [_P, _I, _P]
+_G2P2G = [_P] * 19 + [_I] * 7 + [_F] * 4 + [_P, _I, _P]
 # the probes: (x, shifts, out, tiles, stream); P5 (pool, idx, out, slot,
 # wsum, rows, programs, runs, run_rows, plan, stream); P6 (pool, idx, out,
 # cover, rows, programs, runs, run_rows, stream)
@@ -60,8 +65,9 @@ SIGNATURES = {
     "cm_g2p2g_jfluid": _G2P2G,
     "cm_g2p2g_sand": _G2P2G,
     "cm_g2p2g_nacc": _G2P2G,
-    # (variant or probe, [tile,] out i32[3]): registers, blocks per SM, smem
-    "cm_g2p2g_info": [_I, _I, _P],
+    # (variant, span, tile, out i32[3]) or (probe, out i32[3]): registers,
+    # blocks per SM, smem
+    "cm_g2p2g_info": [_I, _I, _I, _P],
     "cm_prof_laneops_info": [_I, _P],
 }
 
@@ -139,6 +145,51 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+HOST_LIB_NAME = "libcm_host.so"
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+
+
+def _host_build() -> Path:
+    """Compile ``csrc/*.cpp`` with g++ unless a library for the current
+    sources exists; returns its path, raises on failure."""
+    lib = BUILD_DIR / HOST_LIB_NAME
+    stamp = BUILD_DIR / (HOST_LIB_NAME + ".sha256")
+    h = hashlib.sha256()
+    sources = sorted(CSRC.glob("*.cpp"))
+    for f in sources:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    digest = h.hexdigest()
+    if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, HOST_LIB_NAME)
+        subprocess.run([gxx, *HOST_FLAGS, *map(str, sources), "-o", tmp], check=True,
+                       capture_output=True, timeout=240)
+        os.replace(tmp, lib)
+    stamp.write_text(digest + "\n")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library():
+    """The loaded host library, built first if needed; None where it cannot
+    be built or loaded."""
+    try:
+        lib = ctypes.CDLL(str(_host_build()))
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return None
+    fn = lib.cm_sample_elimination
+    fn.argtypes = [_P, ctypes.c_int64, ctypes.c_int64, _F, _F, _F, _P]
+    fn.restype = ctypes.c_int
     return lib
 
 

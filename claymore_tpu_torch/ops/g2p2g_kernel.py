@@ -1,18 +1,21 @@
 """Fused G2P2G: the wrapper of the CUDA kernel K1 (``csrc/g2p2g.cu``).
 
-On CUDA tensors it launches the kernel variant of the model's material,
-which replaces ``claymore_tpu/ops/pallas_g2p2g.py`` with the scatter-add
-and null-row zeroing around it, and which also returns the drift margin of
-its output (``core/partition.py:arena_margin``, fused into its epilogue);
-on CPU tensors it runs the plain PyTorch version,
-``core/transfer.py:g2p2g_model``, and ``arena_margin`` of its output.
-There is no fallback from the kernel: an unknown material, a span-4 arena,
-a tile size outside 32..1024 or a misaligned tensor raises.
+On CUDA tensors it launches the kernel variant of the model's material and
+arena span (2, or 4 for ``rebucket_every`` 3..8), which replaces
+``claymore_tpu/ops/pallas_g2p2g.py`` with the scatter-add and null-row
+zeroing around it, and which also returns the drift margin of its output
+(``core/partition.py:arena_margin``, fused into its epilogue); on CPU
+tensors it runs the plain PyTorch version, ``core/transfer.py:g2p2g_model``,
+and ``arena_margin`` of its output.  There is no fallback from the kernel:
+an unknown material, a tile size outside 32..1024, a (span, tile) pair
+whose layout does not fit the card's shared memory (``kernel_info``) or a
+misaligned tensor raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Tuple
 
@@ -81,13 +84,24 @@ def g2p2g(
     if type(material) not in _LAYOUT:
         raise NotImplementedError(
             f"no CUDA transfer kernel for {type(material).__name__}")
-    if cfg.arena_span != 2:
-        raise NotImplementedError("the CUDA transfer kernel needs span-2 arenas "
-                                  "(rebucket_every <= 2)")
     if not MIN_TILE <= cfg.particle_tile <= MAX_TILE:
         raise NotImplementedError(f"the CUDA transfer kernel takes particle_tile "
                                   f"{MIN_TILE}..{MAX_TILE}, not {cfg.particle_tile}")
+    info = kernel_info(material, cfg.particle_tile, cfg.arena_span)
+    if info["blocks_per_sm"] < 1:
+        raise NotImplementedError(
+            f"the CUDA transfer kernel of {type(material).__name__} at span "
+            f"{cfg.arena_span} needs {info['smem_bytes']} bytes of shared memory a "
+            f"block at particle_tile {cfg.particle_tile}, more than the card has; "
+            f"use a smaller particle_tile")
     return _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool)
+
+
+def variant_name(material: Material, span: int) -> str:
+    """The launch key of K1 for ``material`` at arena span ``span``:
+    ``g2p2g_<material>``, with ``_span4`` at span 4."""
+    name = _LAYOUT[type(material)][0]
+    return name if span == 2 else f"{name}_span{span}"
 
 
 def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
@@ -143,28 +157,35 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
         ptr(fields_out, f_name), ptr(fields_out, aux_name),
         active_out.data_ptr(), pid_out.data_ptr(), next_pool.data_ptr(),
         margin_key.data_ptr(), margin.data_ptr(),
-        num_tiles, cfg.particle_tile, cfg.grid_size, cfg.grid_size_zo,
+        num_tiles, cfg.particle_tile, cfg.arena_span, cfg.grid_size, cfg.grid_size_zo,
         cfg.num_oct_keys, cfg.null_oct,
         cfg.dx, cfg.dx_inv, cfg.d_inv, material.mass, mp_arr, len(mp),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
-    g2p2g.launches[name] += 1
+    g2p2g.launches[variant_name(material, cfg.arena_span)] += 1
     new_model = ParticleModel(pos=pos_out, fields=fields_out,
                               active=active_out, pid=pid_out, tiles=tm)
     return new_model, next_pool, margin
 
 
-def kernel_info(material: Material, tile: int) -> dict:
-    """What the card gives the material's K1 variant at ``tile``: registers
-    per thread, resident blocks per SM (the persistent grid is SMs x this)
-    and dynamic shared memory per block in bytes."""
+def kernel_info(material: Material, tile: int, span: int = 2) -> dict:
+    """What the card gives the material's K1 variant at ``tile`` and arena
+    ``span``: registers per thread, resident blocks per SM (the persistent
+    grid is SMs x this; 0 when the layout does not fit the card's shared
+    memory) and dynamic shared memory per block in bytes."""
+    return dict(_info(type(material), tile, span))
+
+
+@functools.lru_cache(maxsize=None)
+def _info(material_type, tile: int, span: int):
     from . import _build
 
     out = (ctypes.c_int * 3)()
-    err = _build.library().cm_g2p2g_info(_LAYOUT[type(material)][3], tile, out)
+    err = _build.library().cm_g2p2g_info(_LAYOUT[material_type][3], span, tile, out)
     _build.check(err, "cm_g2p2g_info")
-    return {"registers": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
+    return (("registers", out[0]), ("blocks_per_sm", out[1]), ("smem_bytes", out[2]))
 
 
-# launches per kernel variant, counted where each is launched
-g2p2g.launches = {name: 0 for name, _, _, _ in _LAYOUT.values()}
+# launches per kernel variant and span, counted where each is launched
+g2p2g.launches = {f"{name}{sfx}": 0 for name, _, _, _ in _LAYOUT.values()
+                  for sfx in ("", "_span4")}

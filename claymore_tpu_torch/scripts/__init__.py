@@ -8,5 +8,9 @@ claymore_tpu_torch.scripts.<name>`` with ``--device`` defaulting to ``cuda``:
   of ``scripts/prof_dma.py``;
 * ``prof_stages25m``: ``MPMEngine.profile_stages`` on the 25M-particle
   sphere and the transfer's particle-stream floor, the port of
-  ``scripts/prof_stages25m.py``.
+  ``scripts/prof_stages25m.py``;
+* ``prof_rebuild``: the full rebuild's key sort, tile plan and table
+  rebuild on the 1M-particle cube, the port of ``scripts/prof_rebuild.py``;
+* ``ab_paths`` (card only, no ``--device``): ``chip_smoke.py``'s main paths
+  timed in two checkouts of the repository, alternating, on one card.
 """

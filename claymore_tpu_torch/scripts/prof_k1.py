@@ -93,7 +93,8 @@ def stir(state, scale: float = 0.5, seed: int = SEED):
 
 def scene(name: str):
     """(cfg, material, positions, v0) of a bench.py scene with the
-    capacities chip_smoke.py gives it: sphere25m, dambreak12m, sand, nacc."""
+    capacities chip_smoke.py gives it: sphere25m, dambreak12m, sand, nacc,
+    cube and ``cube_quick`` (bench.py's ``--quick`` cube)."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.io.sampler import sample_sphere, sample_uniform_box_world
 
@@ -105,6 +106,12 @@ def scene(name: str):
     if name == "sphere25m":
         mat = ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)
         pos, v0 = sample_sphere(cfg.dx, (0.5, 0.55, 0.5), 0.3547, cfg.ppc), (0.0, -0.5, 0.0)
+    elif name in ("cube", "cube_quick"):
+        cfg = dataclasses.replace(cfg, max_active_blocks=8192)
+        span = 0.12 if name == "cube_quick" else 0.2
+        lo, hi = 0.4 - span / 2, 0.4 + span / 2
+        mat = ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)
+        pos, v0 = box(cfg.dx, [lo, 0.5, lo], [hi, 0.5 + span, hi], cfg.ppc), (0.0, -0.5, 0.0)
     elif name == "dambreak12m":
         # launched, so the drift-triggered rebuild fires every few
         # substeps; slack 2.5 because the column spreads (bench.py:95-100)

@@ -1,0 +1,80 @@
+"""Stage timings of the full rebuild on the 1M-particle cube.
+
+    python -m claymore_tpu_torch.scripts.prof_rebuild [--device cuda|cpu]
+        [--quick] [--iters 10] [--reps 3]
+
+The port of ``scripts/prof_rebuild.py``: ``bench.py``'s cube (1,061,208
+FixedCorotated particles; 226,981 with ``--quick``) with tile capacities
+``exact_tiles(slack=1.25)``, after ``init_state``, timed one stage after
+another under the JAX script's names:
+
+* ``sort``: the home-block keys and their stable sort, alone;
+* ``sort_permute``: the full tile plan, ``core/partition.py:sort_permute``
+  (the sort, the slot arithmetic and one gather per channel);
+* ``table_rebuild+remap``: ``core/partition.py:rebuild`` (the oct set, its
+  compaction, the table and the pool rows remapped).
+
+Each is the best of ``--reps`` runs of ``--iters`` calls back to back (CUDA
+events on a card, the host clock on the CPU).  ``permute`` is
+``sort_permute`` less ``sort``: what the slot arithmetic and the gathers
+add to the sort.  ``sort_gkeys_per_s`` is the keys sorted per second.
+Prints one JSON line; exits 2 when ``--device cuda`` finds no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser("prof_rebuild", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--quick", action="store_true", help="bench.py's quick cube")
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("prof_rebuild: --device cuda but no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    from .. import MPMEngine
+    from ..core import partition as part
+    from ..utils.timers import best_ms, device_label
+    from .prof_k1 import scene
+
+    dev = torch.device(args.device)
+    cfg, mat, pos, v0 = scene("cube_quick" if args.quick else "cube")
+    eng = MPMEngine(cfg, [mat], tile_chunk=64, device=dev)
+    state = eng.init_state([pos], [v0])
+    model = state.models[0]
+    nt = model.tiles.block.shape[0]
+    n3 = cfg.grid_size ** 3
+    tk = part.tile_block_keys(cfg, model.tiles)
+
+    def sort_only():
+        key = part.flatten_key(cfg, part.home_block(cfg, model.pos))
+        key = torch.where(model.active, key, torch.full_like(key, n3)).to(torch.int32)
+        return torch.sort(key, stable=True)
+
+    stages = {
+        "sort": sort_only,
+        "sort_permute": lambda: part.sort_permute(cfg, model, nt),
+        "table_rebuild+remap": lambda: part.rebuild(cfg, state.grid, state.partition, (tk,)),
+    }
+    out = {k: best_ms(f, dev, iters=args.iters, reps=args.reps) for k, f in stages.items()}
+    out["permute"] = out["sort_permute"] - out["sort"]
+    slots = int(model.pos.shape[1])
+    out.update(particles=int(pos.shape[0]), slots=slots,
+               sort_gkeys_per_s=slots / out["sort"] / 1e6, device=device_label(dev))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

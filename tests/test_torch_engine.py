@@ -187,7 +187,8 @@ def test_state_round_trip_through_numpy():
 def test_config_from_jax_round_trip():
     jcfg = cmt.SimConfig(domain_bits=7, max_active_blocks=2048, particle_tile=512,
                          rebucket_auto=True, rebucket_safety=1.5, fps=30,
-                         gravity=(0.0, -3.0, 1.0), max_tiles=96)
+                         gravity=(0.0, -3.0, 1.0), max_tiles=96, rebucket_every=4,
+                         defrag_every=2, mover_capacity_frac=0.2)
     cfg = config_from_jax(dataclasses.asdict(jcfg))
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
@@ -200,12 +201,17 @@ def test_config_from_jax_round_trip():
 
 
 @pytest.mark.parametrize("kw", [dict(rebucket_every=4), dict(defrag_every=2)])
-def test_unported_settings_raise(kw):
-    with pytest.raises(ValueError):
-        config_from_jax(dataclasses.asdict(cmt.SimConfig(**kw)))
-    cfg = ct.SimConfig(**kw)
-    with pytest.raises(ValueError):
-        ct.MPMEngine(cfg, [ct.FixedCorotated()], device=CPU)
+def test_rebucket_settings_carry_across(kw):
+    """The span-4 arena and the incremental rebucket are ported: their
+    settings and the mover buffer carry across from the JAX package, and an
+    engine takes them."""
+    jcfg = cmt.SimConfig(mover_capacity_frac=0.25, **kw)
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    for name in ("rebucket_every", "defrag_every", "mover_capacity_frac",
+                 "arena_span", "arena_lo"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    eng = ct.MPMEngine(cfg, [ct.FixedCorotated()], device=CPU)
+    assert eng.cfg.mover_capacity_frac == 0.25
 
 
 def test_import_leaves_jax_out():
@@ -217,7 +223,10 @@ def test_import_leaves_jax_out():
             "claymore_tpu_torch.ops.probe_kernels, claymore_tpu_torch.scripts.prof_dma, "
             "claymore_tpu_torch.scripts.prof_laneops, "
             "claymore_tpu_torch.scripts.prof_stages25m, "
-            "claymore_tpu_torch.scripts.prof_k1, claymore_tpu_torch.scripts.prof_k2;"
+            "claymore_tpu_torch.scripts.prof_k1, claymore_tpu_torch.scripts.prof_k2, "
+            "claymore_tpu_torch.scripts.prof_rebuild, claymore_tpu_torch.io.sampler, "
+            "claymore_tpu_torch.scripts.ab_paths, "
+            "claymore_tpu_torch.io.sdf;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'claymore_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

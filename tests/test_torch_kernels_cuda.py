@@ -199,6 +199,83 @@ def test_g2p2g_kernel_margin_is_arena_margin(card, name):
     assert 0.0 < margins[0] < 6.0
 
 
+def _span4_engine(name, tile=512, every=4, v0=(1.5, -1.0, 0.5), **kw):
+    """A span-4 engine (``rebucket_every=every``, 3..8) on the card and its
+    initial state: the box of the K1 checks above."""
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=2048, default_dt=2e-4,
+                       particle_tile=tile, rebucket_every=every, **kw)
+    pos = sample_uniform_box_world(cfg.dx, [0.3, 0.45, 0.35], [0.55, 0.6, 0.5], cfg.ppc)
+    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.5))
+    eng = ct.MPMEngine(cfg, [_material(name, cfg.default_volume())], tile_chunk=8,
+                       device="cuda")
+    return eng, eng.init_state([pos], [v0]), pos
+
+
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid", "sand", "nacc"])
+def test_g2p2g_span4_kernel_matches_plain(card, name):
+    """K1's span-4 variant (16-cell arenas from one block below the home
+    block, G2P from pool_v) against the plain version, as the span-2 test
+    above, its margin bit for bit; also on the state after a span-4
+    engine's first rebuild, whose particles have drifted."""
+    eng, state, _ = _span4_engine(name)
+    cfg, mat = eng.cfg, eng.materials[0]
+    card.check_g2p2g_kernel(cfg, mat, state, tile_chunk=8, time_it=False)
+    card.check_g2p2g_kernel(cfg, mat, stir(state), tile_chunk=8, time_it=False)
+    state = eng.run_steps(state, 6, 1.0)
+    assert eng.rebuilds == 1
+    card.check_g2p2g_kernel(cfg, mat, stir(state), tile_chunk=8, time_it=False)
+
+
+def test_g2p2g_span4_engine_runs_on_the_kernel(card):
+    """A span-4 engine with the incremental rebucket on the card: every
+    substep launches the span-4 variant, mass and particles are kept, the
+    fused margin equals arena_margin and lies in (0, 14)."""
+    from claymore_tpu_torch.ops import g2p2g_kernel
+
+    eng, state, pos = _span4_engine("jfluid", defrag_every=2)
+    mat = eng.materials[0]
+    before = dict(g2p2g_kernel.g2p2g.launches)
+    state = eng.run_steps(state, 17, 1.0)
+    after = g2p2g_kernel.g2p2g.launches
+    assert after["g2p2g_jfluid_span4"] - before["g2p2g_jfluid_span4"] == 17
+    assert after["g2p2g_jfluid"] == before["g2p2g_jfluid"]
+    assert eng.rebuilds == 4
+    d = eng.diagnostics(state)
+    assert abs(d["grid_mass"] - pos.shape[0] * mat.mass) < 1e-5 * pos.shape[0] * mat.mass
+    assert d["model0_active"] == pos.shape[0] and d["null_block_mass"] == 0.0
+    assert d["model0_dropped_tiles"] == 0 and d["block_overflow"] == 0
+    margins = card.check_fused_margin(eng, state)
+    assert 0.0 < margins[0] < 14.0
+
+
+def test_g2p2g_span4_refuses_a_tile_it_cannot_take(card):
+    """At span 4 FixedCorotated's layout at tile 1024 does not fit a block's
+    shared memory: the wrapper raises, and kernel_info says 0 blocks."""
+    from claymore_tpu_torch.ops import g2p2g_kernel
+
+    mat = ct.FixedCorotated(volume=1e-6)
+    assert g2p2g_kernel.kernel_info(mat, 1024, 4)["blocks_per_sm"] == 0
+    assert g2p2g_kernel.kernel_info(mat, 512, 4)["blocks_per_sm"] >= 1
+    eng, state, _ = _span4_engine("fixed_corotated", tile=1024)
+    with pytest.raises(NotImplementedError):
+        eng.substep(state, 1.0)
+
+
+def test_incremental_plan_on_the_card_equals_the_cpu(card):
+    """incremental_plan on a CUDA state with movers equals the same call on
+    its CPU copy bit for bit, at the default mover buffer and at one so
+    small that movers are deferred."""
+    eng, state, _ = _span4_engine("jfluid", every=8, v0=(4.0, -3.0, 2.0))
+    state = eng.run_steps(state, 7, 1.0)      # 0.72 cells of drift in x, no rebuild
+    assert eng.rebuilds == 0
+    cfg = eng.cfg
+    r = card.check_incremental_plan(cfg, state.models[0])
+    assert r["movers"] > 0
+    tight = dataclasses.replace(cfg, mover_capacity_frac=0.001)
+    r = card.check_incremental_plan(tight, state.models[0])
+    assert r["deferred"] > 0
+
+
 @pytest.mark.parametrize("name", ["dyn_roll", "dyn_lane_read", "dyn_lane_read_wide",
                                   "dyn_lane_write"])
 def test_lane_probe_kernel_matches_plain(card, name):

@@ -155,6 +155,9 @@ def test_load_scene_sdf_inputs_match_jax(tmp_path, change):
 
 @pytest.mark.parametrize("change", ["n_devices", "mesh_shape", "poisson"])
 def test_load_scene_refuses_unported(tmp_path, change):
+    """Several devices are refused.  ``"sampling": "poisson"`` is ported:
+    that case now loads the same particles as the JAX package (both thin
+    their candidates with the same weighted sample elimination)."""
     doc = _scene_doc(tmp_path)
     if change == "n_devices":
         doc["device"] = {"n_devices": 4}
@@ -164,6 +167,13 @@ def test_load_scene_refuses_unported(tmp_path, change):
         _sdf_assets(tmp_path)
         doc["models"][0] = {"constitutive": "jfluid", "file": "ball.sdf",
                             "sampling": "poisson"}
+        sc = load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
+        doc["device"] = {"use_pallas": False}
+        jsc = jax_load_scene(_write(tmp_path, doc, "jax.json"), tile_chunk=4)
+        for p, jp in zip(sc.positions, jsc.positions):
+            np.testing.assert_array_equal(p, jp)
+        assert sc.positions[0].shape[0] > 100
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
 

@@ -222,8 +222,10 @@ def test_sdf_file_round_trip_and_uniform_sampling_match_jax(tmp_path):
     pts = sdf.read_sdf(path, **kw)
     np.testing.assert_array_equal(pts, jsdf.read_sdf(path, **kw))
     assert pts.dtype == np.float32 and pts.shape[0] > 1000
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sdf.sample_sdf(vals, dx, 8.0, 1.0 / 64, (0, 0, 0), (1, 1, 1), mode="poisson")
+    # "poisson" is ported (tests/test_torch_sampler.py holds it to the JAX
+    # package); an unknown mode raises
+    with pytest.raises(ValueError):
+        sdf.sample_sdf(vals, dx, 8.0, 1.0 / 64, (0, 0, 0), (1, 1, 1), mode="blue")
 
 
 def test_mesh_to_sdf_matches_jax(tmp_path):
