@@ -27,7 +27,16 @@ against its plain twin), and drives the port's main paths through
   cadence and drift-triggered) beside span 2; K1's span-4 variant of every
   material against its plain version; dambreak12m and dambreak_sdf with
   the incremental rebucket (``defrag_every=4``), and the incremental plan
-  on the card against the CPU, bit for bit.
+  on the card against the CPU, bit for bit;
+* several devices through ``MultiChipEngine`` with every shard on the card
+  (``multi_paths``): sphere25m on a 2x2 mesh (overlap on and off) and
+  dambreak12m on 4 x-slabs, each held to ``MPMEngine`` on the same
+  substeps, with a CUDA-event stage breakdown; a mesh of one on the cube;
+  the CLI on ``scenes/cube_4dev.json`` with a resume; ``validate_scale``;
+  and ``DistGroup`` over NCCL where two cards are visible, and the 2x2
+  sphere with one shard per card where four are (with fewer, a line says
+  each did not run).  K1 is also held to its plain version on the tile ranges of
+  the boundary/interior split.
 
 It also holds the probes P1-P6 (the kernels of the profiling scripts)
 against their plain versions at the TPU scripts' inputs and drives the
@@ -50,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -167,7 +177,8 @@ def grid_info(name: str, num_colliders: int = 3) -> dict:
 
 def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                        reps: int = 20, model_idx: int = 0,
-                       time_plain: bool = True, plain_reps: int = 0) -> dict:
+                       time_plain: bool = True, plain_reps: int = 0,
+                       tile_split: int = None) -> dict:
     """K1 (the variant of ``mat``) against core.transfer.g2p2g_model on the
     card, from one grid update of ``state``: dense grids within 1e-5 x the
     largest grid value (float atomics reorder the sums), identical active
@@ -178,7 +189,10 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     ``arena_margin`` of its output.  The kernel is the variant of the
     state's arena span (``cfg.arena_span``); ``plain_reps`` > 0 times the
     plain version that many calls with no warm-up (the span-4 plain version
-    takes seconds a call)."""
+    takes seconds a call).  ``tile_split`` bt: the kernel and the plain
+    version each run on the tile range [0, bt), then [bt, T) into the same
+    outputs, as the multi-device transfer split does, with the margin the
+    minimum of the two."""
     from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
     from claymore_tpu_torch.utils.debug import pool_to_dense
@@ -188,13 +202,23 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                               torch.tensor(1e9, device=DEVICE))
     table, model = state.partition.table, state.models[model_idx]
 
+    nt = model.tiles.tvalid.shape[0]
+    ranges = [None] if tile_split is None else [(0, tile_split), (tile_split, nt)]
+
     def kernel(acc):
-        return g2p2g_kernel.g2p2g(cfg, mat, pool_v, table, model, state.dt,
-                                  next_dt, acc, tile_chunk)
+        out, margin = None, None
+        for r in ranges:
+            out, acc, m = g2p2g_kernel.g2p2g(cfg, mat, pool_v, table, model, state.dt,
+                                             next_dt, acc, tile_chunk, r, out)
+            margin = m if margin is None else torch.minimum(margin, m)
+        return out, acc, margin
 
     def plain(acc):
-        return transfer.g2p2g_model(cfg, mat, pool_v, table, model, state.dt,
-                                    next_dt, acc, tile_chunk)
+        out = None
+        for r in ranges:
+            out, acc = transfer.g2p2g_model(cfg, mat, pool_v, table, model, state.dt,
+                                            next_dt, acc, tile_chunk, r, out)
+        return out, acc
 
     mk, pk, margin = kernel(torch.zeros_like(state.grid))
     mt, pt = plain(torch.zeros_like(state.grid))
@@ -1401,6 +1425,487 @@ def check_poisson_model(doc: dict, base: Path, facts: str) -> dict:
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# multiple devices: MultiChipEngine with every shard on the card
+# --------------------------------------------------------------------------
+
+MULTI_BOUND = 1e-5      # multi vs one device: mass, momentum, dt (relative), positions
+MIG_CAP = 262144        # scenes/sphere_100m_8dev.json's migration capacity
+
+
+def positions_all(states, n: int) -> torch.Tensor:
+    """f32[3, n] on the card: every state's active particles, column = pid;
+    NaN where no state holds the pid."""
+    out = torch.full((3, n), float("nan"), device=DEVICE)
+    for st in states:
+        m = st.models[0]
+        out[:, m.pid[m.active].long().to(DEVICE)] = m.pos[:, m.active].to(DEVICE)
+    return out
+
+
+def grid_totals(states, eng=None) -> np.ndarray:
+    """float64 (mass, momentum x, y, z): the whole pool of a one-device
+    state, or each block on its owner shard (``owned_rows``)."""
+    tot = torch.zeros(4, dtype=torch.float64, device=DEVICE)
+    for j, st in enumerate(states):
+        rows = (st.grid[:-1] if eng is None else eng.owned_rows(states, j)).double()
+        tot[0] += rows[:, 0:4].sum().to(DEVICE)
+        tot[1:] += rows[:, 4:16].reshape(rows.shape[0], 3, 4, 128).sum(dim=(0, 2, 3)).to(DEVICE)
+    return tot.cpu().numpy()
+
+
+def single_reference(name: str, steps: int, facts: str, slack: float = None) -> dict:
+    """MPMEngine on the bench scene ``name``, ``steps`` substeps from init:
+    every dt, the grid totals, every position by pid (kept on the card) and
+    ms/substep; the engine and its state are freed before returning.
+    ``slack``: size the tiles with ``exact_tiles(slack=)`` (as a mesh of
+    one does) instead of the scene's capacity."""
+    import claymore_tpu_torch as ct
+
+    cfg, mats, parts, v0s, cols = scene(name)
+    if slack is not None:
+        cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=slack))
+    eng = ct.MPMEngine(cfg, mats, cols, tile_chunk=64, device=DEVICE)
+    state = eng.init_state(parts, v0s)
+    n = parts[0].shape[0]
+    fe = np.float32(1e9)
+    dts = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = eng.substep(state, fe)
+        dts.append(state.dt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    out = {"dt": torch.stack(dts).cpu().numpy(), "totals": grid_totals((state,)),
+           "pos": positions_all((state,), n), "ms_per_substep": ms,
+           "rebuilds": eng.rebuilds, "n": n}
+    log(f"reference MPMEngine {name}: {n} particles, {steps} substeps, {ms:.3f} ms/substep, "
+        f"rebuilds {eng.rebuilds} | {facts}")
+    del state, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool = True,
+              label: str = "", slack: float = None) -> dict:
+    """MultiChipEngine on the bench scene ``name``, every shard on the card,
+    ``steps`` substeps from init with the launch counts zeroed before the
+    init and read after the last substep.  Each substep's stages are timed
+    with CUDA events recorded where ``substep_impl`` calls ``on_stage``
+    (on the main stream), and the halo exchange from its start on the main
+    stream to the end of the last shard's side-stream work.  Held to the
+    one-device run ``ref`` of the same substeps: dt at every substep, mass
+    and momentum (each block on its owner) within MULTI_BOUND relative,
+    positions of every particle, paired by pid, within MULTI_BOUND (and of
+    pids 0..4095, logged apart); nothing overflows, drops
+    or is lost, and particles move."""
+    import claymore_tpu_torch as ct
+    from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
+
+    cfg, mats, parts, v0s, cols = scene(name)
+    n = parts[0].shape[0]
+    if slack is None:
+        slack = 2.5 if name == "dambreak12m" else 1.5      # the column spreads (bench.py)
+    eng = ct.MultiChipEngine(cfg, mats, mesh_shape=mesh, device=DEVICE, tile_chunk=64,
+                             migration_capacity=MIG_CAP, overlap_halo=overlap,
+                             colliders=cols, particle_capacity_factor=slack)
+    comm = eng.comm
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = eng.init_state(parts, v0s)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p0 = positions_all(state, n)
+    shard0 = torch.from_numpy(eng.shard_of(parts[0])).to(DEVICE)
+    exchange_events, stage_events = [], []
+    plain_exchange = comm.exchange_halo
+
+    def timed_exchange(pools, partitions):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_exchange(pools, partitions)
+        ends = []
+        for j in range(len(pools)):
+            with comm.group.on_side(j):
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+        exchange_events.append((start, ends))
+        return out
+
+    def on_stage(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        stage_events[-1].append((stage, ev))
+
+    comm.exchange_halo = timed_exchange
+    fe = np.float32(1e9)
+    dts = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stage_events.append([("start", start)])
+        state = eng.substep(state, fe, on_stage=on_stage)
+        dts.append(state[0].dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    comm.exchange_halo = plain_exchange
+    launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stages = {}
+    for evs in stage_events:
+        for (_, a), (stage, b) in zip(evs[:-1], evs[1:]):
+            stages.setdefault(stage, []).append(a.elapsed_time(b))
+    stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
+    stage_ms["substep (events)"] = float(np.mean([evs[0][1].elapsed_time(evs[-1][1])
+                                                  for evs in stage_events]))
+    # the init's exchange is not timed (the wrapper went in after it); a
+    # mesh of one exchanges nothing
+    if exchange_events:
+        stage_ms["exchange (start to last side-stream end)"] = float(np.mean(
+            [max(s.elapsed_time(e) for e in ends) for s, ends in exchange_events]))
+
+    d = eng.diagnostics(state)
+    pos = positions_all(state, n)
+    disp = float(torch.nan_to_num(pos - p0).abs().max())
+    k = min(4096, n)
+    pos_err = float((pos[:, :k] - ref["pos"][:, :k]).abs().max())
+    pos_err_all = float((pos - ref["pos"]).abs().max())
+    totals = grid_totals(state, eng)
+    mass_err = abs(totals[0] - ref["totals"][0]) / ref["totals"][0]
+    mom_err = float(np.abs(totals[1:] - ref["totals"][1:]).max()
+                    / max(np.linalg.norm(ref["totals"][1:]), 1e-30))
+    dt = torch.stack(dts).cpu().numpy()
+    dt_err = float(np.max(np.abs(dt - ref["dt"]) / ref["dt"]))
+    owner = torch.full((n,), -1, dtype=torch.long, device=DEVICE)
+    for j, st in enumerate(state):
+        m = st.models[0]
+        owner[m.pid[m.active].long()] = comm.shards[j]
+    moved_shard = int((owner != shard0).sum())
+    expected = n * mats[0].mass
+    k1 = variant_name(mats[0], cfg.arena_span)
+    nd = eng.n_dev
+    used = {"grid_update": launches["grid_update"], k1: launches[k1]}
+    bytes_ = comm.exchanged_bytes([st.partition for st in state], state[0].models)
+    checks = {
+        "finite": bool(np.isfinite(d["t"]) and torch.isfinite(pos).all()),
+        "active": d["model0_active"] == n and bool((owner >= 0).all()),
+        "dropped": d["model0_dropped_tiles"] == 0,
+        "overflow": d["block_overflow"] == 0,
+        "halo_overflow": d["halo_overflow"] == 0,
+        "migration_dropped": d["migration_dropped"] == 0,
+        "null_row": d["null_block_mass"] == 0.0,
+        "mass": abs(totals[0] - expected) / expected < MULTI_BOUND and mass_err < MULTI_BOUND,
+        "momentum": mom_err < MULTI_BOUND,
+        "dt": dt_err < MULTI_BOUND,
+        "positions": pos_err < MULTI_BOUND and pos_err_all < MULTI_BOUND,
+        "moves": disp > 0.0,
+        "launches": used["grid_update"] == steps * nd and used[k1] >= steps * nd,
+    }
+    out = {"mesh": list(mesh), "particles": n, "substeps": steps, "overlap_halo": overlap,
+           "split": comm.overlap and cfg.defrag_every == 1,
+           "boundary_tiles": [comm.boundary_tile_cap(
+               st.models[0].tiles.tvalid.shape[0], math.lcm(cfg.group_tiles, 64))
+               for st in state[:1]] + [state[0].models[0].tiles.tvalid.shape[0]],
+           "ms_per_substep": wall / steps * 1e3, "ref_ms_per_substep": ref["ms_per_substep"],
+           "stage_ms": stage_ms, "init_s": init_s, "peak_gib": peak_gib,
+           "launches": used, "rebuilds": eng.rebuilds, "ref_rebuilds": ref["rebuilds"],
+           "active_blocks": d["active_blocks"], "halo_capacity": comm.halo_capacity,
+           "exchanged_bytes": bytes_, "migrated_by_pid": moved_shard,
+           "mass_rel_err": float(mass_err), "momentum_rel_err": mom_err,
+           "dt_rel_err": dt_err, "pos_err_pid4096": pos_err, "pos_err_all": pos_err_all,
+           "displacement": disp}
+    log(f"multi {name}{label} mesh {mesh} (shards on {DEVICE}, overlap_halo={overlap}, "
+        f"split {out['split']}, boundary tiles {out['boundary_tiles'][0]} of "
+        f"{out['boundary_tiles'][1]}): {n} particles, {steps} substeps, "
+        f"{out['ms_per_substep']:.3f} ms/substep (one device "
+        f"{ref['ms_per_substep']:.3f}), stages (ms, mean) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+        + f"; rebuilds {eng.rebuilds} (one device {ref['rebuilds']}), blocks per shard "
+        f"{d['active_blocks']}, halo capacity {comm.halo_capacity} octs, exchanged bytes "
+        f"{bytes_}, particles whose shard changed {moved_shard}, init {init_s:.2f} s, peak "
+        f"{peak_gib:.2f} GiB, launches {used}; vs one device: mass {mass_err:.3e}, momentum "
+        f"{mom_err:.3e}, dt {dt_err:.3e}, positions pid<4096 {pos_err:.3e} (all "
+        f"{pos_err_all:.3e}), displacement {disp:.3e} | {facts}")
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"multi {name}{label} {mesh}: checks failed {failed} ({d}, "
+                             f"{out})")
+    out["pos"] = pos
+    out["state"] = state
+    out["engine"] = eng
+    return out
+
+
+def multi_cli(facts: str, frames: int = 4) -> dict:
+    """The CLI on scenes/cube_4dev.json (a 2x2 mesh, every shard on the
+    card): ``frames`` frames with a checkpoint after each, then the last
+    frame again from the one before; the resumed state lands within
+    RESUME_POS_BOUND of the uninterrupted one, paired by pid."""
+    import shutil
+
+    from claymore_tpu_torch.io import bgeo
+    from claymore_tpu_torch.io import checkpoint as ckpt
+    from claymore_tpu_torch.io.scene import load_scene
+
+    root = Path(__file__).resolve().parent
+    scene_file = root / "scenes" / "cube_4dev.json"
+    work = root / "build" / "smoke_multi_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    full, part = work / "full", work / "resumed"
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "claymore_tpu_torch", "-f", str(scene_file),
+             "--device", DEVICE, "--checkpoint-every", "1", *args],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exited {proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        return proc.stdout, time.perf_counter() - t0
+
+    out_full, wall_full = cli("-o", str(full), "--frames", str(frames), "--profile")
+    out_part, wall_part = cli("-o", str(part), "--frames", "1", "--resume",
+                              str(full / f"ckpt_{frames - 2:04d}.npz"))
+    sc = load_scene(str(scene_file), device=DEVICE, tile_chunk=64)
+    n = sc.positions[0].shape[0]
+    for f in range(-1, frames):
+        pos, _ = bgeo.read_bgeo(str(full / f"model0_frame{f:04d}.bgeo"))
+        if pos.shape != (n, 3) or not np.all(np.isfinite(pos)):
+            raise AssertionError(f"multi CLI frame {f}: {pos.shape} positions, scene has {n}")
+    a = ckpt.load_state(str(full / f"ckpt_{frames - 1:04d}.npz"), sc.state)
+    b = ckpt.load_state(str(part / "ckpt_0000.npz"), sc.state)
+    da, db = sc.engine.diagnostics(a), sc.engine.diagnostics(b)
+    diff = float((positions_all(a, n) - positions_all(b, n)).abs().max())
+    expected = n * sc.materials[0].mass
+    log(f"multi CLI cube_4dev.json (mesh {sc.engine.mesh_shape}, {n} particles): {frames} "
+        f"frames with checkpoints exit 0 in {wall_full:.1f} s, resume of the last frame "
+        f"exit 0 in {wall_part:.1f} s; step {da['step']} / {db['step']}, mass "
+        f"{da['grid_mass']:.6f} / {db['grid_mass']:.6f} (expected {expected:.6f}); resumed "
+        f"vs uninterrupted positions by pid: max {diff:.3e} (bound {RESUME_POS_BOUND}); "
+        f"the uninterrupted run's --profile:\n" + "\n".join(out_full.strip().splitlines()[-3:])
+        + f"\n| {facts}")
+    ok = (da["step"] == db["step"] and da["model0_active"] == db["model0_active"] == n
+          and abs(da["grid_mass"] - expected) < 1e-5 * expected
+          and da["migration_dropped"] == da["halo_overflow"] == 0 and diff <= RESUME_POS_BOUND)
+    if not ok:
+        raise AssertionError(f"multi CLI: {da} / {db}, resume diff {diff}")
+    return {"particles": n, "wall_full_s": wall_full, "wall_resumed_s": wall_part,
+            "resume_pos_diff": diff, "step": da["step"]}
+
+
+def multi_validate_scale(facts: str) -> dict:
+    """scripts/validate_scale.py's port at domain_bits=10 over 4 shards on
+    the card, as a subprocess."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "claymore_tpu_torch.scripts.validate_scale",
+                           "4", "--device", DEVICE], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "scale validation: OK" not in proc.stdout:
+        raise AssertionError(f"validate_scale exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    log(f"validate_scale (domain_bits=10, 4 shards on {DEVICE}) in {wall:.1f} s: "
+        + " ".join(proc.stdout.strip().splitlines()) + f" | {facts}")
+    return {"wall_s": wall, "stdout": proc.stdout.strip()}
+
+
+def dist_rank(rank: int, port: int, out: str, backend: str = "nccl") -> None:
+    """One rank of ``dist_path``: the cube on a (2,) mesh through a
+    ``DistGroup``, shard ``rank`` on cuda:<rank> (on the CPU with gloo);
+    its positions by pid and the group's diagnostics into ``out``."""
+    import claymore_tpu_torch as ct
+    from claymore_tpu_torch.parallel import distributed
+
+    global DEVICE
+    if backend == "nccl":
+        DEVICE = f"cuda:{rank}"
+        torch.cuda.set_device(rank)
+    distributed.init_multihost(f"tcp://localhost:{port}", world_size=2, rank=rank,
+                               backend=backend)
+    group = distributed.DistGroup((2,), DEVICE)
+    cfg, mats, parts, v0s, _ = scene("cube")
+    eng = ct.MultiChipEngine(cfg, mats, n_devices=2, device=DEVICE, tile_chunk=64,
+                             migration_capacity=MIG_CAP, group=group)
+    st = eng.run_steps(eng.init_state(parts, v0s), 20, np.float32(1e9))
+    d = eng.diagnostics(st)
+    np.savez(out, pos=positions_all(st, parts[0].shape[0]).cpu().numpy(),
+             mass=d["grid_mass"], active=d["model0_active"])
+    torch.distributed.destroy_process_group()
+
+
+def dist_path(facts: str) -> dict:
+    """``DistGroup`` on the card: with two or more cards, two NCCL ranks
+    (cuda:0 and cuda:1) run the cube on a (2,) mesh, held to a
+    ``LocalGroup`` run on the same two cards within MULTI_BOUND.  With one
+    card it does not run: NCCL refuses two ranks on one card."""
+    import socket
+
+    import claymore_tpu_torch as ct
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"DistGroup on the card: not run, {cards} CUDA device visible and NCCL refuses "
+            "two ranks on one card; tests/test_torch_multi_dist.py holds DistGroup to "
+            "LocalGroup bit for bit over gloo on the CPU")
+        return {"run": False, "cards": cards}
+    root = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [root / "build" / f"smoke_dist_rank{r}.npz" for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dist_rank({r}, {port}, "
+                               f"{str(outs[r])!r})"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    for p in procs:
+        text, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"DistGroup rank exited {p.returncode}:\n{text}")
+    cfg, mats, parts, v0s, _ = scene("cube")
+    eng = ct.MultiChipEngine(cfg, mats, n_devices=2, device=["cuda:0", "cuda:1"],
+                             tile_chunk=64, migration_capacity=MIG_CAP)
+    st = eng.run_steps(eng.init_state(parts, v0s), 20, np.float32(1e9))
+    n = parts[0].shape[0]
+    want = positions_all(st, n).cpu().numpy()
+    d = eng.diagnostics(st)
+    got = [np.load(o) for o in outs]
+    # each rank holds its shard's particles; together they hold every one
+    pos = np.where(np.isnan(got[0]["pos"]), got[1]["pos"], got[0]["pos"])
+    if np.isnan(pos).any() or not (np.isnan(got[0]["pos"]) | np.isnan(got[1]["pos"])).all():
+        raise AssertionError("DistGroup: a particle on no rank, or on both")
+    err = float(np.abs(pos - want).max())
+    for g in got:
+        if int(g["active"]) != d["model0_active"] or abs(float(g["mass"]) - d["grid_mass"]) \
+                > MULTI_BOUND * d["grid_mass"]:
+            raise AssertionError(f"DistGroup diagnostics {dict(g)} vs {d}")
+    log(f"DistGroup over NCCL, 2 ranks on cuda:0/cuda:1, cube 20 substeps: positions vs "
+        f"LocalGroup on the same cards max {err:.3e}, diagnostics summed over the ranks "
+        f"equal | {facts}")
+    if not err <= MULTI_BOUND:
+        raise AssertionError(f"DistGroup positions differ by {err}")
+    return {"run": True, "cards": cards, "pos_err": err}
+
+
+def cards_path(facts: str, steps: int = 20) -> dict:
+    """``LocalGroup`` across cards: sphere25m on a 2x2 mesh with one shard
+    per card (peer copies between cards, a side stream per shard) against
+    every shard on cuda:0, ``steps`` substeps after two: positions by pid
+    within MULTI_BOUND, nothing lost, ms/substep of each.  Needs four
+    cards; with fewer it does not run and says so."""
+    import claymore_tpu_torch as ct
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"LocalGroup across cards: not run, {cards} CUDA device visible (a 2x2 mesh "
+            "with one shard per card needs 4)")
+        return {"run": False, "cards": cards}
+    fe = np.float32(1e9)
+    res, pos = {}, {}
+    for key, devices in (("one_card", ["cuda:0"] * 4),
+                         ("four_cards", [f"cuda:{d}" for d in range(4)])):
+        cfg, mats, parts, v0s, _ = scene("sphere25m")
+        eng = ct.MultiChipEngine(cfg, mats, mesh_shape=(2, 2), device=devices,
+                                 tile_chunk=64, migration_capacity=MIG_CAP)
+        st = eng.run_steps(eng.init_state(parts, v0s), 2, fe)
+        for d in range(4):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        st = eng.run_steps(st, steps, fe)
+        for d in range(4):
+            torch.cuda.synchronize(d)
+        d = eng.diagnostics(st)
+        res[key] = {"ms_per_substep": (time.perf_counter() - t0) / steps * 1e3,
+                    "mass": d["grid_mass"], "active": d["model0_active"],
+                    "halo_overflow": d["halo_overflow"], "mig": d["migration_dropped"]}
+        pos[key] = positions_all(st, parts[0].shape[0])
+        n = parts[0].shape[0]
+        del st, eng
+        torch.cuda.empty_cache()
+    err = float((pos["one_card"] - pos["four_cards"]).abs().max())
+    log(f"LocalGroup sphere25m 2x2, one shard per card vs four shards on cuda:0, {steps} "
+        f"substeps: positions by pid max {err:.3e}, {res['four_cards']['ms_per_substep']:.3f} "
+        f"vs {res['one_card']['ms_per_substep']:.3f} ms/substep, {res} | {facts}")
+    if not (err <= MULTI_BOUND and all(r["active"] == n and r["halo_overflow"] == 0
+                                       and r["mig"] == 0 for r in res.values())):
+        raise AssertionError(f"LocalGroup across cards: positions {err}, {res}")
+    return {"run": True, "cards": cards, "pos_err": err, **res}
+
+
+def multi_paths(facts: str) -> dict:
+    """The multi-device paths: sphere25m 2x2 (overlap on and off),
+    dambreak12m 4x1, a mesh of one on the cube, the CLI on
+    scenes/cube_4dev.json, validate_scale, and the phases that need several
+    cards (each says so where it cannot run)."""
+    out = {}
+    # 1-2. sphere25m on a 2x2 mesh, overlap on and off, against MPMEngine
+    ref = single_reference("sphere25m", 40, facts)
+    p1 = multi_run("sphere25m", (2, 2), 40, facts, ref)
+    st = p1.pop("state")
+    eng = p1.pop("engine")
+    k1s = check_g2p2g_kernel(eng.cfg, eng.materials[0], st[0], tile_chunk=64,
+                             time_it=False)
+    log(f"K1 on shard 0 of the multi sphere25m state vs plain: grid err "
+        f"{k1s['max_abs_err']:.3e}, pos {k1s['pos_err']:.3e} | {facts}")
+    del st, eng
+    torch.cuda.empty_cache()
+    p2 = multi_run("sphere25m", (2, 2), 40, facts, ref, overlap=False,
+                   label=" overlap_halo=False")
+    p2.pop("state"), p2.pop("engine")
+    diff = float((p1["pos"] - p2["pos"]).abs().max())
+    log(f"multi sphere25m 2x2: overlap_halo=False vs True, positions by pid max {diff:.3e}, "
+        f"{p2['ms_per_substep']:.3f} vs {p1['ms_per_substep']:.3f} ms/substep | {facts}")
+    if not diff < MULTI_BOUND:
+        raise AssertionError(f"overlap_halo=False differs from True by {diff}")
+    p2["pos_vs_overlap"] = diff
+    del ref, p1["pos"], p2["pos"]
+    torch.cuda.empty_cache()
+    out["multi_sphere25m_2x2"], out["multi_sphere25m_2x2_no_overlap"] = p1, p2
+    # 3. dambreak12m on 4 x-slabs, drift-triggered rebuilds; K1-JF on a tile
+    #    range of shard 1's final state against its plain version
+    ref = single_reference("dambreak12m", 80, facts)
+    p3 = multi_run("dambreak12m", (4,), 80, facts, ref)
+    st, eng = p3.pop("state"), p3.pop("engine")
+    del p3["pos"], ref
+    if p3["migrated_by_pid"] == 0:
+        raise AssertionError("multi dambreak12m: no particle changed shard")
+    nt = st[1].models[0].tiles.tvalid.shape[0]
+    bt = eng.comm.boundary_tile_cap(nt, math.lcm(eng.cfg.group_tiles, 64))
+    k1j = check_g2p2g_kernel(eng.cfg, eng.materials[0], st[1], tile_chunk=64, reps=10,
+                             plain_reps=1, tile_split=bt)
+    log_k1(f"g2p2g_jfluid on tiles [0, {bt}) + [{bt}, {nt}), shard 1 of the multi "
+           f"dambreak12m state", k1j, facts)
+    p3["k1_tile_range"] = {k: k1j[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "pos_err")}
+    del st, eng
+    torch.cuda.empty_cache()
+    out["multi_dambreak12m_4x1"] = p3
+    # 4. a mesh of one on the 1M cube: MPMEngine's pipeline and its cost,
+    #    both engines with the tiles a mesh sizes (exact_tiles, slack 1.3)
+    ref = single_reference("cube", 40, facts, slack=1.3)
+    p4 = multi_run("cube", (1,), 40, facts, ref, slack=1.3)
+    p4.pop("state"), p4.pop("engine"), p4.pop("pos")
+    p4["overhead_ms_per_substep"] = p4["ms_per_substep"] - ref["ms_per_substep"]
+    log(f"mesh (1,) on the cube: {p4['ms_per_substep']:.3f} ms/substep against MPMEngine's "
+        f"{ref['ms_per_substep']:.3f}: overhead {p4['overhead_ms_per_substep']:.3f} "
+        f"ms/substep | {facts}")
+    del ref
+    torch.cuda.empty_cache()
+    out["multi_cube_mesh1"] = p4
+    # 5-6. the CLI on scenes/cube_4dev.json; validate_scale; DistGroup
+    out["multi_cli_cube_4dev"] = multi_cli(facts)
+    out["validate_scale"] = multi_validate_scale(facts)
+    out["dist_group"] = dist_path(facts)
+    out["local_group_cards"] = cards_path(facts)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1578,9 +2083,19 @@ def main() -> int:
     log(f"sphere25m final state: fused margin {check_fused_margin(eng, state)} == "
         f"arena_margin | {facts}")
 
-    # kernels at the main path's shapes, on its final state (not counted)
+    # kernels at the main path's shapes, on its final state (not counted);
+    # K1 also on the tile ranges a 4x1 mesh's transfer split gives it
     k1 = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10)
     log_k1("g2p2g_fixed_corotated, sphere25m state", k1, facts)
+    from claymore_tpu_torch.parallel.multi import HaloComm
+
+    nt25 = state.models[0].tiles.tvalid.shape[0]
+    bt25 = HaloComm(cfg25, (("x", 0),), (4,), 1, 1).boundary_tile_cap(
+        nt25, math.lcm(cfg25.group_tiles, 64))
+    k1r = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10, plain_reps=1,
+                             tile_split=bt25)
+    log_k1(f"g2p2g_fixed_corotated on tiles [0, {bt25}) + [{bt25}, {nt25}), sphere25m "
+           "state", k1r, facts)
     # K1's time against the order of the slots inside the tiles
     k1_order = k1_order_sensitivity(cfg25, mat25, state, k1, facts)
     # the engine's own stage profile on the same state, beside the CUDA-event
@@ -1757,6 +2272,11 @@ def main() -> int:
     paths["cli_sdf"] = run_cli_sdf(facts)
     paths["prof_rebuild"] = check_prof_rebuild_entry(facts)
 
+    # 11. multiple devices: sphere25m on a 2x2 mesh (overlap on and off),
+    #     dambreak12m on 4 x-slabs, a mesh of one on the cube, the CLI on
+    #     scenes/cube_4dev.json, validate_scale, DistGroup
+    paths.update(multi_paths(facts))
+
     src = "claymore_tpu_torch/csrc/"
     k2_call = "claymore_tpu/ops/pallas_grid.py:192"
     k1_call = "claymore_tpu/ops/pallas_g2p2g.py:783"
@@ -1793,6 +2313,24 @@ def main() -> int:
         e["span4_on_the_tpu"] = "claymore_tpu/core/transfer.py:127 (XLA)"
         kernels.append(e)
     paths["sphere25m_spans"] = spans
+    # the multi-device paths' launches; K1 on the tile ranges of the split
+    multi_k1 = {"g2p2g_fixed_corotated": ("multi_sphere25m_2x2",
+                                          "multi_sphere25m_2x2_no_overlap", "multi_cube_mesh1"),
+                "g2p2g_jfluid": ("multi_dambreak12m_4x1",)}
+    for e in kernels:
+        if e["name"] == "grid_update":
+            e["launches_multi"] = {p: paths[p]["launches"]["grid_update"]
+                                   for p in (*multi_k1["g2p2g_fixed_corotated"],
+                                             *multi_k1["g2p2g_jfluid"])}
+        if e["name"] in multi_k1:
+            e["launches_multi"] = {p: paths[p]["launches"][e["name"]]
+                                   for p in multi_k1[e["name"]]}
+    kernels[3]["tile_range"] = {
+        "split": [bt25, nt25], **{k: k1r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "pos_err")}}
+    kernels[4]["tile_range"] = paths["multi_dambreak12m_4x1"]["k1_tile_range"]
+    if min(v for e in kernels for v in e.get("launches_multi", {}).values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on a multi-device path: {kernels}")
     # the collider kernels' cull and their straddle pools
     for e, check, straddle in ((kernels[1], k2c, k2c_straddle), (kernels[2], k2s, k2s_straddle)):
         e["culled_share"] = check["culled_share"]

@@ -1,20 +1,22 @@
 """Command-line scene runner of the PyTorch/CUDA port.
 
-Loads a JSON scene, runs the frame loop on one device and streams per-frame
-``.bgeo`` particle dumps through the async IO thread (port of
+Loads a JSON scene, runs the frame loop and streams per-frame ``.bgeo``
+particle dumps through the async IO thread (port of
 ``claymore_tpu/__main__.py``):
 
     python -m claymore_tpu_torch -f scene.json [-o outdir] [--frames N]
         [--tile-chunk N] [--no-output] [--checkpoint-every N]
-        [--resume ckpt.npz] [--profile] [--device cuda|cpu]
+        [--resume ckpt.npz] [--profile] [--device DEVICE[,DEVICE...]]
 
 ``--checkpoint-every N`` writes ``ckpt_{frame:04d}.npz`` (``io/checkpoint.py``,
 the JAX package's format) into the output directory after every N-th frame
 (and, as the JAX runner does, one of the initial state as
 ``ckpt_-001.npz``); ``--resume`` loads one into the scene's engine and runs
-``--frames`` more frames from it.  ``--device`` defaults to ``cuda``;
-without a CUDA device the runner exits with an error rather than running on
-the CPU.
+``--frames`` more frames from it.  ``--device`` defaults to ``cuda``; a
+scene with a multi-device ``device`` block puts every shard on it, or one
+shard on each device of a comma-separated list (``cuda:0,cuda:1,...``).
+Without a CUDA device the runner exits with an error rather than running
+on the CPU.
 """
 
 from __future__ import annotations
@@ -42,13 +44,19 @@ def main(argv=None) -> int:
                     help="checkpoint file to resume from")
     ap.add_argument("--profile", action="store_true",
                     help="print per-stage timings at the end")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="device to simulate on (default: cuda)")
+    ap.add_argument("--device", default="cuda",
+                    help="device to simulate on, or a comma-separated list with "
+                         "one per shard of a multi-device scene (default: cuda)")
     args = ap.parse_args(argv)
 
     import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
+    devices = [d.strip() for d in args.device.split(",")]
+    try:
+        devices = [torch.device(d) for d in devices]
+    except RuntimeError as err:
+        ap.error(f"--device {args.device}: {err}")
+    if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
         print("claymore_tpu_torch: --device cuda but no CUDA device is "
               "available (use --device cpu to run the plain PyTorch versions)",
               file=sys.stderr)
@@ -59,14 +67,16 @@ def main(argv=None) -> int:
     from .utils.timers import StageTimer
 
     print(f"loading scene [{args.file}] on {args.device}")
-    scene = load_scene(args.file, device=args.device, tile_chunk=args.tile_chunk)
+    scene = load_scene(args.file, device=devices if len(devices) > 1 else devices[0],
+                       tile_chunk=args.tile_chunk)
     engine, state = scene.engine, scene.state
     frames = args.frames if args.frames is not None else scene.frames
     os.makedirs(args.out, exist_ok=True)
     if args.resume:
         state = ckpt.load_state(args.resume, state)
-        print(f"resumed from {args.resume} at t={float(state.t):.6f} "
-              f"step={int(state.step)}")
+        first = state[0] if isinstance(state, tuple) else state
+        print(f"resumed from {args.resume} at t={float(first.t):.6f} "
+              f"step={int(first.step)}")
     timer = StageTimer(enabled=True, device=engine.device)
 
     def dump(frame_idx, st):

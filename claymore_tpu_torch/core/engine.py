@@ -1,4 +1,5 @@
-"""Simulation orchestrator (single device).
+"""Simulation orchestrator: one device, or the shards of a mesh this process
+holds (with ``parallel/multi.py``'s comm hook).
 
 Port of ``claymore_tpu/core/engine.py``: ``init_impl`` builds the partition,
 tiles and rasterized grid; ``substep_impl`` runs one explicit MPM substep,
@@ -18,7 +19,9 @@ pointers.  The host synchronises with the device at exactly these points:
   for a fixed cadence of 2..8), and on a rebuilding substep with
   ``defrag_every > 1`` the step count, for the choice between the full sort
   and the incremental plan, and after an incremental plan its deferred
-  counts, for the fall-back to the full sort;
+  counts, for the fall-back to the full sort; over several shards it reads
+  every shard's decision in one read, and on a substep where some shards
+  rebuild and others do not, whether migrants reached each shard;
 * ``MPMEngine.run_frame``: the loop test ``t < frame_end`` and the substep
   cap, once per substep;
 * ``run`` / ``check_health`` / ``diagnostics`` / ``get_positions``: once per
@@ -34,6 +37,8 @@ CUDA graphs would remove the per-launch host cost; that is later work.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -89,26 +94,31 @@ def empty_partition(cfg: SimConfig, device) -> Partition:
 
 
 def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
-              pos_tuple, active_tuple, v0_tuple) -> SimState:
+              pos_tuple, active_tuple, v0_tuple, region_fn=None,
+              pid_tuple=None) -> SimState:
     """Initial setup: partition + tiles + rasterized grid.
 
     ``pos_tuple[i]`` is [3, S_i] with S_i = tile_counts[i] * particle_tile
     (slot capacity); padding lanes are marked inactive in ``active_tuple``.
+    ``pid_tuple[i]`` (i32[S_i]) numbers the active slots; by default a
+    particle's id is its slot.  ``region_fn`` is ``sort_permute``'s.
     """
     dev = pos_tuple[0].device
     pool = torch.zeros((cfg.max_active_octs + 1, 16, 128), dtype=torch.float32,
                        device=dev)
     permuted, tile_keys, droppeds = [], [], []
-    for mat, pos, active, nt in zip(materials, pos_tuple, active_tuple, tile_counts):
+    for i, (mat, pos, active, nt) in enumerate(zip(materials, pos_tuple, active_tuple,
+                                                   tile_counts)):
         s_cap = pos.shape[1]
         if s_cap != nt * cfg.particle_tile:
             raise ValueError(f"slot capacity {s_cap} != {nt} tiles")
-        iota = torch.arange(s_cap, dtype=torch.int32, device=dev)
+        ids = (torch.arange(s_cap, dtype=torch.int32, device=dev) if pid_tuple is None
+               else pid_tuple[i])
         raw = ParticleModel(
             pos=pos, fields=mat.init_fields(s_cap, dev), active=active,
-            pid=torch.where(active, iota, torch.full_like(iota, s_cap)),
+            pid=torch.where(active, ids, torch.full_like(ids, s_cap)),
             tiles=None)
-        pm, tk, dr = part.sort_permute(cfg, raw, nt)
+        pm, tk, dr = part.sort_permute(cfg, raw, nt, region_fn)
         permuted.append(pm)
         tile_keys.append(tk)
         droppeds.append(dr)
@@ -147,40 +157,42 @@ def full_rebuild(cfg: SimConfig, step) -> bool:
 
 
 def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
-             full: bool = True):
+             full: bool = True, region_fn=None, extra_mask=None, stale: bool = False):
     """Rebucket every model's particles, recompute the active oct set and
-    remap the pool.  ``full``: the full sort into new tiles; else the
+    remap the pool.  ``full``: the full sort into new tiles (with
+    ``sort_permute``'s ``region_fn``); else the
     incremental plan, which moves only the particles that changed home
-    block.  A model whose plan would defer movers (past the mover capacity
+    block.  ``stale``: keep every particle where it is and rebuild only the
+    partition (the multi-device engine's substeps without a rebucket);
+    ``extra_mask`` is ``part.rebuild``'s.  A model whose plan would defer movers (past the mover capacity
     or past the free tiles) takes the full sort instead: a deferred mover
     stays in a tile of another block, and once it drifts out of that
     tile's arena it is lost (the JAX package keeps the deferral and loses
     them).  Reading the deferred counts is one host synchronisation.
 
     Returns (partition, pool, models, kind, deferred): ``kind`` is "full",
-    "incremental" or "fallback" (some model's plan deferred and it took the
-    full sort), ``deferred`` the movers each model's plan would have
-    deferred (empty for "full")."""
-    permuted, tile_keys, droppeds = [], [], []
-    if not full:
+    "stale", "incremental" or "fallback" (some model's plan deferred and it
+    took the full sort), ``deferred`` the movers each model's plan would
+    have deferred (empty for "full" and "stale")."""
+    if stale:
+        plans = [(dataclasses.replace(m), part.tile_block_keys(cfg, m.tiles), m.tiles.dropped)
+                 for m in models]
+        kind, deferred = "stale", []
+    elif full:
+        plans = [part.sort_permute(cfg, m, m.tiles.block.shape[0], region_fn) for m in models]
+        kind, deferred = "full", []
+    else:
         plans = [part.incremental_plan(cfg, m, part.tile_block_keys(cfg, m.tiles))
                  for m in models]
         deferred = [int(d) for d in torch.cat([dr for _, _, dr in plans]).tolist()]
-    for i, m in enumerate(models):
-        if full or deferred[i] > 0:
-            pm, tk, dr = part.sort_permute(cfg, m, m.tiles.block.shape[0])
-        else:
-            pm, tk, dr = plans[i]
-        permuted.append(pm)
-        tile_keys.append(tk)
-        droppeds.append(dr)
-    partition, pool = part.rebuild(cfg, pool, partition, tuple(tile_keys))
-    for pm, tk, dr in zip(permuted, tile_keys, droppeds):
+        plans = [part.sort_permute(cfg, m, m.tiles.block.shape[0]) if d > 0 else plan
+                 for m, plan, d in zip(models, plans, deferred)]
+        kind = "fallback" if max(deferred) > 0 else "incremental"
+    partition, pool = part.rebuild(cfg, pool, partition, tuple(tk for _, tk, _ in plans),
+                                   extra_mask)
+    for pm, tk, dr in plans:
         pm.tiles = part.finalize_tiles(cfg, partition, tk, dr)
-    if full:
-        return partition, pool, tuple(permuted), "full", []
-    kind = "fallback" if max(deferred) > 0 else "incremental"
-    return partition, pool, tuple(permuted), kind, deferred
+    return partition, pool, tuple(pm for pm, _, _ in plans), kind, deferred
 
 
 def clone_state(x):
@@ -228,60 +240,208 @@ def time_state_loop(fn, state: SimState, iters: int, reps: int, device) -> float
     return best / iters
 
 
-def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int,
-                 state: SimState, frame_end: torch.Tensor, collider_table=None,
-                 sdf_pointers=None):
-    """One explicit MPM substep.  Returns (new_state, rebuilt): ``rebuilt``
-    is None, or ``rebucket``'s (kind, deferred) on a rebuilding substep.
+def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
+                 frame_end, collider_tables=None, sdf_pointers=None, comm=None,
+                 on_stage=None):
+    """One explicit MPM substep of every shard this process holds.
 
-    The colliders are posed at the substep's start time ``state.t``;
-    ``collider_table`` and ``sdf_pointers`` are their packed form and the
-    addresses of their SDF node tables for the CUDA grid kernel
-    (``grid_kernel.pack_colliders``, ``sdf_table_pointers``), made once per
-    engine."""
-    dt = state.dt
-    pool_v, max_vel_sqr = grid_kernel.grid_update(
-        cfg, state.grid, state.partition, dt, colliders, state.t, collider_table,
-        sdf_pointers)
-    t_after = state.t + dt
-    next_dt = grid_ops.compute_dt(cfg, max_vel_sqr, t_after, frame_end)
+    ``states`` is a tuple of shard states (``MPMEngine`` passes one), and
+    ``frame_end``, ``collider_tables`` and ``sdf_pointers`` are tuples over
+    them: the colliders are posed at each shard's start time ``t``, and the
+    tables are their packed form and the addresses of their SDF node tables
+    for the CUDA grid kernel (``grid_kernel.pack_colliders``,
+    ``sdf_table_pointers``), made once per engine.  Returns (new states,
+    rebuilt): ``rebuilt[j]`` is None, or ``rebucket``'s (kind, deferred) on
+    a shard that rebucketed.
 
-    next_pool = torch.zeros_like(state.grid)
-    new_models = []
-    margin = None
-    for mat, model in zip(materials, state.models):
+    ``comm`` is the multi-device hook (``parallel/multi.py:HaloComm``).  Its
+    stages run only when it is live, on a mesh where some shard has a
+    neighbour (``comm.trivial`` has none, and takes the one-device
+    pipeline), as in the JAX package:
+
+    1. K2 per shard; ``comm.reduce_max`` of max|v|^2 over every shard, so
+       all shards take the same dt.
+    2. K1 per shard.  Under the transfer split (``comm.overlap`` and
+       ``defrag_every == 1``) the tiles run in two launches: the boundary
+       prefix [0, bt) (``sort_permute``'s region), then the halo exchange
+       is issued (on a side stream per shard on a card), then the interior
+       [bt, T) runs while it is in flight.  Boundary tiles past the prefix
+       are counted in ``halo_overflow``, as are octs past
+       ``halo_capacity``.  Without the split the exchange follows K1.
+    3. The rebuild decision of every shard, read in one host
+       synchronisation.  ``comm.migrate`` ships the particles that left
+       their shard's slab on the shards that rebuild, and a shard that
+       received any rebuilds too (one more read, on substeps where some
+       shards rebuild and others do not).
+    4. A shard rebuckets when its decision says so.  Under a live comm every
+       shard rebuilds its partition every substep, with the blocks its
+       neighbours sent mass into (``comm.halo_mass_mask``), and the rest
+       keep their tiles; ``comm.add_halo`` then adds the neighbours' rows
+       into the new pool.
+
+    ``on_stage(name)``, when given, is called after each stage's work has
+    been queued for every shard (``chip_smoke.py`` records CUDA events
+    there)."""
+    stage = on_stage or (lambda name: None)
+    n = len(states)
+    collider_tables = collider_tables or (None,) * n
+    sdf_pointers = sdf_pointers or (None,) * n
+    comm_live = comm is not None and not comm.trivial
+    n3 = cfg.grid_size ** 3
+    grid_out = [grid_kernel.grid_update(cfg, s.grid, s.partition, s.dt, colliders, s.t,
+                                        collider_tables[j], sdf_pointers[j])
+                for j, s in enumerate(states)]
+    pool_vs = [pv for pv, _ in grid_out]
+    max_vel_sqr = [mv for _, mv in grid_out]
+    del grid_out
+    stage("K2")
+    if comm_live:
+        max_vel_sqr = comm.reduce_max(max_vel_sqr)
+        stage("reduce_max")
+    t_after = [s.t + s.dt for s in states]
+    next_dt = [grid_ops.compute_dt(cfg, mv, ta, fe)
+               for mv, ta, fe in zip(max_vel_sqr, t_after, frame_end)]
+
+    split = comm_live and comm.overlap and cfg.defrag_every == 1
+    halo_overflow = [s.halo_overflow for s in states]
+    mig_dropped = [s.mig_dropped for s in states]
+    next_pools = [torch.zeros_like(s.grid) for s in states]
+    margins = [None] * n
+    models = [[None] * len(materials) for _ in states]
+
+    def transfer(j, mi, tile_range=None):
         # each transfer returns its output's arena_margin (the kernel
-        # computes it in its epilogue)
-        model, next_pool, m = g2p2g_kernel.g2p2g(
-            cfg, mat, pool_v, state.partition.table, model, dt, next_dt,
-            next_pool, tile_chunk)
-        new_models.append(model)
-        margin = m if margin is None else torch.minimum(margin, m)
-    del pool_v
+        # computes it in its epilogue); two ranges write into one output
+        s = states[j]
+        models[j][mi], next_pools[j], m = g2p2g_kernel.g2p2g(
+            cfg, materials[mi], pool_vs[j], s.partition.table, s.models[mi], s.dt,
+            next_dt[j], next_pools[j], tile_chunk, tile_range, models[j][mi])
+        margins[j] = m if margins[j] is None else torch.minimum(margins[j], m)
 
-    k_every = cfg.rebucket_every
+    bts = [[m.tiles.tvalid.shape[0] for m in s.models] for s in states]
+    if split:
+        mult = math.lcm(cfg.group_tiles, tile_chunk)
+        for j, s in enumerate(states):
+            for mi, model in enumerate(s.models):
+                tcount = bts[j][mi]
+                bt = bts[j][mi] = comm.boundary_tile_cap(tcount, mult)
+                if bt < tcount:
+                    # boundary tiles past the prefix would ship incomplete
+                    # window rows: count them
+                    tk = part.flatten_key(cfg, model.tiles.bcoord[:, bt:])
+                    bad = model.tiles.tvalid[bt:] & comm.is_boundary_key(
+                        torch.clamp(tk, max=n3 - 1), comm.shards[j])
+                    halo_overflow[j] = halo_overflow[j] + bad.sum(dtype=torch.int32).reshape(1)
+                transfer(j, mi, (0, bt))
+        stage("K1 boundary")
+    else:
+        for j in range(n):
+            for mi in range(len(materials)):
+                transfer(j, mi)
+        stage("K1")
+    if comm_live:
+        received, overflow = comm.exchange_halo(next_pools, [s.partition for s in states])
+        halo_overflow = [h + o for h, o in zip(halo_overflow, overflow)]
+        stage("exchange issued")
+    if split:
+        for j, s in enumerate(states):
+            for mi, model in enumerate(s.models):
+                transfer(j, mi, (bts[j][mi], model.tiles.tvalid.shape[0]))
+        stage("K1 interior")
+    del pool_vs
+
     if cfg.rebucket_auto:
         # rebuild when the next advection could push some particle past its
         # tile's arena bound (margin on the advected positions, stale tiles)
-        drift_next = next_dt * torch.sqrt(max_vel_sqr) * cfg.dx_inv
-        do_rebuild = bool(margin <= drift_next * cfg.rebucket_safety + 1e-3)
-    elif k_every == 1:
-        do_rebuild = True
+        flags = [m <= ndt * torch.sqrt(mv) * cfg.dx_inv * cfg.rebucket_safety + 1e-3
+                 for m, ndt, mv in zip(margins, next_dt, max_vel_sqr)]
+        do_rebuild = comm.read_flags(flags) if comm_live else [bool(f) for f in flags]
+    elif cfg.rebucket_every == 1:
+        do_rebuild = [True] * n
     else:
-        do_rebuild = (int(state.step) + 1) % k_every == 0
+        do_rebuild = [(int(states[0].step) + 1) % cfg.rebucket_every == 0] * n
+    stage("decision")
+    extra = [None] * n
+    if comm_live:
+        models, drop, arrived = comm.migrate(models, do_rebuild)
+        mig_dropped = [md + d for md, d in zip(mig_dropped, drop)]
+        if not all(do_rebuild) and (comm.group.dense or any(do_rebuild)):
+            # a shard that received migrants rebuilds, so they are sorted
+            # into tiles of their own blocks (the JAX package leaves them in
+            # free slots of other tiles, whose next transfer drops them)
+            do_rebuild = [d or a for d, a in zip(do_rebuild, comm.read_flags(arrived))]
+        stage("migrate")
+        comm.wait_halo()
+        extra = [comm.halo_mass_mask(r) for r in received]
+        stage("mask")
 
-    partition, rebuilt = state.partition, None
-    if do_rebuild:
-        partition, next_pool, new_models, kind, deferred = rebucket(
-            cfg, next_pool, partition, new_models, full_rebuild(cfg, state.step))
-        rebuilt = (kind, deferred)
+    full = any(do_rebuild) and full_rebuild(cfg, states[0].step)
+    rebuilt, planned = [], []
+    for j, s in enumerate(states):
+        partition, pool, new_models = s.partition, next_pools[j], tuple(models[j])
+        if do_rebuild[j] or comm_live:
+            # under a live comm the partition must hold this substep's halo
+            # blocks (add_halo drops rows of blocks it lacks): only the
+            # particle sort waits for the decision
+            region = (functools.partial(comm.is_boundary_key, shard=comm.shards[j])
+                      if split else None)
+            partition, pool, new_models, kind, deferred = rebucket(
+                cfg, pool, partition, new_models, full=full, region_fn=region,
+                extra_mask=extra[j], stale=not do_rebuild[j])
+        rebuilt.append((kind, deferred) if do_rebuild[j] else None)
+        planned.append((partition, pool, new_models))
+    stage("rebuild")
+    out = []
+    for j, (s, (partition, pool, new_models)) in enumerate(zip(states, planned)):
+        if comm_live:
+            pool = comm.add_halo(pool, partition, received[j])
+        out.append(SimState(
+            grid=pool, partition=partition, models=new_models, dt=next_dt[j],
+            max_vel=torch.sqrt(max_vel_sqr[j]), t=t_after[j], step=s.step + 1,
+            mig_dropped=mig_dropped[j], halo_overflow=halo_overflow[j]))
+    if comm_live:
+        stage("add_halo")
+    return tuple(out), tuple(rebuilt)
 
-    new_state = SimState(
-        grid=next_pool, partition=partition, models=tuple(new_models),
-        dt=next_dt, max_vel=torch.sqrt(max_vel_sqr), t=t_after,
-        step=state.step + 1, mig_dropped=state.mig_dropped,
-        halo_overflow=state.halo_overflow)
-    return new_state, rebuilt
+
+def health_check(states, strict: bool = True) -> None:
+    """Raise on divergence; raise (or warn) on the silent-loss counters,
+    summed over ``states`` (one state, or the shards of a multi-device
+    state): partition overflow, particles dropped from the tiles, particles
+    lost to the migration capacity and halo octs past the halo capacity
+    (the JAX package's ``MultiChipEngine.check_health`` messages)."""
+    import warnings
+
+    t = float(states[0].t)
+    max_vel = float(states[0].max_vel)
+    if not np.isfinite(t) or not np.isfinite(max_vel):
+        raise FloatingPointError(
+            f"simulation diverged: t={t}, max_vel={max_vel} at step "
+            f"{int(states[0].step)} (NaN/inf velocity — reduce dt or stiffness)")
+
+    def total(get):
+        return sum(int(get(s).sum()) for s in states)
+
+    msgs = []
+    overflow = total(lambda s: s.partition.overflow)
+    if overflow > 0:
+        msgs.append(f"partition overflow: {overflow} active blocks beyond "
+                    "max_active_blocks")
+    for i in range(len(states[0].models)):
+        d = total(lambda s: s.models[i].tiles.dropped)
+        if d > 0:
+            msgs.append(f"model {i}: {d} particles dropped (tile capacity)")
+    md = total(lambda s: s.mig_dropped)
+    if md > 0:
+        msgs.append(f"{md} particles lost to migration capacity")
+    ho = total(lambda s: s.halo_overflow)
+    if ho > 0:
+        msgs.append(f"{ho} halo octs beyond halo_capacity (mass leaked)")
+    if msgs:
+        msg = "; ".join(msgs) + " — increase capacities"
+        if strict:
+            raise RuntimeError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
 class MPMEngine:
@@ -370,10 +530,9 @@ class MPMEngine:
         return torch.as_tensor(frame_end, dtype=torch.float32).to(self.device)
 
     def substep(self, state: SimState, frame_end) -> SimState:
-        state, rebuilt = substep_impl(self.cfg, self.materials, self.colliders,
-                                      self.tile_chunk, state,
-                                      self._frame_end(frame_end),
-                                      self._collider_table, self._sdf_pointers)
+        (state,), (rebuilt,) = substep_impl(
+            self.cfg, self.materials, self.colliders, self.tile_chunk, (state,),
+            (self._frame_end(frame_end),), (self._collider_table,), (self._sdf_pointers,))
         if rebuilt is not None:
             self.rebuilds += 1
             self.fallbacks += rebuilt[0] == "fallback"
@@ -400,29 +559,9 @@ class MPMEngine:
         return state
 
     def check_health(self, state: SimState, strict: bool = True) -> None:
-        """Raise on divergence; raise (or warn) on the silent-loss counters."""
-        import warnings
-
-        t = float(state.t)
-        max_vel = float(state.max_vel)
-        if not np.isfinite(t) or not np.isfinite(max_vel):
-            raise FloatingPointError(
-                f"simulation diverged: t={t}, max_vel={max_vel} at step "
-                f"{int(state.step)} (NaN/inf velocity — reduce dt or stiffness)")
-        msgs = []
-        overflow = int(state.partition.overflow[0])
-        if overflow > 0:
-            msgs.append(f"partition overflow: {overflow} active blocks beyond "
-                        "max_active_blocks")
-        for i, m in enumerate(state.models):
-            d = int(m.tiles.dropped[0])
-            if d > 0:
-                msgs.append(f"model {i}: {d} particles dropped (tile capacity)")
-        if msgs:
-            msg = "; ".join(msgs) + " — increase capacities in SimConfig"
-            if strict:
-                raise RuntimeError(msg)
-            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        """Raise on divergence; raise (or warn) on the silent-loss counters
+        (``health_check``)."""
+        health_check((state,), strict)
 
     def run(self, state: SimState, frames: int, on_frame=None,
             check_health: bool = True, auto_grow: bool = False):
@@ -581,8 +720,8 @@ class MPMEngine:
             return dataclasses.replace(s, grid=pool, partition=partition, models=models)
 
         def substep_stage(s):
-            return substep_impl(cfg, self.materials, self.colliders, self.tile_chunk, s,
-                                fe, self._collider_table, self._sdf_pointers)[0]
+            return substep_impl(cfg, self.materials, self.colliders, self.tile_chunk, (s,),
+                                (fe,), (self._collider_table,), (self._sdf_pointers,))[0][0]
 
         stages = {"grid_update": grid_stage, "g2p2g": transfer_stage,
                   "rebuild": rebuild_stage, "substep": substep_stage}

@@ -15,7 +15,7 @@ synchronisation.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -93,13 +93,20 @@ def _compact_into(n_out: int, dest: torch.Tensor, src: torch.Tensor,
 # tile (bucket) building
 # --------------------------------------------------------------------------
 
-def sort_permute(cfg: SimConfig, model, num_tiles: int):
+def sort_permute(cfg: SimConfig, model, num_tiles: int, region_fn=None):
     """Full rebucket: group slots into block-aligned, oct-group-padded tiles
     and move the whole particle state into the new layout.
 
     Level 1 of the padding tile-aligns block boundaries, level 2 aligns
     home-oct boundaries to groups of ``group_tiles`` tiles.  Particles that
     do not fit the slot capacity are counted in ``dropped``.
+
+    ``region_fn``: a bool predicate over flat block keys.  Slots whose home
+    block satisfies it sort first (keys ascending within each region): the
+    multi-device engine makes its halo-boundary tiles a prefix this way, so
+    the transfer can run them, ship the halo, then run the rest.  The
+    interior's offset ``G^3 + 8`` is a multiple of 8, so oct grouping
+    (key >> 3) survives it.
 
     Returns (permuted model, tile_keys i32[T], dropped i32[1]).
     """
@@ -110,8 +117,18 @@ def sort_permute(cfg: SimConfig, model, num_tiles: int):
 
     key = flatten_key(cfg, home_block(cfg, model.pos))
     key = torch.where(model.active, key, torch.full_like(key, n3)).to(torch.int32)
-    skey, perm = torch.sort(key, stable=True)
-    act_s = skey < n3
+    if region_fn is None:
+        sort_src, sentinel = key, n3
+    else:
+        off = n3 + 8
+        sentinel = 2 * off
+        if sentinel >= 1 << 30:
+            raise ValueError("domain too large for region packing")
+        interior = ~region_fn(torch.clamp(key, max=n3 - 1))
+        sort_src = torch.where(key < n3, key + interior.to(torch.int32) * off,
+                               torch.full_like(key, sentinel))
+    skey, perm = torch.sort(sort_src, stable=True)
+    act_s = skey < sentinel
 
     skey64 = skey.long()
     iota = torch.arange(s_cap, dtype=torch.int64, device=dev)
@@ -147,7 +164,9 @@ def sort_permute(cfg: SimConfig, model, num_tiles: int):
     pos = place(model.pos)
     fields = {k: place(v) for k, v in model.fields.items()}
     pid = place(model.pid, s_cap)
-    tile_keys = torch.where(active, skey[src], n3)[::tile].contiguous()
+    # each tile's block key: the sort key less the region offset
+    tkey = skey if region_fn is None else key[perm]
+    tile_keys = torch.where(active, tkey[src], n3)[::tile].contiguous()
 
     new_model = type(model)(pos=pos, fields=fields, active=active, pid=pid,
                             tiles=model.tiles)
@@ -346,12 +365,14 @@ def rebuild(
     pool: torch.Tensor,
     partition: Partition,
     model_block_keys: Tuple[torch.Tensor, ...],
+    extra_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[Partition, torch.Tensor]:
     """Recompute the active OCT set, compact it, and remap the grid pool.
 
     Active blocks: blocks holding grid mass, union the {0,1}^3-dilated
-    particle home blocks; coarsened to octs and compacted in ascending oct
-    key order.  Returns (new_partition, remapped_pool)."""
+    particle home blocks, union ``extra_mask`` (bool[G^3], the blocks a
+    neighbour shard sent mass into); coarsened to octs and compacted in
+    ascending oct key order.  Returns (new_partition, remapped_pool)."""
     g = cfg.grid_size
     n3 = g * g * g
     no = cfg.num_oct_keys
@@ -366,6 +387,8 @@ def rebuild(
     mask = _mark(n3, torch.where(sel, bkeys, torch.full_like(bkeys, n3)), dev)
 
     mask = mask | particle_blocks(cfg, model_block_keys, dev)
+    if extra_mask is not None:
+        mask = mask | extra_mask.reshape(-1)
 
     # coarsen to octs: z is the low bits of the block key, so consecutive
     # groups of 8 block keys form one oct

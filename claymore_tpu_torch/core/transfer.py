@@ -13,7 +13,7 @@ CPU tensors.  ``rasterize_model`` is the initial P2G (init only).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +102,15 @@ def _tile_nb_slots(cfg: SimConfig, table, tiles):
                        torch.full_like(nb_slot, cfg.null_block))
 
 
+def empty_like_model(model: ParticleModel) -> ParticleModel:
+    """Uninitialised particle tensors shaped like ``model``'s (its tiles):
+    the outputs a transfer writes."""
+    return ParticleModel(pos=torch.empty_like(model.pos),
+                         fields={k: torch.empty_like(v) for k, v in model.fields.items()},
+                         active=torch.empty_like(model.active),
+                         pid=torch.empty_like(model.pid), tiles=model.tiles)
+
+
 def g2p2g_model(
     cfg: SimConfig,
     material: Material,
@@ -112,29 +121,40 @@ def g2p2g_model(
     next_dt: torch.Tensor,
     next_pool: torch.Tensor,
     tile_chunk: int = 32,
+    tile_range: Optional[Tuple[int, int]] = None,
+    out: Optional[ParticleModel] = None,
 ) -> Tuple[ParticleModel, torch.Tensor]:
     """One material's fused grid->particle->grid transfer.
 
     ``pool_v`` holds (m, vx, vy, vz) after the grid update; ``next_pool``
     accumulates (m, mx, my, mz) for the next step IN PLACE and is returned
-    with its null row zeroed.  Particle outputs are new tensors."""
+    with its null row zeroed.  Particle outputs are new tensors, or those
+    of ``out`` (a model shaped like ``model``), written in place.
+
+    ``tile_range`` (lo, hi), multiples of ``tile_chunk``: transfer only the
+    tiles in [lo, hi) and write only their slots of the outputs; the
+    multi-device engine runs [0, bt) and [bt, T) into the same outputs."""
     tm = model.tiles
     num_tiles = tm.block.shape[0]
     tile = cfg.particle_tile
     if num_tiles % tile_chunk:
         raise ValueError(f"{num_tiles} tiles do not split into chunks of {tile_chunk}")
-    nchunks = num_tiles // tile_chunk
+    lo, hi = (0, num_tiles) if tile_range is None else tile_range
+    if lo % tile_chunk or hi % tile_chunk or not 0 <= lo <= hi <= num_tiles:
+        raise ValueError(f"tile range {tile_range} of {num_tiles} tiles is not in "
+                         f"whole chunks of {tile_chunk}")
     ct = tile_chunk
     cs = ct * tile
     d_inv = torch.tensor(cfg.d_inv, dtype=pool_v.dtype, device=pool_v.device)
     mass = material.mass
     cells = cfg.arena_cells
+    s_cap = model.pos.shape[1]
+    if out is None:
+        out = empty_like_model(model)
 
     nb_slot_all = _tile_nb_slots(cfg, table, tm)
 
-    pos_out, ok_out = [], []
-    fields_out = {k: [] for k in model.fields}
-    for ci in range(nchunks):
+    for ci in range(lo // ct, hi // ct):
         sl = slice(ci * cs, (ci + 1) * cs)
         pos = model.pos[:, sl].reshape(3, ct, tile)
         valid = model.active[sl].reshape(ct, tile)
@@ -205,20 +225,16 @@ def g2p2g_model(
         octpool.scatter_add_block_rows(
             cfg, next_pool, nb_slot.reshape(-1),
             blocks.reshape(ct * cfg.arena_span ** 3, 4, cfg.block_volume))
-        pos_out.append(new_pos.reshape(3, -1))
-        ok_out.append(ok.reshape(-1))
+        out.pos[:, sl] = new_pos.reshape(3, -1)
+        ok = ok.reshape(-1)
+        out.active[sl] = ok
+        out.pid[sl] = torch.where(ok, model.pid[sl], torch.full_like(model.pid[sl], s_cap))
         for k, v in new_fields.items():
-            fields_out[k].append(v)
+            out.fields[k][..., sl] = v
 
     next_pool[cfg.null_oct] = 0.0
-    active_out = torch.cat(ok_out)
-    s_cap = model.pos.shape[1]
-    pid_out = torch.where(active_out, model.pid, torch.full_like(model.pid, s_cap))
-    new_model = ParticleModel(
-        pos=torch.cat(pos_out, dim=1),
-        fields={k: torch.cat(v, dim=-1) for k, v in fields_out.items()},
-        active=active_out, pid=pid_out, tiles=tm)
-    return new_model, next_pool
+    return ParticleModel(pos=out.pos, fields=out.fields, active=out.active,
+                         pid=out.pid, tiles=tm), next_pool
 
 
 def rasterize_model(

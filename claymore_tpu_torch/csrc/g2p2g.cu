@@ -173,7 +173,7 @@ struct Params {
   float* next_pool;
   unsigned int* margin_key;     // u32[2]: key, finished blocks; zeroed by the wrapper
   float* margin_out;            // f32[]
-  int num_tiles, tile, g, gzo, num_oct_keys, null_oct;
+  int num_tiles, tile_lo, tile_hi, tile, g, gzo, num_oct_keys, null_oct;
   float dx, dx_inv, d_inv, mass;
   float mp[kMaxParams];         // the material's constants (ops/g2p2g_kernel.py)
 };
@@ -1027,8 +1027,9 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
   const float next_dt = *p.next_dt_ptr;
   uint32_t kmax = 0u;
 
-  // prologue: the first tile's stage, neighbours and velocities
-  int t = blockIdx.x;
+  // prologue: the first tile's stage, neighbours and velocities; the blocks
+  // walk the tiles of [tile_lo, tile_hi) only
+  int t = p.tile_lo + blockIdx.x;
   if (tid == 0) load_stage<M>(p, t, n, S, smem + lay.stage, &bar[0]);
   for (int k = tid; k < kNb; k += kThreads) nb[k] = neighbour<Ar>(p, t, k);
   __syncthreads();
@@ -1037,7 +1038,7 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 
-  for (int it = 0; t < p.num_tiles; ++it, t += gridDim.x) {
+  for (int it = 0; t < p.tile_hi; ++it, t += gridDim.x) {
     const int s = it & 1;
     unsigned char* st = smem + lay.stage + s * lay.stage_stride;
     float* sw = reinterpret_cast<float*>(st);
@@ -1049,7 +1050,7 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
     // the next tile streams into the other stage while this one computes;
     // the end-of-iteration barrier freed that stage and its neighbour list
     const int tn = t + gridDim.x;
-    const bool next = tn < p.num_tiles;
+    const bool next = tn < p.tile_hi;
     if (next) {
       if (tid == 0)
         load_stage<M>(p, tn, n, S, smem + lay.stage + (s ^ 1) * lay.stage_stride,
@@ -1189,11 +1190,12 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
            const float* dt, const float* next_dt, float* pos_out,
            float* F_out, float* aux_out, unsigned char* active_out,
            int* pid_out, float* next_pool, unsigned int* margin_key,
-           float* margin_out, int num_tiles, int tile, int g,
-           int gzo, int num_oct_keys, int null_oct, float dx, float dx_inv,
+           float* margin_out, int num_tiles, int tile_lo, int tile_hi, int tile,
+           int g, int gzo, int num_oct_keys, int null_oct, float dx, float dx_inv,
            float d_inv, float mass, const float* mp, int num_mp,
            void* stream) {
-  if (num_tiles <= 0 || tile < kMinTile || tile > kMaxTile || (tile & (tile - 1))
+  if (num_tiles <= 0 || tile_lo < 0 || tile_hi <= tile_lo || tile_hi > num_tiles
+      || tile < kMinTile || tile > kMaxTile || (tile & (tile - 1))
       || num_mp < 0 || num_mp > kMaxParams)
     return (int)cudaErrorInvalidValue;
   if ((M::kF && (F == nullptr || F_out == nullptr)) ||
@@ -1208,10 +1210,11 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Params p{pool_v, table, bcoord, tvalid, pos, F, aux, active, pid, dt,
            next_dt, pos_out, F_out, aux_out, active_out, pid_out, next_pool,
-           margin_key, margin_out, num_tiles, tile, g, gzo, num_oct_keys, null_oct,
-           dx, dx_inv, d_inv, mass, {}};
+           margin_key, margin_out, num_tiles, tile_lo, tile_hi, tile, g, gzo, num_oct_keys,
+           null_oct, dx, dx_inv, d_inv, mass, {}};
   for (int i = 0; i < num_mp; ++i) p.mp[i] = mp[i];
-  const int blocks = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;
+  const int range = tile_hi - tile_lo;
+  const int blocks = range < sms * per_sm ? range : sms * per_sm;
   g2p2g_kernel<M, A><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1236,7 +1239,8 @@ int info_span(int span, int tile, int* out) {
 
 // one C entry per material, all with the same arguments; F/aux and their
 // outputs are null where the material has no such field; ``span`` is the
-// arena span, 2 or 4
+// arena span, 2 or 4; only the tiles of [tile_lo, tile_hi) are transferred
+// and only their slots of the outputs written
 #define CM_G2P2G_ENTRY(NAME, MAT)                                              \
   extern "C" int NAME(                                                         \
       const float* pool_v, const int* table, const int* bcoord,                \
@@ -1245,21 +1249,23 @@ int info_span(int span, int tile, int* out) {
       const float* dt, const float* next_dt, float* pos_out, float* F_out,     \
       float* aux_out, unsigned char* active_out, int* pid_out,                 \
       float* next_pool, unsigned int* margin_key, float* margin_out,           \
-      int num_tiles, int tile, int span, int g, int gzo,                       \
-      int num_oct_keys, int null_oct, float dx, float dx_inv, float d_inv,     \
-      float mass, const float* mp, int num_mp, void* stream) {                 \
+      int num_tiles, int tile_lo, int tile_hi, int tile, int span, int g,      \
+      int gzo, int num_oct_keys, int null_oct, float dx, float dx_inv,         \
+      float d_inv, float mass, const float* mp, int num_mp, void* stream) {    \
     if (span == 2)                                                             \
       return launch<MAT, Span2>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
-                                margin_key, margin_out, num_tiles, tile, g,    \
+                                margin_key, margin_out, num_tiles, tile_lo,    \
+                                tile_hi, tile, g,                              \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     if (span == 4)                                                             \
       return launch<MAT, Span4>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
-                                margin_key, margin_out, num_tiles, tile, g,    \
+                                margin_key, margin_out, num_tiles, tile_lo,    \
+                                tile_hi, tile, g,                              \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     return (int)cudaErrorInvalidValue;                                         \

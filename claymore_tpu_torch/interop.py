@@ -2,7 +2,9 @@
 
 The JAX side is reached only through plain data: ``dataclasses.asdict`` of
 its config and materials, and its ``SimState`` as nested tuples of numpy
-arrays (``jax.tree.map(np.asarray, state)``).  Nothing here imports JAX.
+arrays (``jax.tree.map(np.asarray, state)``).  A multi-device state is the
+JAX package's stacked one there and a tuple of shard states here
+(``shards_to_numpy``/``shards_from_numpy``).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -140,3 +142,67 @@ def state_to_numpy(state: SimState) -> SimStateNP:
         models=models, dt=n(state.dt), max_vel=n(state.max_vel), t=n(state.t),
         step=n(state.step), mig_dropped=n(state.mig_dropped),
         halo_overflow=n(state.halo_overflow))
+
+
+# --------------------------------------------------------------------------
+# multi-device states: the JAX package stacks its shards along the slot and
+# row axes (``MultiChipEngine._out_state_spec``); the port keeps a tuple of
+# per-shard states
+# --------------------------------------------------------------------------
+
+def _map_state(fn, states, scalar):
+    """A SimState whose every tensor is ``fn`` of the matching tensors of
+    ``states``: ``fn(xs, axis)`` with the axis shards stack along (0 for the
+    grid, the last axis elsewhere); 0-d leaves take ``scalar(xs)``."""
+    def leaf(xs, axis=-1):
+        return scalar(xs) if xs[0].dim() == 0 else fn(xs, axis)
+
+    models = []
+    for ms in zip(*(s.models for s in states)):
+        models.append(ParticleModel(
+            pos=leaf([m.pos for m in ms]),
+            fields={k: leaf([m.fields[k] for m in ms]) for k in ms[0].fields},
+            active=leaf([m.active for m in ms]), pid=leaf([m.pid for m in ms]),
+            tiles=TileMap(*(leaf([getattr(m.tiles, f.name) for m in ms])
+                            for f in dataclasses.fields(TileMap)))))
+    return SimState(
+        grid=leaf([s.grid for s in states], 0),
+        partition=Partition(*(leaf([getattr(s.partition, f.name) for s in states])
+                              for f in dataclasses.fields(Partition))),
+        models=tuple(models),
+        **{k: leaf([getattr(s, k) for s in states])
+           for k in ("dt", "max_vel", "t", "step", "mig_dropped", "halo_overflow")})
+
+
+def stack_shards(states) -> SimState:
+    """A tuple of shard states -> one state in the JAX package's stacked
+    multi-device layout, on the CPU: shard i's slots, tiles, pool rows and
+    table entries follow shard i-1's; the scalars are shard 0's."""
+    return _map_state(lambda xs, axis: torch.cat([x.cpu() for x in xs], dim=axis),
+                      states, lambda xs: xs[0].cpu())
+
+
+def split_shards(state: SimState, devices) -> tuple:
+    """``stack_shards``'s inverse: shard i of a stacked state on
+    ``devices[i]``."""
+    n = len(devices)
+
+    def part(i):
+        def cut(xs, axis):
+            return xs[0].chunk(n, dim=axis)[i].contiguous().to(devices[i])
+
+        return _map_state(cut, (state,), lambda xs: xs[0].to(devices[i]))
+
+    return tuple(part(i) for i in range(n))
+
+
+def shards_to_numpy(states) -> SimStateNP:
+    """A tuple of shard states -> the JAX package's stacked multi-device
+    state as nested namedtuples of numpy arrays."""
+    return state_to_numpy(stack_shards(states))
+
+
+def shards_from_numpy(tree, devices) -> tuple:
+    """The JAX package's stacked multi-device state (numpy arrays) -> a
+    tuple of shard states, shard i on ``devices[i]``."""
+    return split_shards(state_from_numpy(tree, "cpu"), devices)

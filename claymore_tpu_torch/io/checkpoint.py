@@ -7,7 +7,10 @@ comma-joined) and ``leaf_{i}``, the state's arrays in the leaf order of
 ``jax.tree_util.tree_flatten`` of its ``SimState``.  Its state types are
 NamedTuples, so that order is field order with dict keys sorted; ``leaves``
 spells it out.  A JAX checkpoint resumes here and the reverse, bit for bit.
-``save_frame_bgeo``/``flush_io`` dump per-model ``.bgeo`` frames.
+A multi-device state (a tuple of shard states) is saved in the JAX
+package's stacked layout (``interop.stack_shards``), so its checkpoints of
+the same mesh resume here too.  ``save_frame_bgeo``/``flush_io`` dump
+per-model ``.bgeo`` frames.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.types import Partition, ParticleModel, SimState, TileMap
+from ..interop import split_shards, stack_shards
 from ..utils.debug import to_numpy
 from . import async_io, bgeo
 
@@ -57,7 +61,9 @@ def _unflatten(like: SimState, it: Iterator[torch.Tensor]) -> SimState:
 
 
 def save_state(path: str, state: SimState) -> None:
-    """Write ``state`` to one ``.npz`` file."""
+    """Write ``state`` (or a tuple of shard states) to one ``.npz`` file."""
+    if isinstance(state, tuple):
+        state = stack_shards(state)
     arrays = {f"leaf_{i}": to_numpy(x) for i, x in enumerate(leaves(state))}
     field_names = [",".join(sorted(m.fields)) for m in state.models]
     np.savez_compressed(
@@ -72,7 +78,11 @@ def save_state(path: str, state: SimState) -> None:
 def load_state(path: str, like: SimState) -> SimState:
     """Read a state written by ``save_state`` (either package's).  ``like``
     (``engine.init_state`` of the same scene) gives the structure, the
-    device and the dtypes; every shape must match it."""
+    device and the dtypes; every shape must match it.  A tuple ``like``
+    reads a multi-device checkpoint into shards on its shards' devices."""
+    if isinstance(like, tuple):
+        stacked = load_state(path, stack_shards(like))
+        return split_shards(stacked, [s.grid.device for s in like])
     with np.load(path, allow_pickle=False) as data:
         version = int(data["__version__"])
         if version != _FORMAT_VERSION:

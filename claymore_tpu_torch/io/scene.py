@@ -24,10 +24,12 @@ ignored, as in the JAX package); an ``sdf_file`` collider reads the
 reference's raw asset (``"prefix"``, ``"resolution"``, ``"dx"`` defaulting
 to the grid's, ``"bound_cells"``).  Collider paths are taken as given
 (relative to the working directory), model files relative to the scene
-file, as in the JAX package.  Refused with ``NotImplementedError``: a
-``device`` block asking for several devices (ROADMAP Queue 1, multiple
-devices).  ``device.use_pallas`` steers the TPU kernels
-and is ignored.  The device the engine runs on is the caller's.
+file, as in the JAX package.  A ``device`` block asking for several
+devices (``n_devices``, or ``mesh_shape`` such as ``[2, 2]`` for the (x, z)
+box split, with ``halo_margin``, ``migration_capacity``, ``halo_capacity``)
+builds a ``parallel.MultiChipEngine``.  ``device.use_pallas`` steers the
+TPU kernels and is ignored.  The devices the engine runs on are the
+caller's: one device (every shard on it) or one per shard.
 """
 
 from __future__ import annotations
@@ -114,17 +116,11 @@ def _model_positions(model: Dict[str, Any], cfg: SimConfig,
 
 
 def load_scene(path: str, device, tile_chunk: int = 32) -> Scene:
-    """Parse a scene file and build an engine on ``device`` and its
-    initial state."""
+    """Parse a scene file and build an engine on ``device`` (a device, or
+    one per shard of a multi-device scene) and its initial state."""
     with open(path) as f:
         doc = json.load(f)
     base_dir = os.path.dirname(os.path.abspath(path))
-
-    dev = doc.get("device", {})
-    if dev.get("n_devices", 1) > 1 or dev.get("mesh_shape"):
-        raise NotImplementedError(
-            "multi-device scenes are not ported yet (ROADMAP Queue 1: multiple "
-            "devices)")
 
     sim = doc.get("simulation", {})
     grid = doc.get("grid", {})
@@ -148,7 +144,23 @@ def load_scene(path: str, device, tile_chunk: int = 32) -> Scene:
         velocities.append(tuple(model.get("velocity", (0.0, 0.0, 0.0))))
 
     colliders = [_build_collider(c, cfg) for c in doc.get("colliders", [])]
-    engine = MPMEngine(cfg, materials, colliders=colliders,
-                       tile_chunk=tile_chunk, device=device)
+    dev = doc.get("device", {})
+    mesh_shape = dev.get("mesh_shape")
+    if dev.get("n_devices", 1) > 1 or mesh_shape:
+        from ..parallel.multi import MultiChipEngine
+
+        engine = MultiChipEngine(
+            cfg, materials, n_devices=dev.get("n_devices"), mesh_shape=mesh_shape,
+            device=device, halo_margin=dev.get("halo_margin"),
+            migration_capacity=dev.get("migration_capacity", 2048),
+            halo_capacity=dev.get("halo_capacity"), colliders=colliders,
+            tile_chunk=tile_chunk)
+    else:
+        if isinstance(device, (list, tuple)):
+            if len(device) != 1:
+                raise ValueError(f"a one-device scene takes one device, got {len(device)}")
+            device = device[0]
+        engine = MPMEngine(cfg, materials, colliders=colliders,
+                           tile_chunk=tile_chunk, device=device)
     state = engine.init_state(positions, velocities)
     return Scene(cfg, engine, state, frames, materials, positions)

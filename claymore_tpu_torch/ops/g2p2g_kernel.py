@@ -15,9 +15,10 @@ misaligned tensor raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -71,16 +72,31 @@ def g2p2g(
     next_dt: torch.Tensor,
     next_pool: torch.Tensor,
     tile_chunk: int = 32,
+    tile_range: Optional[Tuple[int, int]] = None,
+    out: Optional[ParticleModel] = None,
 ) -> Tuple[ParticleModel, torch.Tensor, torch.Tensor]:
     """One material's transfer.  ``next_pool`` accumulates (m, mx, my, mz) in
     place and comes back with its null row zeroed; the particle state comes
-    back in new tensors (``tile_chunk`` only shapes the plain version).
+    back in new tensors, or in ``out``'s (a model shaped like ``model``),
+    written in place (``tile_chunk`` only shapes the plain version).
     Returns (model, next_pool, margin): ``margin`` is the 0-d drift margin
-    of the new model, ``arena_margin(cfg, model)``."""
+    of the new model, ``arena_margin(cfg, model)``.
+
+    ``tile_range`` (lo, hi): transfer the tiles of [lo, hi) only, writing
+    only their slots; ``margin`` is then that of those tiles (+inf for an
+    empty range, which launches nothing).  Two calls on [0, bt) and
+    [bt, T) into one ``out`` give what one call gives, margin the minimum of
+    theirs."""
+    lo, hi = (0, model.tiles.tvalid.shape[0]) if tile_range is None else tile_range
+    if out is None:
+        out = transfer.empty_like_model(model)
+    if lo == hi:
+        inf = torch.full((), torch.inf, dtype=torch.float32, device=pool_v.device)
+        return dataclasses.replace(out, tiles=model.tiles), next_pool, inf
     if not pool_v.is_cuda:
         new, pool = transfer.g2p2g_model(cfg, material, pool_v, table, model, dt,
-                                         next_dt, next_pool, tile_chunk)
-        return new, pool, partition.arena_margin(cfg, new)
+                                         next_dt, next_pool, tile_chunk, (lo, hi), out)
+        return new, pool, partition.arena_margin(cfg, slice_tiles(cfg, new, lo, hi))
     if type(material) not in _LAYOUT:
         raise NotImplementedError(
             f"no CUDA transfer kernel for {type(material).__name__}")
@@ -94,7 +110,21 @@ def g2p2g(
             f"{cfg.arena_span} needs {info['smem_bytes']} bytes of shared memory a "
             f"block at particle_tile {cfg.particle_tile}, more than the card has; "
             f"use a smaller particle_tile")
-    return _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool)
+    with torch.cuda.device(pool_v.device):   # the kernel runs on the current device
+        return _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
+                       out)
+
+
+def slice_tiles(cfg: SimConfig, model: ParticleModel, lo: int, hi: int) -> ParticleModel:
+    """A view of the tiles [lo, hi) of ``model`` (its slots sliced in tile
+    units): the JAX package's ``_slice_tiles``."""
+    a, b = lo * cfg.particle_tile, hi * cfg.particle_tile
+    tm = model.tiles
+    tiles = dataclasses.replace(tm, block=tm.block[lo:hi], bcoord=tm.bcoord[:, lo:hi],
+                                tvalid=tm.tvalid[lo:hi])
+    return ParticleModel(pos=model.pos[:, a:b],
+                         fields={k: v[..., a:b] for k, v in model.fields.items()},
+                         active=model.active[a:b], pid=model.pid[a:b], tiles=tiles)
 
 
 def variant_name(material: Material, span: int) -> str:
@@ -104,7 +134,7 @@ def variant_name(material: Material, span: int) -> str:
     return name if span == 2 else f"{name}_span{span}"
 
 
-def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
+def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi, out):
     from . import _build
 
     name, f_name, aux_name, _ = _LAYOUT[type(material)]
@@ -131,19 +161,23 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
         _expect(model.fields[f_name], torch.float32, (9, s_cap), dev, f_name)
     if aux_name:
         _expect(model.fields[aux_name], torch.float32, (s_cap,), dev, aux_name)
+    for key, x in (("pos", out.pos), ("active", out.active), ("pid", out.pid),
+                   *out.fields.items()):
+        ref = model.fields[key] if key in model.fields else getattr(model, key)
+        _expect(x, ref.dtype, tuple(ref.shape), dev, "out." + key)
     # the kernel moves particle columns with 16-byte bulk copies
     for key, x in (("pos", model.pos), ("active", model.active), ("pid", model.pid),
-                   ("pool_v", pool_v), ("next_pool", next_pool), *model.fields.items()):
+                   ("pool_v", pool_v), ("next_pool", next_pool), *model.fields.items(),
+                   ("out.pos", out.pos), ("out.active", out.active), ("out.pid", out.pid),
+                   *(("out." + k, v) for k, v in out.fields.items())):
         if x.data_ptr() % 16:
             raise ValueError(f"{key} must be 16-byte aligned")
-    fields_out = {k: torch.empty_like(v) for k, v in model.fields.items()}
+    fields_out = out.fields
 
     def ptr(fields, key):
         return fields[key].data_ptr() if key else None
 
-    pos_out = torch.empty_like(model.pos)
-    active_out = torch.empty_like(model.active)
-    pid_out = torch.empty_like(model.pid)
+    pos_out, active_out, pid_out = out.pos, out.active, out.pid
     margin_key = torch.zeros((2,), dtype=torch.int32, device=dev)
     margin = torch.empty((), dtype=torch.float32, device=dev)
     mp = kernel_params(material)
@@ -157,7 +191,8 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool):
         ptr(fields_out, f_name), ptr(fields_out, aux_name),
         active_out.data_ptr(), pid_out.data_ptr(), next_pool.data_ptr(),
         margin_key.data_ptr(), margin.data_ptr(),
-        num_tiles, cfg.particle_tile, cfg.arena_span, cfg.grid_size, cfg.grid_size_zo,
+        num_tiles, lo, hi, cfg.particle_tile, cfg.arena_span, cfg.grid_size,
+        cfg.grid_size_zo,
         cfg.num_oct_keys, cfg.null_oct,
         cfg.dx, cfg.dx_inv, cfg.d_inv, material.mass, mp_arr, len(mp),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -143,6 +143,11 @@ def grid_update(
 
 def _launch(cfg: SimConfig, pool, keys, dt, table=None, t=None, sdf_pointers=None,
             n_sdf: int = 0, row_mask=None):
+    with torch.cuda.device(pool.device):     # the kernel runs on the current device
+        return _launch_on(cfg, pool, keys, dt, table, t, sdf_pointers, n_sdf, row_mask)
+
+
+def _launch_on(cfg: SimConfig, pool, keys, dt, table, t, sdf_pointers, n_sdf, row_mask):
     from . import _build
 
     o1 = cfg.max_active_octs + 1

@@ -248,6 +248,69 @@ def test_g2p2g_span4_engine_runs_on_the_kernel(card):
     assert 0.0 < margins[0] < 14.0
 
 
+@pytest.mark.parametrize("span", [2, 4])
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid"])
+def test_g2p2g_kernel_tile_range_matches_plain(card, name, span):
+    """K1 on [0, bt) then [bt, T) into one output (the multi-device
+    transfer split) against the plain version on the same ranges, at both
+    arena spans; its margin, the minimum of the two, is arena_margin of the
+    output bit for bit."""
+    if span == 4:
+        eng, state, _ = _span4_engine(name)
+    else:
+        eng, state, _ = _span4_engine(name, every=1)
+    cfg, mat = eng.cfg, eng.materials[0]
+    nt = state.models[0].tiles.tvalid.shape[0]
+    for bt in (8, 8 * (nt // 16), nt - 8):
+        card.check_g2p2g_kernel(cfg, mat, stir(state), tile_chunk=8, time_it=False,
+                                tile_split=bt)
+
+
+def _multi(mesh, device, overlap=True, **kw):
+    cfg = ct.SimConfig(domain_bits=6, max_active_blocks=1024, default_dt=5e-4,
+                       particle_tile=256, **kw)
+    mat = ct.FixedCorotated(volume=cfg.default_volume(), e=5e3, nu=0.4)
+    pos = sample_uniform_box_world(cfg.dx, [0.3, 0.4, 0.3], [0.7, 0.6, 0.7], cfg.ppc)
+    eng = ct.MultiChipEngine(cfg, [mat], mesh_shape=mesh, tile_chunk=8, device=device,
+                             migration_capacity=65536, overlap_halo=overlap)
+    return eng, eng.init_state([pos], [(6.0, -0.5, 4.0)]), pos
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4,)])
+def test_multi_engine_on_the_card_matches_the_cpu(card, mesh):
+    """Every shard on the card, overlap on and off: the kernels run (K2 once
+    per shard and substep), nothing is lost, and positions by pid and the
+    owner-counted mass agree with the same mesh on the CPU within 1e-5."""
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
+
+    steps = 12
+    runs = {}
+    for device, overlap in (("cuda", True), ("cuda", False), ("cpu", True)):
+        eng, st, pos = _multi(mesh, device, overlap, rebucket_auto=True)
+        before = (grid_kernel.grid_update.launches["grid_update"],
+                  g2p2g_kernel.g2p2g.launches["g2p2g_fixed_corotated"])
+        st = eng.run_steps(st, steps, 1.0)
+        d = eng.diagnostics(st)
+        assert d["model0_active"] == pos.shape[0]
+        assert d["migration_dropped"] == d["halo_overflow"] == d["block_overflow"] == 0
+        if device == "cuda":
+            assert grid_kernel.grid_update.launches["grid_update"] - before[0] == \
+                steps * eng.n_dev
+            assert g2p2g_kernel.g2p2g.launches["g2p2g_fixed_corotated"] - before[1] >= \
+                steps * eng.n_dev
+        n = pos.shape[0]
+        out = torch.full((3, n), float("nan"))
+        for x in st:
+            m = x.models[0]
+            out[:, m.pid[m.active].long().cpu()] = m.pos[:, m.active].cpu()
+        runs[(device, overlap)] = (out, d["grid_mass"], eng.rebuilds)
+    ref, mass, _ = runs[("cpu", True)]
+    for key, (out, m, rebuilds) in runs.items():
+        assert float((out - ref).abs().max()) < 1e-5, key
+        assert abs(m - mass) < 1e-5 * mass, key
+        assert rebuilds > 0
+
+
 def test_g2p2g_span4_refuses_a_tile_it_cannot_take(card):
     """At span 4 FixedCorotated's layout at tile 1024 does not fit a block's
     shared memory: the wrapper raises, and kernel_info says 0 blocks."""

@@ -13,6 +13,7 @@ from claymore_tpu.io import bgeo as jbgeo
 from claymore_tpu.io.scene import load_scene as jax_load_scene
 from claymore_tpu_torch.io import bgeo
 from claymore_tpu_torch.io.scene import load_scene
+from claymore_tpu_torch.parallel import MultiChipEngine
 from claymore_tpu_torch.utils.debug import pool_to_dense
 from claymore_tpu.utils.debug import pool_to_dense as jax_pool_to_dense
 
@@ -155,27 +156,37 @@ def test_load_scene_sdf_inputs_match_jax(tmp_path, change):
 
 @pytest.mark.parametrize("change", ["n_devices", "mesh_shape", "poisson"])
 def test_load_scene_refuses_unported(tmp_path, change):
-    """Several devices are refused.  ``"sampling": "poisson"`` is ported:
-    that case now loads the same particles as the JAX package (both thin
-    their candidates with the same weighted sample elimination)."""
+    """Nothing is refused any more.  Several devices build a
+    ``MultiChipEngine`` on the scene's mesh, every shard on the CPU, each
+    particle on the shard of its home block and none lost over a substep.
+    ``"sampling": "poisson"`` loads the same particles as the JAX package
+    (both thin their candidates with the same weighted sample
+    elimination)."""
     doc = _scene_doc(tmp_path)
-    if change == "n_devices":
-        doc["device"] = {"n_devices": 4}
-    elif change == "mesh_shape":
-        doc["device"] = {"mesh_shape": [2, 2]}
-    else:
-        _sdf_assets(tmp_path)
-        doc["models"][0] = {"constitutive": "jfluid", "file": "ball.sdf",
-                            "sampling": "poisson"}
+    if change in ("n_devices", "mesh_shape"):
+        doc["device"] = {"n_devices": 4} if change == "n_devices" else {"mesh_shape": [2, 2]}
         sc = load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
-        doc["device"] = {"use_pallas": False}
-        jsc = jax_load_scene(_write(tmp_path, doc, "jax.json"), tile_chunk=4)
-        for p, jp in zip(sc.positions, jsc.positions):
-            np.testing.assert_array_equal(p, jp)
-        assert sc.positions[0].shape[0] > 100
+        eng = sc.engine
+        assert isinstance(eng, MultiChipEngine)
+        assert eng.mesh_shape == ((4,) if change == "n_devices" else (2, 2))
+        for i, p in enumerate(sc.positions):
+            counts = np.bincount(eng.shard_of(p), minlength=4)
+            assert [int(st.models[i].active.sum()) for st in sc.state] == counts.tolist()
+        st = eng.run_steps(sc.state, 1, 1.0)
+        d = eng.diagnostics(st)
+        for i, p in enumerate(sc.positions):
+            assert d[f"model{i}_active"] == p.shape[0]
+        assert d["migration_dropped"] == d["halo_overflow"] == 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
+    _sdf_assets(tmp_path)
+    doc["models"][0] = {"constitutive": "jfluid", "file": "ball.sdf",
+                        "sampling": "poisson"}
+    sc = load_scene(_write(tmp_path, doc), device=CPU, tile_chunk=4)
+    doc["device"] = {"use_pallas": False}
+    jsc = jax_load_scene(_write(tmp_path, doc, "jax.json"), tile_chunk=4)
+    for p, jp in zip(sc.positions, jsc.positions):
+        np.testing.assert_array_equal(p, jp)
+    assert sc.positions[0].shape[0] > 100
 
 
 def test_bgeo_round_trip_with_jax_reader(tmp_path):
