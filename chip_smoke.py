@@ -36,7 +36,17 @@ against its plain twin), and drives the port's main paths through
   and ``DistGroup`` over NCCL where two cards are visible, and the 2x2
   sphere with one shard per card where four are (with fewer, a line says
   each did not run).  K1 is also held to its plain version on the tile ranges of
-  the boundary/interior split.
+  the boundary/interior split;
+* config 5, ``scenes/sphere_100m_8dev.json`` (``config5_paths``): its shard
+  (``prof_multichip --config5shard``, 12.5M particles, K1 held to its
+  plain version there), the 99.6M-particle scene on one device (its file
+  less the ``device`` block, through ``load_scene``) with every invariant,
+  its peak and the frame written by the native and the numpy writers,
+  sync and async; the scene on its 4x2 mesh with every shard on the card,
+  held to the one-device run by pid over every particle, with K1 held to
+  its plain version on its fullest shard; and the CLI on
+  the one-device file for one frame, both frames through the native
+  writer and read back.
 
 It also holds the probes P1-P6 (the kernels of the profiling scripts)
 against their plain versions at the TPU scripts' inputs and drives the
@@ -73,10 +83,15 @@ from claymore_tpu_torch.utils.bounds import bound, dma_bound, g2p2g_bound, grid_
 SEED = 0
 DEVICE = "cuda"
 SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
+PEAK_BOUND = 80e9         # bytes of device memory a path may peak at: one card
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def gpu_facts() -> str:
@@ -180,8 +195,9 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                        time_plain: bool = True, plain_reps: int = 0,
                        tile_split: int = None) -> dict:
     """K1 (the variant of ``mat``) against core.transfer.g2p2g_model on the
-    card, from one grid update of ``state``: dense grids within 1e-5 x the
-    largest grid value (float atomics reorder the sums), identical active
+    card, from one grid update of ``state``: the grids (the pools' live
+    rows) within 1e-5 x the largest grid value (float atomics reorder the
+    sums), identical active
     sets, positions of the same particle within 2e-6, and every field (F,
     J, logJp) within 1e-5 x max(1, its largest value), but for the few
     NACC particles its discontinuous return map sends to another branch
@@ -195,7 +211,6 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     minimum of the two."""
     from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
-    from claymore_tpu_torch.utils.debug import pool_to_dense
 
     pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
     next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt,
@@ -257,10 +272,12 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                 f"g2p2g kernel: field {k} err {field_err[k]} (scale {scale}); "
                 f"{flipped[k]} of {n_act} particles over 1e-5 x scale; worst "
                 f"kernel {a[..., worst].tolist()} plain {b[..., worst].tolist()}")
-    dk = pool_to_dense(cfg, dataclasses.replace(state, grid=pk))
-    dp = pool_to_dense(cfg, dataclasses.replace(state, grid=pt))
-    grid_err = max(float(np.abs(a - b).max()) for a, b in zip(dk, dp))
-    grid_max = max(float(np.abs(b).max()) for b in dp)
+    # both pools hold the rows of one partition, so its live rows, compared
+    # row for row, are the dense grids' cells (pool_to_dense would make
+    # 34 GB of dense float64 at domain_bits 10)
+    count = int(state.partition.count[0])
+    grid_err = float((pk[:count].double() - pt[:count].double()).abs().max())
+    grid_max = float(pt[:count].abs().max())
     if float(pk[cfg.null_oct].abs().sum()) != 0.0:
         raise AssertionError("g2p2g kernel: null row not zero")
     if not (pos_err <= 2e-6 and grid_err <= 1e-5 * grid_max):
@@ -334,17 +351,19 @@ def k1_order_sensitivity(cfg, mat, state, as_is: dict, facts: str) -> dict:
     return {"ms": times, "ratio": ratio}
 
 
-def check_fused_margin(eng, state) -> list:
+def check_fused_margin(eng, state, shard: int = None) -> list:
     """One grid update and every model's K1 from ``state`` with ``eng``'s
     materials and colliders (not counted): each margin K1 returns equal,
-    bit for bit, to ``arena_margin`` of its output.  Returns the margins."""
+    bit for bit, to ``arena_margin`` of its output.  Returns the margins.
+    ``shard``: ``state`` is that shard's state of a ``MultiChipEngine``."""
     from claymore_tpu_torch.core import grid, partition
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     cfg = eng.cfg
+    tables = ((eng._collider_table, eng._sdf_pointers) if shard is None
+              else (eng._collider_tables[shard], eng._sdf_pointers[shard]))
     pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt,
-                                          eng.colliders, state.t, eng._collider_table,
-                                          eng._sdf_pointers)
+                                          eng.colliders, state.t, *tables)
     next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt, torch.tensor(1e9, device=DEVICE))
     acc = torch.zeros_like(state.grid)
     margins = []
@@ -770,7 +789,8 @@ def scene(name: str):
     """(cfg, materials, positions, velocities, colliders) of a bench.py
     scene, with the capacities bench.py gives it; sphere25m, dambreak12m,
     sand, nacc and cube are ``scripts/prof_k1.scene``'s, dambreak_hs and
-    dambreak_sdf ``scripts/prof_k2.scene``'s."""
+    dambreak_sdf ``scripts/prof_k2.scene``'s; ``config5_shard`` is
+    ``scripts/prof_multichip.config5_shard``'s (one shard of config 5)."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.io.sampler import sample_uniform_box_world
     from claymore_tpu_torch.scripts import prof_k1, prof_k2
@@ -780,6 +800,11 @@ def scene(name: str):
         return cfg, [mat], [pos], [v0], ()
     if name in ("dambreak_hs", "dambreak_sdf"):
         return prof_k2.scene(name)
+    if name == "config5_shard":
+        from claymore_tpu_torch.scripts import prof_multichip
+
+        cfg, mat, pos, v0 = prof_multichip.config5_shard()
+        return cfg, [mat], [pos], [v0], ()
     cfg = ct.SimConfig(domain_bits=8, max_active_blocks=8192, default_dt=1e-4,
                        rebucket_auto=True, particle_tile=512)
     box = sample_uniform_box_world
@@ -842,10 +867,10 @@ def grid_kernel_name(colliders) -> str:
 
 
 def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
-          on_step=None, strict: bool = True, **cfg_kw) -> dict:
+          on_step=None, strict: bool = True, warmup: int = 1, **cfg_kw) -> dict:
     """One main path: build the bench scene ``name`` (its configuration
-    with ``cfg_kw`` replaced), zero the launch counts, init, one warm-up
-    substep and ``steps`` timed substeps (each ended by a synchronise, so
+    with ``cfg_kw`` replaced), zero the launch counts, init, ``warmup``
+    warm-up substeps and ``steps`` timed substeps (each ended by a synchronise, so
     rebuilding substeps are timed apart), read the counts, and check the
     invariants and K1's fused margin on the final state
     (``check_fused_margin``).  Each timed rebuild is logged with its
@@ -875,12 +900,13 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
     n_probe = [min(4096, p.shape[0]) for p in parts]
     p0 = [probe(state, n_probe[i], i) for i in range(len(mats))]
     fe = np.float32(1e9)
-    state = eng.substep(state, fe)
+    for _ in range(warmup):
+        state = eng.substep(state, fe)
     torch.cuda.synchronize()
     plain_ms, rebuild_ms, rebuild_log, peak = [], [], [], 0
     for i in range(steps):
         before = eng.rebuilds
-        step = 1 + i
+        step = warmup + i
         t0 = time.perf_counter()
         state = eng.substep(state, fe)
         torch.cuda.synchronize()
@@ -897,7 +923,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
             on_step(i, eng, state)
             torch.cuda.reset_peak_memory_stats()
     launches = read_counts()
-    substeps = 1 + steps
+    substeps = warmup + steps
     peak_gib = max(peak, torch.cuda.max_memory_allocated()) / 2**30
 
     d = eng.diagnostics(state)
@@ -922,6 +948,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "steps": d["step"] == substeps,
         "deferred": all(max(r["deferred"]) == 0 for r in rebuild_log),
         "rebuild_kind": all((r["kind"] == "full") == r["full"] for r in rebuild_log),
+        "peak": peak_gib * 2**30 < PEAK_BOUND,
     }
     total_ms = sum(plain_ms) + sum(rebuild_ms)
     full = [r["ms"] for r in rebuild_log if r["full"]]
@@ -1172,7 +1199,8 @@ def log_k1(label: str, k1: dict, facts: str) -> None:
         f"{k1['grid_max']:.3e}), pos {k1['pos_err']:.3e}, fields "
         f"{ {k: float(f'{v:.3e}') for k, v in k1['field_err'].items()} } "
         f"(particles over 1e-5 x scale: {k1['flipped']} of {k1['active']}), "
-        f"kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, margin "
+        f"kernel {k1['ms']:.4f} ms, plain "
+        + (f"{k1['plain_ms']:.4f} ms" if "plain_ms" in k1 else "not timed") + ", margin "
         f"{k1['margin']!r} == arena_margin, {k1['registers']} registers, "
         f"{k1['blocks_per_sm']} blocks/SM | {facts}")
 
@@ -1488,10 +1516,12 @@ def single_reference(name: str, steps: int, facts: str, slack: float = None) -> 
 
 
 def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool = True,
-              label: str = "", slack: float = None) -> dict:
+              label: str = "", slack: float = None, make=None) -> dict:
     """MultiChipEngine on the bench scene ``name``, every shard on the card,
     ``steps`` substeps from init with the launch counts zeroed before the
-    init and read after the last substep.  Each substep's stages are timed
+    init and read after the last substep.  ``make()``, when given, builds
+    the engine and its initial state in place of the bench scene: it
+    returns (engine, state, positions per model).  Each substep's stages are timed
     with CUDA events recorded where ``substep_impl`` calls ``on_stage``
     (on the main stream), and the halo exchange from its start on the main
     stream to the end of the last shard's side-stream work.  Held to the
@@ -1499,24 +1529,29 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     and momentum (each block on its owner) within MULTI_BOUND relative,
     positions of every particle, paired by pid, within MULTI_BOUND (and of
     pids 0..4095, logged apart); nothing overflows, drops
-    or is lost, and particles move."""
+    or is lost, particles move, and the peak stays under PEAK_BOUND."""
     import claymore_tpu_torch as ct
     from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
 
-    cfg, mats, parts, v0s, cols = scene(name)
-    n = parts[0].shape[0]
-    if slack is None:
-        slack = 2.5 if name == "dambreak12m" else 1.5      # the column spreads (bench.py)
-    eng = ct.MultiChipEngine(cfg, mats, mesh_shape=mesh, device=DEVICE, tile_chunk=64,
-                             migration_capacity=MIG_CAP, overlap_halo=overlap,
-                             colliders=cols, particle_capacity_factor=slack)
-    comm = eng.comm
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
-    state = eng.init_state(parts, v0s)
+    if make is None:
+        cfg, mats, parts, v0s, cols = scene(name)
+        if slack is None:
+            slack = 2.5 if name == "dambreak12m" else 1.5      # the column spreads (bench.py)
+        eng = ct.MultiChipEngine(cfg, mats, mesh_shape=mesh, device=DEVICE, tile_chunk=64,
+                                 migration_capacity=MIG_CAP, overlap_halo=overlap,
+                                 colliders=cols, particle_capacity_factor=slack)
+        t0 = time.perf_counter()
+        state = eng.init_state(parts, v0s)
+    else:
+        t0 = time.perf_counter()
+        eng, state, parts = make()
+        cfg, mats = eng.cfg, eng.materials
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    n = parts[0].shape[0]
+    comm = eng.comm
     p0 = positions_all(state, n)
     shard0 = torch.from_numpy(eng.shard_of(parts[0])).to(DEVICE)
     exchange_events, stage_events = [], []
@@ -1604,6 +1639,7 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         "positions": pos_err < MULTI_BOUND and pos_err_all < MULTI_BOUND,
         "moves": disp > 0.0,
         "launches": used["grid_update"] == steps * nd and used[k1] >= steps * nd,
+        "peak": peak_gib * 2**30 < PEAK_BOUND,
     }
     out = {"mesh": list(mesh), "particles": n, "substeps": steps, "overlap_halo": overlap,
            "split": comm.overlap and cfg.defrag_every == 1,
@@ -1906,6 +1942,328 @@ def multi_paths(facts: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# config 5: scenes/sphere_100m_8dev.json, BASELINE.md's 99.6M-particle
+# FixedCorotated sphere on a 1024^3 grid (a 4x2 mesh in the scene file)
+# --------------------------------------------------------------------------
+
+C5_SCENE = Path(__file__).resolve().parent / "scenes" / "sphere_100m_8dev.json"
+C5_STEPS = 6      # substeps of the scene on one device and on its mesh: the
+#                   mesh on one card takes ~0.5 s a substep
+C5_BUSY_STEPS = 12  # one-device substeps (~1.4 s) run while a frame is written
+
+
+def config5_one_device_scene(work: Path) -> Path:
+    """The scene file less its ``device`` block (the same grid, model and
+    simulation): how a user with one card runs config 5."""
+    doc = json.loads(C5_SCENE.read_text())
+    doc.pop("device")
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "sphere_100m_1dev.json"
+    path.write_text(json.dumps(doc, indent=1))
+    return path
+
+
+def config5_shard_path(facts: str) -> dict:
+    """One shard of config 5 (``prof_multichip --config5shard``: 12.5M
+    particles at domain_bits 10) through ``drive``: two warm-up substeps,
+    then 20 timed, with every invariant; the JAX script's three keys; then
+    K1 held against its plain version on the final state (not counted)."""
+    run = drive("config5_shard", steps=20, facts=facts, warmup=2)
+    m = run["metrics"]
+    keys = {"config5_shard_particles": m["particles"],
+            "config5_shard_ms_per_step": m["ms_per_substep"],
+            "config5_shard_dropped": int(run["state"].models[0].tiles.dropped[0])}
+    log(f"prof_multichip --config5shard on the card: {json.dumps(keys)} | {facts}")
+    k1 = check_g2p2g_kernel(run["cfg"], run["mats"][0], run["state"], tile_chunk=64,
+                            reps=10, plain_reps=1)
+    log_k1(f"g2p2g_fixed_corotated, config-5 shard state ({m['particles']} particles)",
+           k1, facts)
+    del run
+    torch.cuda.empty_cache()
+    return {**m, **keys, "k1": k1}
+
+
+def files_equal(a: Path, b: Path) -> bool:
+    """Byte for byte (two non-empty files)."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    return bool(np.array_equal(np.memmap(a, np.uint8, mode="r"),
+                               np.memmap(b, np.uint8, mode="r")))
+
+
+def write_ab(positions: np.ndarray, work: Path, facts: str, busy) -> dict:
+    """One frame written four ways, one after the other: the native and
+    the numpy writer, each synchronously and on the IO thread.  A queued
+    write is timed to its return, then ``busy()`` (substeps of the
+    simulation) runs while it writes, then the wait left at ``flush``;
+    ``busy()`` alone before and after gives what a write in flight costs
+    the loop.  The synchronous native file reads back equal to
+    ``positions``; the others are byte for byte the same file."""
+    from claymore_tpu_torch.io import async_io, bgeo
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    first = work / "ab_native_sync.bgeo"
+    out = {"busy_alone_before_s": timed(busy),
+           "native_sync_s": timed(lambda: bgeo.write_bgeo_native(str(first), positions)),
+           "bytes": first.stat().st_size}
+    back, _ = bgeo.read_bgeo(str(first))
+    if not np.array_equal(back, positions):
+        raise AssertionError("native BGEO writer: the frame reads back different")
+    del back
+
+    def native_async(p):
+        if bgeo.write_bgeo(p, positions, asynchronous=True) != "native":
+            raise AssertionError("write_bgeo did not take the native writer")
+
+    writers = {
+        "native_async": native_async,
+        "numpy_sync": lambda p: bgeo.write_bgeo_numpy(p, positions),
+        "numpy_async": lambda p: async_io.insert_job(
+            lambda: bgeo.write_bgeo_numpy(p, positions)),
+    }
+    for name, write in writers.items():
+        f = work / f"ab_{name}.bgeo"
+        out[f"{name}_{'return_' if name.endswith('async') else ''}s"] = timed(
+            lambda: write(str(f)))
+        if name.endswith("async"):
+            out[f"{name}_busy_s"] = timed(busy)
+            out[f"{name}_flush_s"] = timed(async_io.flush)
+        if not files_equal(first, f):
+            raise AssertionError(f"{name} wrote another file than the native writer")
+        f.unlink()
+    first.unlink()
+    out["busy_alone_after_s"] = timed(busy)
+    log(f"config 5 frame writes ({positions.shape[0]} particles, {out['bytes']} bytes): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items() if k != "bytes")
+        + f"; every file equal, the native one read back equal | {facts}")
+    return out
+
+
+def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
+    """Config 5 on one device, as ``load_scene`` builds it from the scene
+    file less its device block (tiles of 256, a rebuild every substep):
+    load (sampling included), ``steps`` substeps each ended by a
+    synchronise, counted launches, every invariant and the peak; the
+    stage breakdown and K1/K2 beside their bounds on the final state; the
+    write A/B on its positions, with substeps run while each queued write
+    is in flight (after the reference is taken).  Returns the metrics, the one-device
+    reference the mesh is held to, the sampled positions and the initial
+    positions in slot order (what the CLI writes as frame -1)."""
+    from claymore_tpu_torch.io.scene import load_scene
+    from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
+
+    path = config5_one_device_scene(work)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sc = load_scene(str(path), device=DEVICE, tile_chunk=64)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng, state, cfg, mat = sc.engine, sc.state, sc.cfg, sc.materials[0]
+    n = sc.positions[0].shape[0]
+    initial = eng.get_positions(state)
+    p0 = positions_all((state,), n)
+    fe = np.float32(1e9)
+    dts, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state = eng.substep(state, fe)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        dts.append(state.dt)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    d = eng.diagnostics(state)
+    totals = grid_totals((state,))
+    expected = n * mat.mass
+    mass_err = abs(totals[0] - expected) / expected
+    pos = positions_all((state,), n)
+    disp = float((pos - p0).abs().max())
+    del p0
+    margins = check_fused_margin(eng, state)
+    k1 = variant_name(mat, cfg.arena_span)
+    used = {"grid_update": launches["grid_update"], k1: launches[k1]}
+    checks = {
+        "mass": mass_err < 1e-5,
+        "null_row": d["null_block_mass"] == 0.0,
+        "dropped": d["model0_dropped_tiles"] == 0,
+        "overflow": d["block_overflow"] == 0,
+        "migration_halo": d["migration_dropped"] == 0 and int(state.halo_overflow) == 0,
+        "active": d["model0_active"] == n,
+        "finite": bool(np.isfinite(d["t"]) and torch.isfinite(pos).all()),
+        "moves": disp > 0.0,
+        "launches": used["grid_update"] == steps and used[k1] == steps,
+        "rebuilds": eng.rebuilds == steps,          # rebucket_every=1: every substep
+        "peak": peak < PEAK_BOUND,
+    }
+    out = {"particles": n, "substeps": steps, "load_s": load_s,
+           "ms_per_substep": float(np.mean(ms)), "ms_by_substep": ms,
+           "rebuilds": eng.rebuilds, "peak_gib": peak / 2**30, "mass_rel_err": mass_err,
+           "displacement": disp, "launches": used, "fused_margins": margins,
+           "tiles": eng._num_tiles, "particle_tile": cfg.particle_tile,
+           "slots": eng._num_tiles[0] * cfg.particle_tile,
+           "active_octs": d["active_octs"]}
+    log(f"config 5 on one device ({path.name}): {n} particles, {out['slots']} slots "
+        f"(tile {cfg.particle_tile}), load {load_s:.2f} s, {steps} substeps at "
+        f"{out['ms_per_substep']:.3f} ms/substep ({[round(x, 3) for x in ms]}), rebuilds "
+        f"{eng.rebuilds}, {d['active_octs']} octs, peak {out['peak_gib']:.2f} GiB, "
+        f"mass_rel_err {mass_err:.3e}, displacement {disp:.3e}, launches {used}, fused "
+        f"margins {margins} == arena_margin | {facts}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"config 5 on one device: checks failed {failed} ({d}, {out})")
+    # where a substep's time goes, and K1/K2 beside their bounds (not counted)
+    stages = stage_breakdown(cfg, [mat], state, reps=5)
+    out["stages_ms"] = stages
+    out["k1"] = {"ms": stages["K1 g2p2g"], **g2p2g_bound(cfg, mat, state)}
+    out["k2"] = {"ms": stages["K2 grid_update"], **grid_bound(cfg, state.grid, state.partition)}
+    log("config 5 on one device, stages on its final state (ms, median of 5): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; K1 bound {out['k1']['bound_ms']:.4f} ms ({out['k1']['bound_by']}), K2 bound "
+        f"{out['k2']['bound_ms']:.4f} ms ({out['k2']['bound_by']}) | {facts}")
+    torch.cuda.empty_cache()
+    sim = {"state": state}
+
+    def busy():
+        # substeps of the simulation, as a run of many frames overlaps them
+        # with the last frame's write
+        for _ in range(C5_BUSY_STEPS):
+            sim["state"] = eng.substep(sim["state"], fe)
+        torch.cuda.synchronize()
+
+    out["writes"] = write_ab(eng.get_positions(state), work, facts, busy)
+    state = sim.pop("state")
+    ref = {"dt": torch.stack(dts).cpu().numpy(), "totals": totals, "pos": pos,
+           "ms_per_substep": out["ms_per_substep"], "rebuilds": out["rebuilds"], "n": n}
+    positions = sc.positions
+    del sc, eng, state
+    torch.cuda.empty_cache()
+    return {"metrics": out, "ref": ref, "positions": positions, "initial": initial}
+
+
+def config5_mesh(facts: str, positions, ref: dict, steps: int = C5_STEPS) -> dict:
+    """The scene file itself, ``load_scene(..., device="cuda")``: its 4x2
+    mesh with every shard on the card, from the positions the one-device
+    run sampled, through ``multi_run`` against that run; K1's margin on
+    every shard, the four empty ones too; K1 held to its plain version on
+    the fullest shard's final state (tiles of 256, as on one device; not
+    counted)."""
+    from claymore_tpu_torch.io.scene import load_scene
+
+    def make():
+        sc = load_scene(str(C5_SCENE), device=DEVICE, tile_chunk=64, positions=positions)
+        return sc.engine, sc.state, sc.positions
+
+    out = multi_run("config5", (4, 2), steps, facts, ref, make=make,
+                    label=f" ({C5_SCENE.name})")
+    st, eng = out.pop("state"), out.pop("engine")
+    del out["pos"]
+    counts = [int(s.models[0].active.sum()) for s in st]
+    margins = [check_fused_margin(eng, s, j) for j, s in enumerate(st)]
+    out.update({"particles_by_shard": counts, "fused_margins": margins,
+                "slots_by_shard": st[0].models[0].pos.shape[1],
+                "shard_tiles": eng._num_tiles})
+    log(f"config 5 4x2 mesh: particles by shard {counts} ({st[0].models[0].pos.shape[1]} "
+        f"slots each), fused margins {margins} == arena_margin | {facts}")
+    if sum(1 for c in counts if c == 0) != 4:
+        raise AssertionError(f"config 5 4x2: the outer x slabs should be empty: {counts}")
+    j = int(np.argmax(counts))
+    t0 = time.perf_counter()
+    k1 = check_g2p2g_kernel(eng.cfg, eng.materials[0], st[j], tile_chunk=64, time_it=False)
+    out["k1_shard"] = {"shard": j, "seconds": time.perf_counter() - t0,
+                       **{k: k1[k] for k in ("max_abs_err", "grid_max", "pos_err",
+                                             "field_err", "active", "margin")}}
+    log(f"K1 on shard {j} of the config 5 4x2 state ({k1['active']} particles, tiles of "
+        f"{eng.cfg.particle_tile}) vs plain: grid err {k1['max_abs_err']:.3e} (max "
+        f"{k1['grid_max']:.3e}), pos {k1['pos_err']:.3e}, fields {k1['field_err']}, in "
+        f"{out['k1_shard']['seconds']:.1f} s | {facts}")
+    del st, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def config5_cli(facts: str, scene_file: Path, initial: np.ndarray, work: Path) -> dict:
+    """``python -m claymore_tpu_torch -f <the one-device scene> --frames 1``
+    on the card: frame -1 (the initial cloud) reads back equal, bit for
+    bit, to the in-process load's initial positions in slot order, frame 0
+    holds every particle, finite, fallen; both went through the native
+    writer; the profile's frame, write and flush seconds."""
+    from claymore_tpu_torch.io import bgeo
+
+    root = Path(__file__).resolve().parent
+    out_dir = work / "cli"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "claymore_tpu_torch", "-f", str(scene_file), "--frames", "1",
+         "-o", str(out_dir), "--device", DEVICE, "--profile"],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"config 5 CLI exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    if "frames written: native 2, numpy 0" not in lines:
+        raise AssertionError(f"config 5 CLI: the frames did not go through the native "
+                             f"writer:\n{proc.stdout}")
+    import re
+
+    prof = {}      # the StageTimer report: tag, total s, mean ms, count
+    for line in lines:
+        hit = re.fullmatch(r"(.+?)\s+([\d.]+)\s+([\d.]+)\s+(\d+)", line.strip())
+        if hit:
+            prof[hit[1]] = {"total_s": float(hit[2]), "mean_ms": float(hit[3]),
+                            "count": int(hit[4])}
+    n = initial.shape[0]
+    first, _ = bgeo.read_bgeo(str(out_dir / "model0_frame-001.bgeo"))
+    if not np.array_equal(first, initial):
+        raise AssertionError("config 5 CLI: frame -1 differs from the initial positions")
+    del first
+    last, _ = bgeo.read_bgeo(str(out_dir / "model0_frame0000.bgeo"))
+    if not (last.shape == (n, 3) and np.isfinite(last).all()
+            and float(last[:, 1].mean()) < float(initial[:, 1].mean())):
+        raise AssertionError(f"config 5 CLI frame 0: {last.shape}, mean y "
+                             f"{float(last[:, 1].mean())} vs {float(initial[:, 1].mean())}")
+    steps = [line for line in lines if line.startswith("frame 1/1")]
+    out = {"wall_s": wall, "particles": n, "profile": prof,
+           "frame_line": steps[0] if steps else None,
+           "stdout_tail": lines[-8:]}
+    log(f"config 5 CLI --frames 1: exit 0 in {wall:.1f} s, frames -1 and 0 through the native "
+        f"writer, {n} particles each read back (frame -1 equal to the load's), "
+        f"{out['frame_line']}, profile {prof} | {facts}")
+    for f in out_dir.glob("*.bgeo"):
+        f.unlink()
+    return out
+
+
+def config5_paths(facts: str) -> dict:
+    """Config 5: its shard (``prof_multichip --config5shard``), the scene on
+    one device (with the write A/B), the scene on its 4x2 mesh held to the
+    one-device run by pid, and the CLI writing its frame natively."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "smoke_config5"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    du = shutil.disk_usage(work)
+    log(f"config 5: disk at {work}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f}")
+    out = {"config5_shard": config5_shard_path(facts)}
+    one = config5_one_device(facts, work)
+    out["config5_one_device"] = one["metrics"]
+    out["multi_config5_4x2"] = config5_mesh(facts, one["positions"], one["ref"])
+    del one["ref"], one["positions"]
+    torch.cuda.empty_cache()
+    out["config5_cli"] = config5_cli(facts, work / "sphere_100m_1dev.json", one["initial"],
+                                     work)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -2085,14 +2443,14 @@ def main() -> int:
 
     # kernels at the main path's shapes, on its final state (not counted);
     # K1 also on the tile ranges a 4x1 mesh's transfer split gives it
-    k1 = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10)
+    k1 = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10, plain_reps=1)
     log_k1("g2p2g_fixed_corotated, sphere25m state", k1, facts)
     from claymore_tpu_torch.parallel.multi import HaloComm
 
     nt25 = state.models[0].tiles.tvalid.shape[0]
     bt25 = HaloComm(cfg25, (("x", 0),), (4,), 1, 1).boundary_tile_cap(
         nt25, math.lcm(cfg25.group_tiles, 64))
-    k1r = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10, plain_reps=1,
+    k1r = check_g2p2g_kernel(cfg25, mat25, state, tile_chunk=64, reps=10, time_plain=False,
                              tile_split=bt25)
     log_k1(f"g2p2g_fixed_corotated on tiles [0, {bt25}) + [{bt25}, {nt25}), sphere25m "
            "state", k1r, facts)
@@ -2277,6 +2635,10 @@ def main() -> int:
     #     scenes/cube_4dev.json, validate_scale, DistGroup
     paths.update(multi_paths(facts))
 
+    # 12. config 5: its shard, the 99.6M-particle scene on one device and on
+    #     its 4x2 mesh (every shard on the card), the CLI and the frame writes
+    paths.update(config5_paths(facts))
+
     src = "claymore_tpu_torch/csrc/"
     k2_call = "claymore_tpu/ops/pallas_grid.py:192"
     k1_call = "claymore_tpu/ops/pallas_g2p2g.py:783"
@@ -2315,7 +2677,8 @@ def main() -> int:
     paths["sphere25m_spans"] = spans
     # the multi-device paths' launches; K1 on the tile ranges of the split
     multi_k1 = {"g2p2g_fixed_corotated": ("multi_sphere25m_2x2",
-                                          "multi_sphere25m_2x2_no_overlap", "multi_cube_mesh1"),
+                                          "multi_sphere25m_2x2_no_overlap", "multi_cube_mesh1",
+                                          "multi_config5_4x2"),
                 "g2p2g_jfluid": ("multi_dambreak12m_4x1",)}
     for e in kernels:
         if e["name"] == "grid_update":
@@ -2326,9 +2689,25 @@ def main() -> int:
             e["launches_multi"] = {p: paths[p]["launches"][e["name"]]
                                    for p in multi_k1[e["name"]]}
     kernels[3]["tile_range"] = {
-        "split": [bt25, nt25], **{k: k1r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                      "bound_ms", "pos_err")}}
+        "split": [bt25, nt25], **{k: k1r[k] for k in ("max_abs_err", "ms", "bound_ms",
+                                                      "pos_err")}}
     kernels[4]["tile_range"] = paths["multi_dambreak12m_4x1"]["k1_tile_range"]
+    # config 5: K1 held to its plain version on its shard's state and on the
+    # fullest shard of the 4x2 mesh (tiles of 256, as on one device); K1 and K2
+    # timed beside their bounds on the one-device scene's final state; their
+    # launches on the shard, the one-device and the 4x2 paths
+    c5s, c5 = paths["config5_shard"], paths["config5_one_device"]
+    c5_launches = {p: paths[p]["launches"] for p in ("config5_shard", "config5_one_device",
+                                                     "multi_config5_4x2")}
+    kernels[3]["config5"] = {
+        "shard": {k: c5s["k1"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "pos_err", "active")},
+        "mesh_shard": paths["multi_config5_4x2"]["k1_shard"],
+        "one_device": c5["k1"],
+        "launches": {p: v["g2p2g_fixed_corotated"] for p, v in c5_launches.items()}}
+    kernels[0]["config5"] = {
+        "one_device": c5["k2"],
+        "launches": {p: v["grid_update"] for p, v in c5_launches.items()}}
     if min(v for e in kernels for v in e.get("launches_multi", {}).values()) <= 0:
         raise AssertionError(f"a kernel was not launched on a multi-device path: {kernels}")
     # the collider kernels' cull and their straddle pools

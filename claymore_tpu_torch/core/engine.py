@@ -67,7 +67,9 @@ def exact_tiles(cfg: SimConfig, raw_positions, slack: float = 1.3) -> int:
         raw = np.asarray(raw, np.float32)
         if raw.size == 0:
             continue
-        base = np.floor(raw * cfg.dx_inv + 0.5).astype(np.int64) - 1
+        # int32 throughout: a block key is below 2**30 (SimConfig), and at
+        # 100M particles int64 arrays cost the host more than the sort
+        base = np.floor(raw * cfg.dx_inv + 0.5).astype(np.int32) - 1
         hb = (base - 1) >> cfg.block_bits
         keys = (hb[:, 0] * g + hb[:, 1]) * g + hb[:, 2]
         sk = np.sort(keys)
@@ -390,11 +392,16 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
                 extra_mask=extra[j], stale=not do_rebuild[j])
         rebuilt.append((kind, deferred) if do_rebuild[j] else None)
         planned.append((partition, pool, new_models))
+        # drop this shard's pre-rebuild particles and pool before the next
+        # shard sorts: on a mesh held in one process the peak then holds one
+        # shard's copies, not every shard's
+        models[j] = next_pools[j] = None
     stage("rebuild")
     out = []
     for j, (s, (partition, pool, new_models)) in enumerate(zip(states, planned)):
         if comm_live:
             pool = comm.add_halo(pool, partition, received[j])
+            received[j] = None
         out.append(SimState(
             grid=pool, partition=partition, models=new_models, dt=next_dt[j],
             max_vel=torch.sqrt(max_vel_sqr[j]), t=t_after[j], step=s.step + 1,

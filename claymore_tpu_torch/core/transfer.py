@@ -237,6 +237,10 @@ def g2p2g_model(
                          pid=out.pid, tiles=tm), next_pool
 
 
+RASTER_TILES = 2048      # rasterize_model's chunk on a card: 0.3 GB of temporaries at
+#                          span 2 and tiles of 256, 2.5 GB at span 4 and tiles of 1024
+
+
 def rasterize_model(
     cfg: SimConfig,
     material: Material,
@@ -247,26 +251,32 @@ def rasterize_model(
     tile_chunk: int = 32,
 ) -> torch.Tensor:
     """Initial P2G of mass and momentum with a uniform initial velocity,
-    accumulated into ``pool`` in place (null row zeroed)."""
+    accumulated into ``pool`` in place (null row zeroed).
+
+    On the CPU it runs ``tile_chunk`` tiles at a time, the JAX package's
+    chunks, so the sums come in its order.  On a card it runs at least
+    ``RASTER_TILES`` tiles at a time (the last chunk may be short): a chunk
+    is a dozen launches issued by the host, and config 5's 100M particles
+    in chunks of 64 tiles would take the host ~20,000 chunks.  The card's
+    ``index_add_`` adds in no fixed order anyway."""
     tm = model.tiles
     num_tiles = tm.block.shape[0]
     tile = cfg.particle_tile
     if num_tiles % tile_chunk:
         raise ValueError(f"{num_tiles} tiles do not split into chunks of {tile_chunk}")
-    nchunks = num_tiles // tile_chunk
-    ct = tile_chunk
-    cs = ct * tile
+    dev = pool.device
+    step = tile_chunk if dev.type == "cpu" else max(tile_chunk, RASTER_TILES)
     mass = material.mass
     cells = cfg.arena_cells
-    dev = pool.device
 
     nb_slot_all = _tile_nb_slots(cfg, table, tm)
-    for ci in range(nchunks):
-        sl = slice(ci * cs, (ci + 1) * cs)
+    for t0 in range(0, num_tiles, step):
+        ct = min(step, num_tiles - t0)
+        sl = slice(t0 * tile, (t0 + ct) * tile)
         pos = model.pos[:, sl].reshape(3, ct, tile)
         valid = model.active[sl].reshape(ct, tile)
-        bcoord = tm.bcoord[:, ci * ct:(ci + 1) * ct]
-        nb_slot = nb_slot_all[ci * ct:(ci + 1) * ct]
+        bcoord = tm.bcoord[:, t0:t0 + ct]
+        nb_slot = nb_slot_all[t0:t0 + ct]
         origin = ((bcoord + cfg.arena_lo) * cfg.block_size)[:, :, None]
         w, _, in_range = _bspline_onehot(cfg, pos, origin)
         wx, wy, wz = w

@@ -1,7 +1,11 @@
 """Asynchronous output: one background worker thread running IO jobs in
 order, so frame dumps overlap the simulation (port of
-``claymore_tpu/io/async_io.py`` without its native runtime).  File writes
-release the interpreter lock, so a Python thread gives the overlap.
+``claymore_tpu/io/async_io.py``).  File writes release the interpreter
+lock, and so does the native BGEO writer (``csrc/bgeo_io.cpp``, called
+through ctypes), so a Python thread gives the overlap where the JAX
+package queues native writes on its runtime's own thread.  Unlike that
+queue, which drops a failed write's code, ``flush`` raises the first
+error a job hit.
 
 The worker starts with the first job, not at import.
 """

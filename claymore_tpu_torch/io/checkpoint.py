@@ -10,7 +10,8 @@ spells it out.  A JAX checkpoint resumes here and the reverse, bit for bit.
 A multi-device state (a tuple of shard states) is saved in the JAX
 package's stacked layout (``interop.stack_shards``), so its checkpoints of
 the same mesh resume here too.  ``save_frame_bgeo``/``flush_io`` dump
-per-model ``.bgeo`` frames.
+per-model ``.bgeo`` frames (``io/bgeo.py``: the native writer for
+uncompressed all-float frames, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -105,17 +106,16 @@ def load_state(path: str, like: SimState) -> SimState:
 
 
 def save_frame_bgeo(path: str, engine, state: SimState, model_idx: int = 0,
-                    asynchronous: bool = True) -> None:
+                    asynchronous: bool = True) -> str:
     """Dump one model's active particles to ``path``.  The positions are
-    copied to the host here; the file is written by the IO worker when
-    ``asynchronous`` (``flush_io`` waits for it)."""
+    copied to the host here; the file is written by an IO worker when
+    ``asynchronous`` (``flush_io`` waits for it).  Returns the writer that
+    took it (``bgeo.write_bgeo``)."""
     pos = engine.get_positions(state, model_idx)
-    if asynchronous:
-        async_io.insert_job(lambda: bgeo.write_bgeo(path, pos))
-    else:
-        bgeo.write_bgeo(path, pos)
+    return bgeo.write_bgeo(path, pos, asynchronous=asynchronous)
 
 
 def flush_io() -> None:
-    """Wait for every queued frame dump."""
+    """Wait for every queued frame dump, native and numpy; raise if one
+    failed."""
     async_io.flush()

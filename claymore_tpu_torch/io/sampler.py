@@ -12,27 +12,44 @@ from __future__ import annotations
 import numpy as np
 
 
-def sample_uniform_box_world(dx: float, lo, hi, ppc: float = 8.0) -> np.ndarray:
-    """Uniformly fill a world-space AABB at ``ppc`` particles per cell."""
+def _lattice_spans(dx: float, lo, hi, ppc: float):
     lo = np.asarray(lo, np.float64)
     hi = np.asarray(hi, np.float64)
-    per_axis = ppc ** (1.0 / 3.0)
-    h = dx / per_axis
-    spans = [np.arange(lo[d] + h / 2, hi[d], h) for d in range(3)]
-    if any(len(s) == 0 for s in spans):
-        return np.zeros((0, 3), np.float32)
-    gx, gy, gz = np.meshgrid(*spans, indexing="ij")
+    h = dx / ppc ** (1.0 / 3.0)
+    return [np.arange(lo[d] + h / 2, hi[d], h) for d in range(3)]
+
+
+def _lattice(xs, ys, zs) -> np.ndarray:
+    """[len(xs) * len(ys) * len(zs), 3] float32 lattice points, x-major."""
+    gx, gy, gz = np.meshgrid(xs, ys, zs, indexing="ij")
     return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
 
 
+def sample_uniform_box_world(dx: float, lo, hi, ppc: float = 8.0) -> np.ndarray:
+    """Uniformly fill a world-space AABB at ``ppc`` particles per cell."""
+    spans = _lattice_spans(dx, lo, hi, ppc)
+    if any(len(s) == 0 for s in spans):
+        return np.zeros((0, 3), np.float32)
+    return _lattice(*spans)
+
+
+SPHERE_PLANES = 16     # x planes of the lattice tested against the sphere at once
+
+
 def sample_sphere(dx: float, center, radius: float, ppc: float = 8.0) -> np.ndarray:
-    """Uniform lattice clipped to a sphere."""
+    """Uniform lattice clipped to a sphere: the points of
+    ``sample_uniform_box_world`` over the sphere's bounding box that lie in
+    it, in the same order.  The lattice is made and tested
+    ``SPHERE_PLANES`` x planes at a time, so the box's points (190M for
+    config 5's sphere, ~12 GB in float64) never exist at once."""
     center = np.asarray(center, np.float64)
-    lo = center - radius
-    hi = center + radius
-    pts = sample_uniform_box_world(dx, lo, hi, ppc)
-    keep = np.sum((pts - center) ** 2, axis=-1) <= radius * radius
-    return pts[keep]
+    xs, ys, zs = _lattice_spans(dx, center - radius, center + radius, ppc)
+    parts = [np.zeros((0, 3), np.float32)]
+    for i in range(0, len(xs) if len(ys) and len(zs) else 0, SPHERE_PLANES):
+        pts = _lattice(xs[i:i + SPHERE_PLANES], ys, zs)
+        keep = np.sum((pts - center) ** 2, axis=-1) <= radius * radius
+        parts.append(pts[keep])
+    return np.concatenate(parts)
 
 
 def sample_elimination(points: np.ndarray, target: int):

@@ -115,9 +115,13 @@ def _model_positions(model: Dict[str, Any], cfg: SimConfig,
     raise ValueError(f"unknown shape {shape}")
 
 
-def load_scene(path: str, device, tile_chunk: int = 32) -> Scene:
+def load_scene(path: str, device, tile_chunk: int = 32, positions=None) -> Scene:
     """Parse a scene file and build an engine on ``device`` (a device, or
-    one per shard of a multi-device scene) and its initial state."""
+    one per shard of a multi-device scene) and its initial state.
+    ``positions``: a set-up shortcut for a caller that loads the same
+    models twice (no scene file can set it): the particles an earlier load
+    sampled (``Scene.positions``), taken in place of sampling them again (a
+    100M-particle sphere takes the host tens of seconds and ~20 GB)."""
     with open(path) as f:
         doc = json.load(f)
     base_dir = os.path.dirname(os.path.abspath(path))
@@ -136,11 +140,17 @@ def load_scene(path: str, device, tile_chunk: int = 32) -> Scene:
     )
     frames = sim.get("frames", 60)
 
-    materials, positions, velocities = [], [], []
-    for model in doc.get("models", []):
+    models = doc.get("models", [])
+    if positions is not None and len(positions) != len(models):
+        raise ValueError(f"{len(positions)} position arrays for {len(models)} models")
+    materials, velocities = [], []
+    sampled = positions is None
+    positions = [] if sampled else list(positions)
+    for model in models:
         materials.append(
             material_from_scene(model["constitutive"], cfg.default_volume(), model))
-        positions.append(_model_positions(model, cfg, base_dir))
+        if sampled:
+            positions.append(_model_positions(model, cfg, base_dir))
         velocities.append(tuple(model.get("velocity", (0.0, 0.0, 0.0))))
 
     colliders = [_build_collider(c, cfg) for c in doc.get("colliders", [])]

@@ -7,10 +7,10 @@ plain C interface, loaded with ``ctypes``.  The library lands in
 SHA-256 of the sources changes.  Import this module only where a kernel is
 about to launch: machines without ``nvcc`` import the package fine.
 
-The host code in ``csrc/*.cpp`` (weighted sample elimination) is built the
-same way by ``g++`` into a library of its own (``host_library``), which is
-None where no compiler is found or the build fails: its callers have a
-plain fallback.
+The host code in ``csrc/*.cpp`` (weighted sample elimination, the BGEO
+writer) is built the same way by ``g++`` into a library of its own
+(``host_library``), which is None where no compiler is found or the build
+fails: its callers have a plain fallback.
 """
 
 from __future__ import annotations
@@ -187,9 +187,15 @@ def host_library():
         lib = ctypes.CDLL(str(_host_build()))
     except (OSError, RuntimeError, subprocess.SubprocessError):
         return None
-    fn = lib.cm_sample_elimination
-    fn.argtypes = [_P, ctypes.c_int64, ctypes.c_int64, _F, _F, _F, _P]
-    fn.restype = ctypes.c_int
+    signatures = {
+        "cm_sample_elimination": [_P, ctypes.c_int64, ctypes.c_int64, _F, _F, _F, _P],
+        # (path, n, positions, attributes, names, widths, attribute pointers)
+        "cm_write_bgeo": [ctypes.c_char_p, ctypes.c_int64, _P, _I, _P, _P, _P],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -642,12 +642,14 @@ class MultiChipEngine:
         """The shard of each of [N, 3] positions: its home block's slab,
         row-major over the mesh axes."""
         cfg = self.cfg
-        base = np.floor(raw * cfg.dx_inv + 0.5).astype(np.int64) - 1
-        hb = (base - 1) >> cfg.block_bits
+        raw = np.asarray(raw, np.float32)
         shard = np.zeros(len(raw), np.int64)
         for (_name, dim), n_ax in zip(self.comm.axes, self.mesh_shape):
+            # the home block along the decomposed axis only, in int32
+            base = np.floor(raw[:, dim] * cfg.dx_inv + 0.5).astype(np.int32) - 1
+            hb = (base - 1) >> cfg.block_bits
             slab = cfg.grid_size // n_ax
-            shard = shard * n_ax + np.clip(hb[:, dim] // slab, 0, n_ax - 1)
+            shard = shard * n_ax + np.clip(hb // slab, 0, n_ax - 1)
         return shard
 
     def init_state(self, model_positions, model_velocities=None):

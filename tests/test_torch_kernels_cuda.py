@@ -311,6 +311,28 @@ def test_multi_engine_on_the_card_matches_the_cpu(card, mesh):
         assert rebuilds > 0
 
 
+@pytest.mark.parametrize("raster_tiles", [24, 2048])
+def test_init_on_the_card_rasterizes_like_the_cpu(card, monkeypatch, raster_tiles):
+    """``rasterize_model`` on a card takes chunks of RASTER_TILES tiles with
+    a short last one (24 does not divide the tile count, 2048 holds every
+    tile): the initial pool equals the CPU's, which takes the engine's
+    chunks, within f32 roundoff of its sums, and the particles are equal."""
+    from claymore_tpu_torch.core import transfer
+
+    monkeypatch.setattr(transfer, "RASTER_TILES", raster_tiles)
+    cfg = ct.SimConfig(domain_bits=6, max_active_blocks=1024, particle_tile=256)
+    mat = ct.FixedCorotated(volume=cfg.default_volume())
+    pos = sample_uniform_box_world(cfg.dx, [0.3, 0.4, 0.3], [0.7, 0.6, 0.7], cfg.ppc)
+    states = [ct.MPMEngine(cfg, [mat], tile_chunk=8, device=d).init_state(
+        [pos], [(1.0, -0.5, 0.25)]) for d in ("cuda", "cpu")]
+    nt = states[1].models[0].tiles.tvalid.shape[0]
+    assert nt % raster_tiles or raster_tiles > nt
+    a, b = (s.grid.cpu() for s in states)
+    assert torch.equal(states[0].partition.table.cpu(), states[1].partition.table)
+    assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert torch.equal(states[0].models[0].pos.cpu(), states[1].models[0].pos)
+
+
 def test_g2p2g_span4_refuses_a_tile_it_cannot_take(card):
     """At span 4 FixedCorotated's layout at tile 1024 does not fit a block's
     shared memory: the wrapper raises, and kernel_info says 0 blocks."""

@@ -41,7 +41,7 @@ from tests.test_torch_partition import _raw_models
 from tests.torch_port_helpers import CPU, configs, fixed_corotated_pair, to_np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MESHES = [(2,), (2, 2), (1, 2), (1,)]
+MESHES = [(2,), (2, 2), (1, 2), (1,), (4, 2)]
 STEPS = 4
 
 
@@ -120,6 +120,33 @@ def test_multi_matches_jax(mesh):
         np.testing.assert_allclose(d["grid_mass"], jd["grid_mass"], rtol=1e-6)
     assert d["model0_active"] == pos.shape[0]
     assert d["null_block_mass"] == 0.0
+
+
+def test_empty_shards_stay_empty_and_match_jax():
+    """The 4x2 mesh of config 5 on ``_scene()``'s box, x in [0.35, 0.65]:
+    the outer x slabs (shards 0, 1, 6, 7) start and stay without a
+    particle, as config 5's do, in both packages; they lose nothing, count
+    no overflow, and hold the same partition as the JAX package's (the
+    halo blocks their neighbours send mass into)."""
+    jeng, jstates, eng, states, pos = _run((4, 2))
+    nd = eng.n_dev
+    empty = [j for j in range(nd) if eng.comm.shards[j] // 2 in (0, 3)]
+    assert empty == [0, 1, 6, 7]
+    assert not np.isin(eng.shard_of(pos), empty).any()
+    for js, s in zip(jstates, states):
+        jact = js.models[0].active.reshape(nd, -1)
+        for j in empty:
+            m = s[j].models[0]
+            assert int(m.active.sum()) == 0 and not jact[j].any()
+            assert not bool(m.tiles.tvalid.any())
+            for x in (m.tiles.dropped, s[j].mig_dropped, s[j].halo_overflow,
+                      s[j].partition.overflow):
+                assert int(x.sum()) == 0
+            assert int(s[j].partition.count[0]) == int(js.partition.count.reshape(nd)[j])
+        assert sum(int(x.models[0].active.sum()) for x in s) == pos.shape[0]
+    # the substeps reached the empty shards: their partitions hold halo
+    # blocks of the occupied neighbours
+    assert all(int(states[-1][j].partition.count[0]) > 0 for j in empty)
 
 
 def _by_pid(states, n):

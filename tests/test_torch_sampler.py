@@ -78,3 +78,18 @@ def test_poisson_sdf_sampling_is_blue_noise_and_equals_jax():
     q_pois = np.quantile(min_nn(pois), 0.05)
     q_jit = np.quantile(min_nn(jit), 0.05)
     assert q_pois > 1.5 * q_jit, (q_pois, q_jit)
+
+
+@pytest.mark.parametrize("dx,center,radius", [
+    (1 / 256, (0.3, 0.6, 0.5), 0.11),       # 113 x planes: 8 chunks, the last short
+    (1 / 32, (0.5, 0.5, 0.5), 0.3),
+    (1 / 1024, (0.5, 0.55, 0.5), 0.01),     # config 5's shard sphere at --quick size
+    (1 / 32, (0.5, 0.5, 0.5), 0.0)])
+def test_sphere_sampled_by_planes_equals_the_whole_lattice(dx, center, radius):
+    """``sample_sphere`` tests SPHERE_PLANES x planes of the lattice at a
+    time: the same points in the same order, bit for bit, as the JAX
+    package's sampler, which tests the whole box at once."""
+    got = sampler.sample_sphere(dx, center, radius)
+    want = jsampler.sample_sphere(dx, center, radius)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
