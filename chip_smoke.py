@@ -54,7 +54,11 @@ profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches),
 ``prof_stages25m`` and ``prof_rebuild`` as subprocesses, ``MPMEngine.profile_stages``
 on the sphere25m state, ``run(..., auto_grow=True)`` regrowing a tight
 sphere25m engine against an ample one, and ``update_material`` on the
-cube.
+cube.  It runs the benchmark entry point as a user does,
+``python -m claymore_tpu_torch.scripts.bench`` on sphere25m with its
+kernel-vs-oracle gate and ``--scene=dambreak_sdf --nogate``, checks each
+JSON line and folds the launches each printed into K1's and K2's entries
+(``launches_bench``).
 
 Every phase raises on failure (the two incremental-rebucket paths at the
 end of the run, after the kernels line).  The line before the last is a JSON object
@@ -781,60 +785,96 @@ def check_prof_rebuild_entry(facts: str) -> dict:
     return {"wall_s": wall, **res}
 
 
+# the benchmark entry point's runs: (scene, arguments, particles, K2, K1)
+BENCH_RUNS = (("sphere25m", (), 25088753, "grid_update", "g2p2g_fixed_corotated"),
+              ("dambreak_sdf", ("--scene=dambreak_sdf", "--nogate"), 4286550,
+               "grid_update_sdf", "g2p2g_jfluid"))
+
+
+def check_bench_entry(facts: str) -> dict:
+    """``python -m claymore_tpu_torch.scripts.bench`` as a user runs it, in
+    subprocesses: the default sphere25m with its gate, then dambreak_sdf
+    with ``--nogate`` (K2-SDF launched from the entry point).  Each must
+    exit 0 and end with its JSON line: every particle active, none dropped,
+    no overflow, particles moving, mass within 1e-5, the roofline share in
+    (0, 1.05], ``validate_ok`` true where the gate ran (its artifact's
+    pairs are logged) and its scene's K2 and K1 launched once a substep.
+    Returns each run's record, launches and wall seconds."""
+    from claymore_tpu_torch.scripts import bench
+
+    out = {}
+    t_phase = time.perf_counter()
+    for scene_name, args, n, k2, k1 in BENCH_RUNS:
+        t0 = time.perf_counter()
+        text = run_entry("bench", *args, timeout=900)
+        wall = time.perf_counter() - t0
+        rec = json.loads(text.strip().splitlines()[-1])
+        launches = entry_launches("bench", text)
+        gated = not args
+        substeps = 1 + 4 * rec["steps"]
+        checks = {
+            "particles": rec["particles"] == rec["active_particles"] == n,
+            "dropped": rec["dropped_tiles"] == 0,
+            "overflow": rec["block_overflow"] == 0,
+            "moves": rec["moves"] is True,
+            "mass": rec["mass_rel_err"] < 1e-5,
+            "validate_ok": rec["validate_ok"] is (True if gated else None),
+            "roofline_share": 0.0 < rec["roofline_share"] <= 1.05,
+            "backend": rec["backend"] == rec["grid_backend"] == "cuda",
+            "launches": launches[k2] == launches[k1] == substeps,
+        }
+        log(f"entry point bench --scene={scene_name}: exit 0 in {wall:.1f} s, "
+            f"launches {launches}: {json.dumps(rec)} | {facts}")
+        out[scene_name] = {"wall_s": wall, "record": rec, "launches": launches}
+        if gated:
+            art = json.loads(bench.default_validate_out().read_text())
+            pairs = {k: v for k, v in art.items() if isinstance(v, dict) and "ok" in v}
+            log(f"bench gate ({art.get('seconds', 0.0):.1f} s, ok {art['ok']}): " + "; ".join(
+                f"{k} grid_err {v['grid_err']:.3e}, cloud_err {v['cloud_err']:.3e}, "
+                f"mass_vs_analytic {v['mass_vs_analytic']:.3e}, displacement "
+                f"{v['displacement']:.3e} / oracle {v['displacement_oracle']:.3e}"
+                for k, v in pairs.items()) + f" | {facts}")
+            out[scene_name]["gate"] = art
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"bench --scene={scene_name} checks failed: {failed}\n{text}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"benchmark entry point phase: {out['wall_s']:.1f} s | {facts}")
+    return out
+
+
 # --------------------------------------------------------------------------
-# scenes (bench.py:48-177)
+# scenes (bench.py:35-177)
 # --------------------------------------------------------------------------
 
 def scene(name: str):
     """(cfg, materials, positions, velocities, colliders) of a bench.py
-    scene, with the capacities bench.py gives it; sphere25m, dambreak12m,
-    sand, nacc and cube are ``scripts/prof_k1.scene``'s, dambreak_hs and
-    dambreak_sdf ``scripts/prof_k2.scene``'s; ``config5_shard`` is
-    ``scripts/prof_multichip.config5_shard``'s (one shard of config 5)."""
-    import claymore_tpu_torch as ct
-    from claymore_tpu_torch.io.sampler import sample_uniform_box_world
-    from claymore_tpu_torch.scripts import prof_k1, prof_k2
+    scene as ``scripts/bench.py:build`` gives it, but ``dambreak_sdf`` is
+    ``scripts/prof_k2.scene``'s (tile slack 2.5 for its 1,750 substeps);
+    ``config5_shard`` is ``scripts/prof_multichip.config5_shard``'s (one
+    shard of config 5)."""
+    from claymore_tpu_torch.scripts import prof_k2
+    from claymore_tpu_torch.scripts.bench import build
 
-    if name in ("sphere25m", "dambreak12m", "sand", "nacc", "cube"):
-        cfg, mat, pos, v0 = prof_k1.scene(name)
-        return cfg, [mat], [pos], [v0], ()
-    if name in ("dambreak_hs", "dambreak_sdf"):
+    if name == "dambreak_sdf":
         return prof_k2.scene(name)
     if name == "config5_shard":
         from claymore_tpu_torch.scripts import prof_multichip
 
         cfg, mat, pos, v0 = prof_multichip.config5_shard()
         return cfg, [mat], [pos], [v0], ()
-    cfg = ct.SimConfig(domain_bits=8, max_active_blocks=8192, default_dt=1e-4,
-                       rebucket_auto=True, particle_tile=512)
-    box = sample_uniform_box_world
-    vol = cfg.default_volume()
-    slack, colliders = 1.25, ()
-    if name == "multimat":
-        cfg = dataclasses.replace(cfg, max_active_blocks=16384)
-        h = 0.2
-        mats = [ct.FixedCorotated(volume=vol, e=5e3, nu=0.4), ct.JFluid(volume=vol),
-                ct.Sand(volume=vol, e=1e4, rho=1500.0)]
-        parts = [box(cfg.dx, [0.2, 0.5, 0.2], [0.2 + h, 0.5 + h, 0.2 + h], cfg.ppc),
-                 box(cfg.dx, [0.5, 0.1, 0.5], [0.5 + h, 0.1 + h, 0.5 + h], cfg.ppc),
-                 box(cfg.dx, [0.6, 0.5, 0.2], [0.6 + h, 0.5 + h, 0.2 + h], cfg.ppc)]
-        v0s = [(0.0, -0.5, 0.0)] * 3
-    else:
-        raise ValueError(name)
-    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=slack))
-    return cfg, mats, parts, v0s, colliders
+    return build(name, quick=False)
 
 
 def probe(state, n: int = 4096, model_idx: int = 0) -> np.ndarray:
-    """Positions [3, n] of particles 0..n-1 of a model, found by id."""
-    m = state.models[model_idx]
-    sel = m.active & (m.pid < n)
-    pid = m.pid[sel].long()
-    out = torch.empty((3, n), dtype=torch.float32, device=m.pos.device)
-    out[:, pid] = m.pos[:, sel]
-    if int(sel.sum()) != n:
+    """Positions [3, n] of particles 0..n-1 of a model, found by id
+    (``scripts/bench.py:probe``); raises if one is not active."""
+    from claymore_tpu_torch.scripts import bench
+
+    out = bench.probe(state, n, model_idx)
+    if np.isnan(out).any():
         raise AssertionError("probe particles missing")
-    return out.cpu().numpy()
+    return out
 
 
 def _launch_dicts():
@@ -2630,6 +2670,10 @@ def main() -> int:
     paths["cli_sdf"] = run_cli_sdf(facts)
     paths["prof_rebuild"] = check_prof_rebuild_entry(facts)
 
+    # 10b. the benchmark entry point: sphere25m with its gate, dambreak_sdf
+    #      without it, each counting its launches from 0
+    bench_runs = check_bench_entry(facts)
+
     # 11. multiple devices: sphere25m on a 2x2 mesh (overlap on and off),
     #     dambreak12m on 4 x-slabs, a mesh of one on the cube, the CLI on
     #     scenes/cube_4dev.json, validate_scale, DistGroup
@@ -2744,6 +2788,16 @@ def main() -> int:
         kernels.append(e)
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on its main path: {kernels}")
+    # the benchmark entry point's launches, by scene, on K1's and K2's rows
+    for scene_name, _, _, k2, k1 in BENCH_RUNS:
+        for e in kernels:
+            if e["name"] in (k2, k1):
+                e.setdefault("launches_bench", {})[scene_name] = (
+                    bench_runs[scene_name]["launches"][e["name"]])
+    if min(v for e in kernels for v in e.get("launches_bench", {}).values()) <= 0:
+        raise AssertionError(f"a kernel was not launched by the benchmark entry point: "
+                             f"{kernels}")
+    paths["bench"] = bench_runs
     log(f"paths: {json.dumps(paths)}")
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

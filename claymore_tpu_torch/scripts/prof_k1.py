@@ -92,38 +92,14 @@ def stir(state, scale: float = 0.5, seed: int = SEED):
 
 
 def scene(name: str):
-    """(cfg, material, positions, v0) of a bench.py scene with the
-    capacities chip_smoke.py gives it: sphere25m, dambreak12m, sand, nacc,
-    cube and ``cube_quick`` (bench.py's ``--quick`` cube)."""
-    import claymore_tpu_torch as ct
-    from claymore_tpu_torch.io.sampler import sample_sphere, sample_uniform_box_world
+    """(cfg, material, positions, v0) of a one-model scene of ``bench.py``
+    (``scripts/bench.py:build``): sphere25m, dambreak12m, sand, nacc, cube
+    and ``cube_quick`` (``bench.py``'s ``--quick`` cube)."""
+    from claymore_tpu_torch.scripts.bench import build
 
-    cfg = ct.SimConfig(domain_bits=8, max_active_blocks=65536, default_dt=1e-4,
-                       rebucket_auto=True, particle_tile=512)
-    vol = cfg.default_volume()
-    box = sample_uniform_box_world
-    slack = 1.25
-    if name == "sphere25m":
-        mat = ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)
-        pos, v0 = sample_sphere(cfg.dx, (0.5, 0.55, 0.5), 0.3547, cfg.ppc), (0.0, -0.5, 0.0)
-    elif name in ("cube", "cube_quick"):
-        cfg = dataclasses.replace(cfg, max_active_blocks=8192)
-        span = 0.12 if name == "cube_quick" else 0.2
-        lo, hi = 0.4 - span / 2, 0.4 + span / 2
-        mat = ct.FixedCorotated(volume=vol, e=5e3, nu=0.4)
-        pos, v0 = box(cfg.dx, [lo, 0.5, lo], [hi, 0.5 + span, hi], cfg.ppc), (0.0, -0.5, 0.0)
-    elif name == "dambreak12m":
-        # launched, so the drift-triggered rebuild fires every few
-        # substeps; slack 2.5 because the column spreads (bench.py:95-100)
-        mat, slack = ct.JFluid(volume=vol), 2.5
-        pos, v0 = box(cfg.dx, [0.1, 0.1, 0.1], [0.4, 0.7, 0.6], cfg.ppc), (2.0, -2.0, 0.0)
-    else:
-        cfg = dataclasses.replace(cfg, max_active_blocks=8192)
-        mat = (ct.Sand(volume=vol, e=1e4, rho=1500.0) if name == "sand"
-               else ct.NACC(volume=vol, e=1e4))
-        pos, v0 = box(cfg.dx, [0.4, 0.1, 0.4], [0.6, 0.5, 0.6], cfg.ppc), (0.0, 0.0, 0.0)
-    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=slack))
-    return cfg, mat, pos, v0
+    quick = name == "cube_quick"
+    cfg, mats, parts, v0s, _ = build("cube" if quick else name, quick)
+    return cfg, mats[0], parts[0], v0s[0]
 
 
 def median_ms(fn, reps: int, batch: int = 1) -> float:

@@ -61,18 +61,6 @@ def pallas_colliders():
     )
 
 
-def sdf_dome():
-    """bench.py's dambreak_sdf collider (bench.py:133-140): a solid dome
-    (sphere cap) on the floor, 128^3 nodes at 1/128, slip, friction 0.1."""
-    from claymore_tpu_torch.models.boundary import SignedDistanceCollider
-
-    res, sdx = 128, 1.0 / 128
-    ax = (np.arange(res, dtype=np.float32) + 0.5) * sdx
-    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
-    sdf = np.sqrt((X - 0.55) ** 2 + (Y - 0.02) ** 2 + (Z - 0.35) ** 2) - 0.12
-    return SignedDistanceCollider(sdf, sdx, kind="slip", friction=0.1)
-
-
 def sdf_spinner():
     """An animated SDF collider: a 96x80x64 ellipsoid grid at 1/96 that
     translates and rotates, separate with friction 0.3."""
@@ -93,6 +81,7 @@ def sdf_colliders():
     """K2-SDF's check list: the dome, a half-space, the spinner (list order
     mixes analytic and SDF colliders)."""
     from claymore_tpu_torch.models.boundary import HalfSpace
+    from claymore_tpu_torch.scripts.bench import sdf_dome
 
     return (sdf_dome(), HalfSpace((0.0, 0.3, 0.0), (0.1, 1.0, 0.0), kind="slip",
                                   friction=0.3), sdf_spinner())
@@ -165,27 +154,20 @@ def fill(octs: np.ndarray, rows: int) -> np.ndarray:
 
 def scene(name: str):
     """(cfg, materials, positions, velocities, colliders) of bench.py's
-    collider scenes at chip_smoke.py's capacities: ``dambreak_hs``
+    collider scenes (``scripts/bench.py:build``): ``dambreak_hs``
     (bench.py:102-117, a frictional slip half-space ramp) and
     ``dambreak_sdf`` (bench.py:118-140, 4.3M JFluid moving at 1 m/s onto
-    the dome; slack 2.5 keeps every particle for 3,000 substeps)."""
+    the dome), the latter with tile slack 2.5 in place of bench.py's 1.25:
+    the spreading fluid keeps every particle for 3,000 substeps, where
+    bench.py runs 81."""
     import claymore_tpu_torch as ct
-    from claymore_tpu_torch.io.sampler import sample_uniform_box_world
-    from claymore_tpu_torch.models.boundary import HalfSpace
+    from claymore_tpu_torch.scripts.bench import build
 
-    cfg = ct.SimConfig(domain_bits=8, max_active_blocks=24576, default_dt=1e-4,
-                       rebucket_auto=True, particle_tile=512)
-    mats = [ct.JFluid(volume=cfg.default_volume())]
-    parts = [sample_uniform_box_world(cfg.dx, [0.1, 0.1, 0.1], [0.3, 0.5, 0.5], cfg.ppc)]
-    if name == "dambreak_sdf":
-        v0s, colliders, slack = [(1.0, 0.0, 0.0)], (sdf_dome(),), 2.5
-    elif name == "dambreak_hs":
-        v0s, slack = [(0.0, 0.0, 0.0)], 1.25
-        colliders = (HalfSpace((0.0, 0.12, 0.0), (0.25, 1.0, 0.0), kind="slip",
-                               friction=0.2),)
-    else:
+    if name not in ("dambreak_hs", "dambreak_sdf"):
         raise ValueError(name)
-    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=slack))
+    cfg, mats, parts, v0s, colliders = build(name, quick=False)
+    if name == "dambreak_sdf":
+        cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=2.5))
     return cfg, mats, parts, v0s, colliders
 
 

@@ -20,7 +20,7 @@ from tests.torch_port_helpers import configs
 
 
 def _dome(res=32):
-    """prof_k2.sdf_dome at ``res`` nodes: the same cap and band."""
+    """scripts/bench.py:sdf_dome at ``res`` nodes: the same cap and band."""
     dx = 1.0 / res
     ax = (np.arange(res, dtype=np.float32) + 0.5) * dx
     x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")

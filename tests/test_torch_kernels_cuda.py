@@ -15,7 +15,7 @@ import torch
 import claymore_tpu_torch as ct
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
 from claymore_tpu_torch.scripts.prof_k1 import permute_tiles, stir
-from claymore_tpu_torch.scripts.prof_k2 import sdf_dome
+from claymore_tpu_torch.scripts.bench import sdf_dome
 
 pytestmark = pytest.mark.cuda
 
