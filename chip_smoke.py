@@ -25,7 +25,9 @@ against its plain twin), and drives the port's main paths through
   seeded with ``"sampling": "poisson"`` (the g++-built sample elimination);
 * the rebucket schedules: sphere25m at span 4 (``rebucket_every=4``, fixed
   cadence and drift-triggered) beside span 2; K1's span-4 variant of every
-  material against its plain version; dambreak12m and dambreak_sdf with
+  material against its plain version, on each span-4 state and on the same
+  with every 4th live tile spread over its arena (tiles wider than the
+  kernel's P2G window, counted by the kernel); dambreak12m and dambreak_sdf with
   the incremental rebucket (``defrag_every=4``), and the incremental plan
   on the card against the CPU, bit for bit;
 * several devices through ``MultiChipEngine`` with every shard on the card
@@ -212,9 +214,13 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     takes seconds a call).  ``tile_split`` bt: the kernel and the plain
     version each run on the tile range [0, bt), then [bt, T) into the same
     outputs, as the multi-device transfer split does, with the margin the
-    minimum of the two."""
+    minimum of the two.  At span 4 it also reads the kernel's count of wide
+    tiles (transferred in more than one P2G pass), which must equal
+    ``prof_k1.wide_tiles`` of the kernel's output (``wide_tiles``,
+    ``live_tiles``)."""
     from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
+    from claymore_tpu_torch.scripts import prof_k1
 
     pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
     next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt,
@@ -239,9 +245,22 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                                             next_dt, acc, tile_chunk, r, out)
         return out, acc
 
+    span4 = cfg.arena_span == 4
+    if span4:
+        g2p2g_kernel.wide_tile_counter(DEVICE).zero_()
     mk, pk, margin = kernel(torch.zeros_like(state.grid))
     mt, pt = plain(torch.zeros_like(state.grid))
     torch.cuda.synchronize()
+    wide = {}
+    if span4:
+        # dx_inv is a power of two, so the kernel's stencil bases are
+        # base_cell's exactly, and so are the two counts
+        n_wide, n_live = prof_k1.wide_tiles(cfg, mk)
+        wide = {"wide_tiles": int(g2p2g_kernel.wide_tile_counter(DEVICE)[0]),
+                "live_tiles": n_live}
+        if wide["wide_tiles"] != n_wide:
+            raise AssertionError(f"g2p2g kernel: {wide['wide_tiles']} wide tiles counted, "
+                                 f"{n_wide} in its output")
     want = partition.arena_margin(cfg, mk)
     if not torch.equal(margin, want):
         raise AssertionError(f"g2p2g kernel: fused margin {float(margin)!r} vs "
@@ -291,7 +310,7 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         raise AssertionError("g2p2g kernel: particles did not move")
     out = {"max_abs_err": grid_err, "grid_max": grid_max, "pos_err": pos_err,
            "field_err": field_err, "flipped": flipped, "active": n_act,
-           "margin": float(margin)}
+           "margin": float(margin), **wide}
     if time_it:
         # into one pool that keeps adding up: its contents do not change the
         # work, and a zeroing pass would add 0.5 GB of stores to the time
@@ -303,6 +322,26 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                                       warmup=0 if plain_reps else 1)
         out.update(g2p2g_bound(cfg, mat, state, model_idx))
         out.update(g2p2g_kernel.kernel_info(mat, cfg.particle_tile, cfg.arena_span))
+    return out
+
+
+def check_wide(cfg, mat, state, facts: str, label: str, model_idx: int = 0) -> dict:
+    """K1's span-4 variant against its plain version (``check_g2p2g_kernel``,
+    the kernel timed, the plain version not) on ``state`` with every 4th
+    live tile's particles spread over its arena (``prof_k1.spread_tiles``):
+    tiles wider than the kernel's P2G window, which it must count (> 0) and
+    transfer exactly as the plain version does."""
+    from claymore_tpu_torch.scripts import prof_k1
+
+    spread = prof_k1.spread_tiles(cfg, state, model_idx=model_idx)
+    out = check_g2p2g_kernel(cfg, mat, spread, tile_chunk=64, reps=10, model_idx=model_idx,
+                             time_plain=False)
+    if out["wide_tiles"] <= 0:
+        raise AssertionError(f"{label}, spread: no wide tile counted")
+    log(f"{label}, every 4th live tile spread over its arena: {out['wide_tiles']} of "
+        f"{out['live_tiles']} tiles wide, max_abs_err {out['max_abs_err']:.3e}, pos_err "
+        f"{out['pos_err']:.3e}, field_err {out['field_err']}, flipped {out['flipped']}, "
+        f"kernel {out['ms']:.4f} ms, bound {out['bound_ms']:.4f} ms | {facts}")
     return out
 
 
@@ -1242,7 +1281,9 @@ def log_k1(label: str, k1: dict, facts: str) -> None:
         f"kernel {k1['ms']:.4f} ms, plain "
         + (f"{k1['plain_ms']:.4f} ms" if "plain_ms" in k1 else "not timed") + ", margin "
         f"{k1['margin']!r} == arena_margin, {k1['registers']} registers, "
-        f"{k1['blocks_per_sm']} blocks/SM | {facts}")
+        f"{k1['blocks_per_sm']} blocks/SM"
+        + (f", wide tiles {k1['wide_tiles']} of {k1['live_tiles']}" if "wide_tiles" in k1
+           else "") + f" | {facts}")
 
 
 def run_cli(facts: str) -> dict:
@@ -2528,6 +2569,8 @@ def main() -> int:
             k1s4 = check_g2p2g_kernel(run["cfg"], mat25, run["state"], tile_chunk=64,
                                       reps=10, plain_reps=1)
             log_k1("g2p2g_fixed_corotated_span4, sphere25m span-4 state", k1s4, facts)
+            k1s4_wide = check_wide(run["cfg"], mat25, run["state"], facts,
+                                   "g2p2g_fixed_corotated_span4, sphere25m span-4 state")
         del run
         torch.cuda.empty_cache()
     log("sphere25m span 4 vs span 2 (ms/substep, rebuilds, K1 ms): "
@@ -2619,13 +2662,16 @@ def main() -> int:
         paths[name + "_span4"] = run["metrics"]
         mat = run["mats"][model_idx]
         key = f"g2p2g_{mat.name}_span4"
-        k1v[key] = check_g2p2g_kernel(run["cfg"], mat, prof_k1.stir(run["state"]),
+        stirred = prof_k1.stir(run["state"])
+        k1v[key] = check_g2p2g_kernel(run["cfg"], mat, stirred,
                                       tile_chunk=64, reps=10, model_idx=model_idx,
                                       plain_reps=1)
         n_model = int(run["state"].models[model_idx].active.sum())
-        log_k1(f"{key}, {name} span-4 state, model {model_idx}, {n_model} particles",
-               k1v[key], facts)
-        del run
+        label = f"{key}, {name} span-4 state, model {model_idx}, {n_model} particles"
+        log_k1(label, k1v[key], facts)
+        k1v[key + "_wide"] = check_wide(run["cfg"], mat, stirred, facts, label,
+                                        model_idx=model_idx)
+        del run, stirred
         torch.cuda.empty_cache()
 
     # 9. dambreak_sdf: 4.3M JFluid onto the 128^3 SDF dome, 1750 substeps
@@ -2710,13 +2756,23 @@ def main() -> int:
     # its XLA path; the variant is held against the plain version where the
     # span-2 one is
     paths["sphere25m_span4"] = spans["span4_every4"]
-    for name, path, check in (
-            ("g2p2g_fixed_corotated_span4", "sphere25m_span4", k1s4),
-            ("g2p2g_jfluid_span4", "multimat_span4", k1v["g2p2g_jfluid_span4"]),
-            ("g2p2g_sand_span4", "sand_span4", k1v["g2p2g_sand_span4"]),
-            ("g2p2g_nacc_span4", "nacc_span4", k1v["g2p2g_nacc_span4"])):
+    for name, path, check, wide in (
+            ("g2p2g_fixed_corotated_span4", "sphere25m_span4", k1s4, k1s4_wide),
+            ("g2p2g_jfluid_span4", "multimat_span4", k1v["g2p2g_jfluid_span4"],
+             k1v["g2p2g_jfluid_span4_wide"]),
+            ("g2p2g_sand_span4", "sand_span4", k1v["g2p2g_sand_span4"],
+             k1v["g2p2g_sand_span4_wide"]),
+            ("g2p2g_nacc_span4", "nacc_span4", k1v["g2p2g_nacc_span4"],
+             k1v["g2p2g_nacc_span4_wide"])):
         e = entry(name, "g2p2g.cu", k1_call, path, check)
         e["span4_on_the_tpu"] = "claymore_tpu/core/transfer.py:127 (XLA)"
+        # tiles the kernel transferred in more than one P2G pass, of those
+        # holding particles: on the path's state and on the same with every
+        # 4th live tile spread over its arena (held to the plain version too)
+        e["wide_tiles"] = {"state": [check["wide_tiles"], check["live_tiles"]],
+                           "spread_state": [wide["wide_tiles"], wide["live_tiles"]]}
+        e["spread_state"] = {k: wide[k] for k in ("max_abs_err", "pos_err", "field_err",
+                                                  "flipped", "active", "ms", "bound_ms")}
         kernels.append(e)
     paths["sphere25m_spans"] = spans
     # the multi-device paths' launches; K1 on the tile ranges of the split

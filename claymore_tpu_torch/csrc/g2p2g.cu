@@ -96,21 +96,44 @@
 // <= 2) is the design above: the 2^3 blocks from the home block up, 8 cells a
 // side, 6^3 stencil bases.  Span 4 (rebucket_every 3..8, the lazy rebucket)
 // reaches one block below the home block and two above: 4^3 = 64 blocks, 16
-// cells a side, 14^3 = 2,744 bases, arena origin (bcoord - 1) * 4, margin
-// min(c, 14 - c).  A literal copy of the span-2 layout needs ~266 KB of shared
-// memory a block at tile 512, over the 227 KB a block may have, so span 4
-// keeps no velocity arena: G2P reads its 27 nodes from pool_v through the
-// read-only cache, which leaves ~166 KB (FixedCorotated, tile 512; one block
-// per SM).  The velocity arena was a copy of 64 blocks per tile of which the
-// particles touch a few, while the (m, mv) arena is what turns the P2G's
-// scatter into shared atomics, so it stays.  The histogram of 2,745 bins is
-// scanned by the whole block instead of one warp.  ``cm_g2p2g_info`` reports
-// the shared memory and blocks per SM of every (material, span, tile); a
-// (span, tile) pair whose layout does not fit reports 0 blocks, and the
-// wrapper raises for it (FixedCorotated, Sand and NACC take tile <= 512 at
-// span 4).  Measured on an H100 at 700 W (chip_smoke.py): 240-244 registers,
-// one block per SM, 1.55-1.7x the span-2 time (FixedCorotated 9.2-9.5 ms on
-// a sphere25m span-4 state against 5.5-5.7), 8-11% of the same bound.
+// cells a side, arena origin (bcoord - 1) * 4.  Its range checks (a stencil
+// base outside 0..13 deactivates the particle) and its margin min(c, 14 - c)
+// are the whole arena's.  Its first design kept a 16^3 (m, mv) arena (~166 KB
+// a block, one block per SM, 240-244 registers) and read every G2P node from
+// pool_v: 14.7% of its bound (FixedCorotated 9.24 ms on a sphere25m span-4
+// state against 5.39 at span 2).  But a tile's particles share one home
+// block at a rebuild (bases 5..8 of 0..13 on each axis) and, under the CFL
+// step (under half a cell a substep) in a smooth velocity field, move
+// together, so their stencils nearly always fit 8 cells.  So span 4 works in
+// per-tile windows of the arena with span 2's shared memory: 8 cells in x
+// and y, 12 in z (8 rounded out to whole float4s of the pool's cz lanes, so
+// that any z origin flushes and stages by 16 bytes and fits every 6-base
+// range):
+//  * G2P: when a tile's stage has landed, the block's min/max of its
+//    pre-advection bases places a velocity window (origin min(lo, 8), z
+//    rounded down to a multiple of 4), staged by 16-byte cp.async while the
+//    tile before runs its P2G and flush.  A particle whose stencil leaves the
+//    window reads pool_v through the read-only cache: the same floats.
+//  * P2G: the block's min/max of the post-advection bases is the tile's
+//    extent.  Each 6-base range of it an axis (nearly always one) is one pass
+//    of span 2's binned P2G over a window at origin min(lo + 6 p, 8): 216
+//    bins, the (m, mv) window, a flush of its 768 float4s through the
+//    neighbour list (null blocks skipped).  A wider tile takes up to 27
+//    passes, each exact; the kernel counts such tiles in a device counter
+//    (ops/g2p2g_kernel.py:wide_tile_counter) that the substep never reads.
+//    The pass state sits in shared memory, so that JFluid's 80 registers do
+//    not spill.
+// Both spans run at the same occupancy (FixedCorotated, Sand, NACC: 128
+// registers, 2 blocks per SM at tile 512; JFluid 80 and 3) and every tile
+// of 32..1024 fits (1024: one block per SM).  ``cm_g2p2g_info`` reports the
+// shared memory and blocks per SM of every (material, span, tile); a layout
+// that did not fit would report 0 blocks, and the wrapper would raise.
+// Measured on an H100 at 700 W (scripts/prof_k1.py, the first design and
+// this one alternating in one call): FixedCorotated 9.08-9.33 -> 5.88-5.98
+// ms on the sphere25m span-4 state (span 2: 5.33-5.38), 23% of its bound;
+// JFluid 0.61-0.65 -> 0.39-0.43, Sand 1.10-1.16 -> 0.75-0.84, NACC
+// 1.18-1.27 -> 0.78-0.84.  Every 4th tile spread over its arena (a quarter
+// of the tiles wide) costs FixedCorotated 10.5-10.6 ms: a pass per range.
 //
 // Layouts (the JAX package's): pool f32[O+1, 16, 128], rows (channel c, cx),
 // lanes (z8, cy, cz), row O the null oct; a block address is
@@ -134,7 +157,11 @@ constexpr int kMaxParams = 16;
 constexpr int kMinTile = 32, kMaxTile = 1024;
 constexpr int kP2G = 12;                      // m v (3) and Q (9) per particle
 
-// the transfer arena of span kSpan blocks a side
+// the transfer arena of span kSpan blocks a side.  The shared-memory arenas
+// (velocities for the G2P, (m, mv) for the P2G) are 8 cells in x and y: at
+// span 2 the whole arena, at span 4 a window of it placed per tile, 12
+// cells in z there so that any 8-cell z range fits inside whole float4s of
+// the pool's cz lanes
 template <int kSpan_>
 struct Arena {
   static constexpr int kSpan = kSpan_;
@@ -142,16 +169,22 @@ struct Arena {
   static constexpr int kCells = 4 * kSpan;          // cells per axis
   static constexpr int kNb = kSpan * kSpan * kSpan; // neighbour blocks
   static constexpr int kNbShift = kSpan == 2 ? 3 : 6;
-  static constexpr int kYS = kCells;                // strides in floats, padded so
-  static constexpr int kXS = kCells * kCells + 4;   // that the P2G's lanes (bases x
-  static constexpr int kChan = kCells * kXS + 8;    // channels) spread over the banks
-  static constexpr int kW = kCells - 2;             // stencil bases per axis
+  static constexpr bool kWindow = kSpan == 4;       // per-tile windows of the arena
+  static constexpr int kWz = kWindow ? 12 : 8;      // shared arena cells in z
+  static constexpr int kYS = kWz;                   // strides in floats, padded so
+  static constexpr int kXS = 8 * kWz + 4;           // that the P2G's lanes (bases x
+  static constexpr int kChan = 8 * kXS + 8;         // channels) spread over the banks
+  static constexpr int kW = 6;                      // stencil bases per axis (P2G bins)
   static constexpr int kBases = kW * kW * kW;
   static constexpr int kBins = kBases + 1;          // + slots with no stencil
-  static constexpr bool kVelArena = kSpan == 2;     // G2P from a staged velocity arena
+  static constexpr int kVelStages = kWindow ? 1 : 2;  // velocity arenas in the ring
 };
 using Span2 = Arena<2>;
 using Span4 = Arena<4>;
+
+// span 4: a slot's arena-relative post-advection stencil base, 4 bits an
+// axis (x high), or kNoBase for a slot with no P2G
+constexpr int kNoBase = 0xFFFF;
 
 struct Params {
   const float* pool_v;
@@ -173,6 +206,7 @@ struct Params {
   float* next_pool;
   unsigned int* margin_key;     // u32[2]: key, finished blocks; zeroed by the wrapper
   float* margin_out;            // f32[]
+  unsigned int* wide_tiles;     // u32[1]: span 4, tiles whose P2G took several passes
   int num_tiles, tile_lo, tile_hi, tile, g, gzo, num_oct_keys, null_oct;
   float dx, dx_inv, d_inv, mass;
   float mp[kMaxParams];         // the material's constants (ops/g2p2g_kernel.py)
@@ -643,7 +677,7 @@ struct Stage {
 __host__ __device__ constexpr int round_up(int x, int a) { return (x + a - 1) / a * a; }
 
 struct Layout {                 // byte offsets into the dynamic shared memory
-  int bars, nb, misc, wsum, hist, blist, perm, sbin, srank, varena, oarena, p2g, stage,
+  int bars, nb, misc, wsum, wext, hist, blist, perm, sbin, srank, varena, oarena, p2g, stage,
       stage_stride, total;
 };
 
@@ -655,14 +689,17 @@ __host__ __device__ inline Layout layout(int n) {
   s.nb = o;     o += 2 * A::kNb * 4;          // neighbour block addresses per stage
   s.misc = o;   o += 16;                      // margin key, count of occupied bins
   s.wsum = o;   o += 2 * kWarps * 4;          // per warp: bins and occupied bins
+  s.wext = o;                                 // span 4, per warp: the extents of the
+  if (A::kWindow) o += kWarps * 16 + 112;     // bases; the velocity window's origin;
+                                              // the tile's passes; two pass windows
   s.hist = o;   o += round_up(A::kBins, 4) * 4;  // bin counts, then bin starts
   s.blist = o;  o += round_up(2 * A::kBases, 16);  // the occupied bins
   s.perm = o;   o += round_up(2 * n, 16);     // sorted position -> slot
-  s.sbin = o;   o += round_up(2 * n, 16);     // per slot: its bin, its rank in it
-  s.srank = o;  o += round_up(2 * n, 16);
+  s.sbin = o;   o += round_up(2 * n, 16);     // per slot: its bin (span 4: its packed
+  s.srank = o;  o += round_up(2 * n, 16);     // base), its rank in its bin
   o = round_up(o, 128);
-  s.varena = o;                               // velocity arenas, one per stage
-  if (A::kVelArena) o += 2 * 3 * A::kChan * 4;
+  s.varena = o;                               // velocity arenas: one per stage at
+  o += A::kVelStages * 3 * A::kChan * 4;      // span 2, one window at span 4
   s.oarena = o; o += 4 * A::kChan * 4;        // (m, mv) arena
   s.p2g = o;    o += kP2G * n * 4;            // per slot: m v and Q, for the P2G
   s.stage = o;
@@ -740,6 +777,97 @@ __device__ __forceinline__ void stage_velocity(const Params& p, const int* nb,
                p.pool_v + pool_off4<A>(i, nb[(i >> 4) & (A::kNb - 1)], 4));
 }
 
+// span 4: the neighbour block (of the 4^3) holding arena cell (cx, cy, cz)
+__device__ __forceinline__ int window_block(const int* nb, int cx, int cy, int cz) {
+  return nb[((cx >> 2) * 4 + (cy >> 2)) * 4 + (cz >> 2)];
+}
+
+// span 4: the velocity window of a tile, arena cells [vx, vx + 8) x [vy, vy
+// + 8) x [vz, vz + 12) (vz a multiple of 4), pool rows 4..15 of the blocks
+// that hold them; 3 channels x 64 (x, y) x 3 float4s of z
+template <class A>
+__device__ __forceinline__ void stage_window(const Params& p, const int* nb, float* vwin,
+                                             int vx, int vy, int vz, int tid) {
+  for (int i = tid; i < 3 * 64 * 3; i += kThreads) {
+    const int zg = i / 192, r = i - zg * 192, ch = r >> 6, x = (r >> 3) & 7, y = r & 7;
+    const int cx = vx + x, cy = vy + y;
+    const int br = window_block(nb, cx, cy, vz + 4 * zg);
+    cp_async16(vwin + ch * A::kChan + x * A::kXS + y * A::kYS + 4 * zg,
+               p.pool_v + ((size_t)(br >> 3) * 16 + 4 + ch * 4 + (cx & 3)) * 128
+                   + (br & 7) * 16 + (cy & 3) * 4);
+  }
+}
+
+// span 4: per-byte min and max over a warp of bases packed one axis a byte
+__device__ __forceinline__ uint32_t warp_min3(uint32_t v) {
+  return __reduce_min_sync(0xffffffffu, v & 255u)
+       | (__reduce_min_sync(0xffffffffu, (v >> 8) & 255u) << 8)
+       | (__reduce_min_sync(0xffffffffu, (v >> 16) & 255u) << 16);
+}
+
+__device__ __forceinline__ uint32_t warp_max3(uint32_t v) {
+  return __reduce_max_sync(0xffffffffu, v & 255u)
+       | (__reduce_max_sync(0xffffffffu, (v >> 8) & 255u) << 8)
+       | (__reduce_max_sync(0xffffffffu, (v >> 16) & 255u) << 16);
+}
+
+constexpr uint32_t kNoExtent = 0x0F0F0Fu;     // the min of no base: 15 > 13 an axis
+
+// span 4: the extent (per-byte min, max) of the arena-relative pre-advection
+// stencil bases, clamped into the arena as the G2P clamps them, of this
+// thread's active slots of tile t's stage
+template <class A>
+__device__ __forceinline__ void pre_extent(const Params& p, int t, int n, const float* sw,
+                                           const unsigned char* sact, int tid,
+                                           uint32_t& lo, uint32_t& hi) {
+  int org[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) org[a] = (p.bcoord[a * p.num_tiles + t] + A::kLo) * 4;
+  for (int q = tid; q < n; q += kThreads) {
+    if (!sact[q]) continue;
+    uint32_t v = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int base = (int)floorf(sw[a * n + q] * p.dx_inv + 0.5f) - 1;
+      v |= (uint32_t)min(max(base - org[a], 0), A::kCells - 3) << (8 * a);
+    }
+    lo = __vminu4(lo, v);
+    hi = __vmaxu4(hi, v);
+  }
+}
+
+// the 27-node G2P sums of one particle: velocity and APIC moment A[r*3+c];
+// fetch(i, j, k, vr) gives node (l + (i, j, k))'s 3 velocity components
+template <class Fetch>
+__device__ __forceinline__ void g2p_nodes(const float w[3][3], const float mw[3][3],
+                                          Fetch fetch, float v[3], float A[9]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float wxy = w[0][i] * w[1][j];
+      const float mxwy = mw[0][i] * w[1][j];
+      const float wxmy = w[0][i] * mw[1][j];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float W = wxy * w[2][k];
+        const float Wx = mxwy * w[2][k];
+        const float Wy = wxmy * w[2][k];
+        const float Wz = wxy * mw[2][k];
+        float vr[3];
+        fetch(i, j, k, vr);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          v[r] += W * vr[r];
+          A[r * 3 + 0] += Wx * vr[r];
+          A[r * 3 + 1] += Wy * vr[r];
+          A[r * 3 + 2] += Wz * vr[r];
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the transfer
 // ---------------------------------------------------------------------------
@@ -786,35 +914,19 @@ __device__ __forceinline__ float margin_value(uint32_t key) {
   return __uint_as_float((img & 0x80000000u) ? (img & 0x7FFFFFFFu) : ~img);
 }
 
-// the 3 velocity components of arena cell (ax, ay, az): from the staged
-// velocity arena at span 2, from pool_v through the read-only cache at span 4
-template <class A>
-__device__ __forceinline__ void node_velocity(const Params& p, const float* varena,
-                                              const int* nbs, int ax, int ay, int az,
-                                              float vr[3]) {
-  if constexpr (A::kVelArena) {
-    const int idx = ax * A::kXS + ay * A::kYS + az;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) vr[r] = varena[r * A::kChan + idx];
-  } else {
-    constexpr int S = A::kSpan;
-    const int br = nbs[((ax >> 2) * S + (ay >> 2)) * S + (az >> 2)];
-    const float* src = p.pool_v + ((size_t)(br >> 3) * 16 + 4 + (ax & 3)) * 128
-                       + (br & 7) * 16 + (ay & 3) * 4 + (az & 3);
-#pragma unroll
-    for (int r = 0; r < 3; ++r) vr[r] = __ldg(src + r * 4 * 128);
-  }
-}
-
 // one particle of a live tile, in place in the stage: G2P, the material,
 // advection, the range checks and the margin; m v and Q go to the slot's
 // column of ``pg`` for the P2G.  Returns the post-advection stencil base,
-// 0..kBases-1, or kBases when the particle left the arena
+// 0..kBases-1, or kBases when the particle left the arena; at span 4 the
+// arena-relative base packed 4 bits an axis, or kNoBase.  The G2P reads the
+// staged velocity arena at span 2; at span 4 the tile's velocity window
+// (origin ``vo``) when the stencil lies in it, else pool_v through the
+// read-only cache: the same floats either way
 template <class M, class Ar>
 __device__ __forceinline__ int transfer_particle(
     const Params& p, int n, int q, float* sw, unsigned char* sact,
-    const float* varena, const int* nbs, float* pg, const int org[3], float dt,
-    float next_dt, uint32_t& kmax) {
+    const float* varena, const int* nbs, const int* vo, float* pg, const int org[3],
+    float dt, float next_dt, uint32_t& kmax) {
   using L = Stage<M>;
   float x[3] = {sw[q], sw[n + q], sw[2 * n + q]};
 
@@ -826,29 +938,29 @@ __device__ __forceinline__ int transfer_particle(
   float A[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) A[k] = 0.0f;
+  if constexpr (!Ar::kWindow) {
+    g2p_nodes(w, mw, [&](int i, int j, int k, float vr[3]) {
+      const int idx = (l[0] + i) * Ar::kXS + (l[1] + j) * Ar::kYS + l[2] + k;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
+      for (int r = 0; r < 3; ++r) vr[r] = varena[r * Ar::kChan + idx];
+    }, v, A);
+  } else {
+    const int wx = l[0] - vo[0], wy = l[1] - vo[1], wz = l[2] - vo[2];
+    if ((unsigned)wx <= 5u && (unsigned)wy <= 5u && (unsigned)wz <= (unsigned)(Ar::kWz - 3)) {
+      const float* src = varena + wx * Ar::kXS + wy * Ar::kYS + wz;
+      g2p_nodes(w, mw, [&](int i, int j, int k, float vr[3]) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float wxy = w[0][i] * w[1][j];
-      const float mxwy = mw[0][i] * w[1][j];
-      const float wxmy = w[0][i] * mw[1][j];
+        for (int r = 0; r < 3; ++r) vr[r] = src[r * Ar::kChan + i * Ar::kXS + j * Ar::kYS + k];
+      }, v, A);
+    } else {
+      g2p_nodes(w, mw, [&](int i, int j, int k, float vr[3]) {
+        const int ax = l[0] + i, ay = l[1] + j, az = l[2] + k;
+        const int br = window_block(nbs, ax, ay, az);
+        const float* src = p.pool_v + ((size_t)(br >> 3) * 16 + 4 + (ax & 3)) * 128
+                           + (br & 7) * 16 + (ay & 3) * 4 + (az & 3);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float W = wxy * w[2][k];
-        const float Wx = mxwy * w[2][k];
-        const float Wy = wxmy * w[2][k];
-        const float Wz = wxy * mw[2][k];
-        float vr[3];
-        node_velocity<Ar>(p, varena, nbs, l[0] + i, l[1] + j, l[2] + k, vr);
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          v[r] += W * vr[r];
-          A[r * 3 + 0] += Wx * vr[r];
-          A[r * 3 + 1] += Wy * vr[r];
-          A[r * 3 + 2] += Wz * vr[r];
-        }
-      }
+        for (int r = 0; r < 3; ++r) vr[r] = __ldg(src + r * 4 * 128);
+      }, v, A);
     }
   }
 
@@ -864,7 +976,7 @@ __device__ __forceinline__ int transfer_particle(
   }
   const bool ok = in_pre && stencil<Ar>(p, x, org, l, w, mw);
   sact[q] = ok ? 1 : 0;
-  if (!ok) return Ar::kBases;
+  if (!ok) return Ar::kWindow ? kNoBase : Ar::kBases;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     // arena_margin: c = x dx_inv - 0.5 - origin, min(c, (cells - 2) - c)
@@ -878,6 +990,7 @@ __device__ __forceinline__ int transfer_particle(
 #pragma unroll
   for (int k = 0; k < 9; ++k)
     pg[(3 + k) * n + q] = (A[k] * p.mass - contrib[k] * next_dt) * p.d_inv;
+  if constexpr (Ar::kWindow) return (l[0] << 8) | (l[1] << 4) | l[2];
   return (l[0] * Ar::kW + l[1]) * Ar::kW + l[2];
 }
 
@@ -980,11 +1093,25 @@ __device__ __forceinline__ void scan_bins(int* hist, unsigned short* blist, int*
   if (tid == kThreads - 1) *n_occ = slot;
 }
 
+// span 4: the window bin of a slot's packed base in P2G pass ``ps`` of
+// tile extent ``lo``: the pass of a base is (base - lo) / 6 an axis; the
+// bin is the base relative to the pass's window origin ``o``
+__device__ __forceinline__ int window_bin(int pb, const int lo[3], const int ps[3],
+                                          const int o[3]) {
+  if (pb == kNoBase) return Span4::kBases;
+  const int b[3] = {pb >> 8, (pb >> 4) & 15, pb & 15};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    if ((b[a] - lo[a]) / Span4::kW != ps[a]) return Span4::kBases;
+  return ((b[0] - o[0]) * Span4::kW + b[1] - o[1]) * Span4::kW + b[2] - o[2];
+}
+
 template <class M, class Ar>
-__global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
+__global__ void __launch_bounds__(kThreads, M::kMinBlocks)
     g2p2g_kernel(const Params p) {
   using L = Stage<M>;
   constexpr int kNb = Ar::kNb;
+  static_assert(!Ar::kWindow || kThreads == 4 * 8 * 8, "the window flush: a thread a row");
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = p.tile;
   const Layout lay = layout<M, Ar>(n);
@@ -994,6 +1121,13 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
   int* hist = reinterpret_cast<int*>(smem + lay.hist);
   int* n_occ = reinterpret_cast<int*>(smem + lay.misc) + 1;
   int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
+  uint4* wext = reinterpret_cast<uint4*>(smem + lay.wext);
+  int* vorg = reinterpret_cast<int*>(smem + lay.wext + kWarps * 16);
+  // span 4: the tile's P2G passes (lo[3], np[3], count) and, by pass
+  // parity, a pass's window (o[3], ps[3], az): in shared memory, so that
+  // none is held in registers across the P2G
+  int* ptile = vorg + 4;
+  int* pwin = vorg + 12;
   unsigned short* blist = reinterpret_cast<unsigned short*>(smem + lay.blist);
   unsigned short* perm = reinterpret_cast<unsigned short*>(smem + lay.perm);
   unsigned short* sbin = reinterpret_cast<unsigned short*>(smem + lay.sbin);
@@ -1001,7 +1135,7 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
   float* varenas = reinterpret_cast<float*>(smem + lay.varena);
   float* oarena = reinterpret_cast<float*>(smem + lay.oarena);
   float* pg = reinterpret_cast<float*>(smem + lay.p2g);
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t S = (size_t)p.num_tiles * n;
   const int n4 = n >> 2;
   const int n4_shift = __ffs(n4) - 1;
@@ -1027,14 +1161,63 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
   const float next_dt = *p.next_dt_ptr;
   uint32_t kmax = 0u;
 
+  // span 4, where ``stage_next``: the velocity window of live tile tn, whose
+  // stage (ring stage s) has landed.  The block's extent of its
+  // pre-advection bases places the window (origin min(lo, 8) in x and y, z
+  // rounded down to whole float4s), whose copies are then issued; an empty
+  // tile stages nothing.  Also reduces this thread's extent of the current
+  // tile's post-advection bases (post_lo, post_hi) to the block's, in
+  // ``post``.  Its barrier also orders the copies after every thread's G2P
+  // from the window they overwrite
+  auto window_extents = [&](bool stage_next, int tn, int s, uint32_t post_lo,
+                            uint32_t post_hi, uint32_t post[2]) {
+    uint32_t lo = kNoExtent, hi = 0u;
+    if (stage_next) {
+      unsigned char* st = smem + lay.stage + s * lay.stage_stride;
+      pre_extent<Ar>(p, tn, n, reinterpret_cast<const float*>(st), st + L::kWords * 4 * n,
+                     tid, lo, hi);
+    }
+    lo = warp_min3(lo);
+    hi = warp_max3(hi);
+    post_lo = warp_min3(post_lo);
+    post_hi = warp_max3(post_hi);
+    if (lane == 0) wext[warp] = make_uint4(lo, hi, post_lo, post_hi);
+    __syncthreads();
+    lo = kNoExtent; hi = 0u; post[0] = kNoExtent; post[1] = 0u;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const uint4 e = wext[k];
+      lo = __vminu4(lo, e.x);
+      hi = __vmaxu4(hi, e.y);
+      post[0] = __vminu4(post[0], e.z);
+      post[1] = __vmaxu4(post[1], e.w);
+    }
+    if (stage_next && (lo & 255u) <= (hi & 255u)) {
+      const int vx = min((int)(lo & 255u), 8), vy = min((int)((lo >> 8) & 255u), 8),
+                vz = min((int)((lo >> 16) & 255u) & ~3, 4);
+      stage_window<Ar>(p, nb + s * kNb, varenas, vx, vy, vz, tid);
+      // read by this tile's transfer, after the syncs of the tile before
+      if (tid == 0) {
+        vorg[0] = vx;
+        vorg[1] = vy;
+        vorg[2] = vz;
+      }
+    }
+  };
+
   // prologue: the first tile's stage, neighbours and velocities; the blocks
   // walk the tiles of [tile_lo, tile_hi) only
   int t = p.tile_lo + blockIdx.x;
   if (tid == 0) load_stage<M>(p, t, n, S, smem + lay.stage, &bar[0]);
   for (int k = tid; k < kNb; k += kThreads) nb[k] = neighbour<Ar>(p, t, k);
   __syncthreads();
-  if constexpr (Ar::kVelArena) {
+  if constexpr (!Ar::kWindow) {
     if (p.tvalid[t]) stage_velocity<Ar>(p, nb, varenas, tid);
+  } else {
+    const bool live0 = p.tvalid[t];
+    if (live0) mbar_wait(&bar[0], 0);
+    uint32_t unused[2];
+    window_extents(live0, t, 0, kNoExtent, 0u, unused);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 
@@ -1044,7 +1227,7 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
     float* sw = reinterpret_cast<float*>(st);
     unsigned char* sact = st + L::kWords * 4 * n;
     const int* spid = reinterpret_cast<const int*>(sw + L::kPid * n);
-    const float* varena = varenas + s * 3 * Ar::kChan;
+    const float* varena = varenas + (Ar::kWindow ? 0 : s * 3 * Ar::kChan);
     const int* nbs = nb + s * kNb;
 
     // the next tile streams into the other stage while this one computes;
@@ -1060,70 +1243,156 @@ __global__ void __launch_bounds__(kThreads, Ar::kVelArena ? M::kMinBlocks : 1)
     mbar_wait(&bar[s], (it >> 1) & 1);
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();                      // this tile's velocities, next's neighbours
-    if constexpr (Ar::kVelArena) {
+    if constexpr (!Ar::kWindow) {
       if (next && p.tvalid[tn])
         stage_velocity<Ar>(p, nb + (s ^ 1) * kNb, varenas + (s ^ 1) * 3 * Ar::kChan, tid);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
 
     const bool live = p.tvalid[t];
+    const int org[3] = {(p.bcoord[t] + Ar::kLo) * 4,
+                        (p.bcoord[p.num_tiles + t] + Ar::kLo) * 4,
+                        (p.bcoord[2 * p.num_tiles + t] + Ar::kLo) * 4};
     if (live) {
-      const int org[3] = {(p.bcoord[t] + Ar::kLo) * 4,
-                          (p.bcoord[p.num_tiles + t] + Ar::kLo) * 4,
-                          (p.bcoord[2 * p.num_tiles + t] + Ar::kLo) * 4};
       // the transfer, one slot per thread in slot order; each particle's
-      // post-advection stencil base is its P2G bin (kBases: no P2G).  Bins
-      // and ranks wait in shared memory: held in registers across the
-      // transfer they would spill at JFluid's 80-register budget
+      // post-advection stencil base is its P2G bin (kBases: no P2G; span 4:
+      // the packed base, kNoBase).  Bins and ranks wait in shared memory:
+      // held in registers across the transfer they would spill at JFluid's
+      // 80-register budget
 #pragma unroll 1
       for (int q = tid; q < n; q += kThreads)
         sbin[q] = (unsigned short)(sact[q] ? transfer_particle<M, Ar>(
-                                                 p, n, q, sw, sact, varena, nbs, pg, org, dt,
-                                                 next_dt, kmax)
-                                           : Ar::kBases);
-      // counting sort of the slots by bin.  Lanes with one bin add to its
-      // count once; the loop is uniform over a warp since n is a multiple of 32
-      for (int q = tid; q < n; q += kThreads) {
-        const int b = sbin[q];
-        const unsigned peers = __match_any_sync(0xffffffffu, b);
-        const int leader = __ffs(peers) - 1;
-        int first = 0;
-        if (lane == leader) first = atomicAdd(&hist[b], __popc(peers));
-        srank[q] = (unsigned short)(__shfl_sync(0xffffffffu, first, leader)
-                                    + __popc(peers & ((1u << lane) - 1u)));
-      }
-      __syncthreads();
-      scan_bins<Ar>(hist, blist, n_occ, wsum, tid);
-      __syncthreads();
-      for (int q = tid; q < n; q += kThreads) {
-        const int b = sbin[q];
-        if (b < Ar::kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
-      }
-      __syncthreads();
+                                                 p, n, q, sw, sact, varena, nbs, vorg, pg, org,
+                                                 dt, next_dt, kmax)
+                                           : (Ar::kWindow ? kNoBase : Ar::kBases));
+    }
 
-      // the P2G, one thread per (occupied base, channel): a base's 4
-      // channels sit on adjacent lanes, so a warp's adds hit 32 distinct
-      // words (distinct banks but where two bases lie a row apart)
-      const int n_items = 4 * *n_occ;
-      for (int it = tid; it < n_items; it += kThreads) {
-        const int b = blist[it >> 2];
-        p2g_base<Ar>(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg, oarena,
-                     org);
+    // span 4: this tile's extent of post-advection bases (its P2G windows)
+    // and the next tile's velocity window, whose copies land while this tile
+    // runs its P2G and flush.  Every slot's bin sits in sbin since the
+    // thread that wrote it reads it here
+    if constexpr (Ar::kWindow) {
+      uint32_t plo = kNoExtent, phi = 0u;
+      if (live) {
+        for (int q = tid; q < n; q += kThreads) {
+          const int pb = sbin[q];
+          if (pb == kNoBase) continue;
+          const uint32_t v = (uint32_t)(pb >> 8) | ((uint32_t)((pb >> 4) & 15) << 8)
+                             | ((uint32_t)(pb & 15) << 16);
+          plo = __vminu4(plo, v);
+          phi = __vmaxu4(phi, v);
+        }
       }
-      __syncthreads();
+      const bool stage_next = next && p.tvalid[tn];
+      if (stage_next) mbar_wait(&bar[s ^ 1], ((it + 1) >> 1) & 1);
+      uint32_t post[2];
+      window_extents(stage_next, tn, s ^ 1, plo, phi, post);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      if (tid == 0) {
+        int passes = 0;
+        if (live && (post[0] & 255u) <= (post[1] & 255u)) {
+          passes = 1;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            ptile[a] = (post[0] >> (8 * a)) & 255u;
+            ptile[3 + a] = ((int)((post[1] >> (8 * a)) & 255u) - ptile[a]) / Ar::kW + 1;
+            passes *= ptile[3 + a];
+          }
+          if (passes > 1) atomicAdd(p.wide_tiles, 1u);
+        }
+        ptile[6] = passes;
+      }
+    }
 
-      // flush the (m, mv) arena into the next pool, zeroing it for the next
-      // tile; skip zero float4s and the null oct
-      for (int i = tid; i < 4 * 16 * kNb; i += kThreads) {
-        float4* a = reinterpret_cast<float4*>(oarena + arena_off4<Ar>(i));
-        const float4 val = *a;
-        *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
-        const int br = nbs[(i >> 4) & (kNb - 1)];
-        if ((br >> 3) == p.null_oct) continue;
-        atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4<Ar>(i, br, 0)), val);
+    if (live) {
+      // the P2G: one pass over the window of each 6-base range of the
+      // tile's extent (span 2, and at span 4 nearly every tile: one)
+      for (int pass = 0;; ++pass) {
+        // span 4: pass (px, py, pz) takes the bases of [lo + 6 p, lo + 6 p
+        // + 5] an axis; its window origin o = min(lo + 6 p, 8) keeps it in
+        // the arena, z of the (m, mv) arena rounded down to whole float4s
+        int* pw = pwin + 8 * (pass & 1);
+        if constexpr (Ar::kWindow) {
+          if (tid == 0 && pass < ptile[6]) {
+            const int* np = ptile + 3;
+            pw[3] = pass / (np[1] * np[2]);
+            pw[4] = (pass / np[2]) % np[1];
+            pw[5] = pass % np[2];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) pw[a] = min(ptile[a] + Ar::kW * pw[3 + a], 8);
+            pw[6] = min(pw[2] & ~3, 4);
+          }
+          __syncthreads();
+          if (pass >= ptile[6]) break;
+        } else {
+          if (pass > 0) break;
+        }
+        // counting sort of the slots by bin.  Lanes with one bin add to its
+        // count once; the loop is uniform over a warp since n is a multiple
+        // of 32
+        for (int q = tid; q < n; q += kThreads) {
+          const int b = Ar::kWindow ? window_bin(sbin[q], ptile, pw + 3, pw) : sbin[q];
+          const unsigned peers = __match_any_sync(0xffffffffu, b);
+          const int leader = __ffs(peers) - 1;
+          int first = 0;
+          if (lane == leader) first = atomicAdd(&hist[b], __popc(peers));
+          srank[q] = (unsigned short)(__shfl_sync(0xffffffffu, first, leader)
+                                      + __popc(peers & ((1u << lane) - 1u)));
+        }
+        __syncthreads();
+        scan_bins<Ar>(hist, blist, n_occ, wsum, tid);
+        __syncthreads();
+        for (int q = tid; q < n; q += kThreads) {
+          const int b = Ar::kWindow ? window_bin(sbin[q], ptile, pw + 3, pw) : sbin[q];
+          if (b < Ar::kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
+        }
+        __syncthreads();
+
+        // the P2G, one thread per (occupied base, channel): a base's 4
+        // channels sit on adjacent lanes, so a warp's adds hit 32 distinct
+        // words (distinct banks but where two bases lie a row apart)
+        const int n_items = 4 * *n_occ;
+        for (int it = tid; it < n_items; it += kThreads) {
+          const int b = blist[it >> 2];
+          p2g_base<Ar>(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg,
+                       Ar::kWindow ? oarena + (pw[2] - pw[6]) : oarena, org);
+        }
+        __syncthreads();
+
+        // flush the (m, mv) arena into the next pool, zeroing it for the
+        // next pass; skip zero float4s and the null oct
+        if constexpr (!Ar::kWindow) {
+          for (int i = tid; i < 4 * 16 * kNb; i += kThreads) {
+            float4* a = reinterpret_cast<float4*>(oarena + arena_off4<Ar>(i));
+            const float4 val = *a;
+            *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
+            const int br = nbs[(i >> 4) & (kNb - 1)];
+            if ((br >> 3) == p.null_oct) continue;
+            atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4<Ar>(i, br, 0)), val);
+          }
+        } else {
+          // a thread per (channel, x, y) row of the window, its 3 float4s
+          // of z; window cell (x, y, z) is arena cell (o + x, o + y, az + z)
+          const int ch = tid >> 6, x = (tid >> 3) & 7, y = tid & 7;
+          const int cx = pw[0] + x, cy = pw[1] + y, az = pw[6];
+#pragma unroll
+          for (int zg = 0; zg < 3; ++zg) {
+            float4* a = reinterpret_cast<float4*>(oarena + ch * Ar::kChan + x * Ar::kXS
+                                                  + y * Ar::kYS + 4 * zg);
+            const float4 val = *a;
+            *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
+            const int br = window_block(nbs, cx, cy, az + 4 * zg);
+            if ((br >> 3) == p.null_oct) continue;
+            atomicAdd(reinterpret_cast<float4*>(
+                          p.next_pool + ((size_t)(br >> 3) * 16 + ch * 4 + (cx & 3)) * 128
+                          + (br & 7) * 16 + (cy & 3) * 4),
+                      val);
+          }
+        }
+        for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
       }
-      for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
     }
 
     // the tile's state leaves in 16-byte stores: pos, F, aux as they now
@@ -1190,16 +1459,17 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
            const float* dt, const float* next_dt, float* pos_out,
            float* F_out, float* aux_out, unsigned char* active_out,
            int* pid_out, float* next_pool, unsigned int* margin_key,
-           float* margin_out, int num_tiles, int tile_lo, int tile_hi, int tile,
-           int g, int gzo, int num_oct_keys, int null_oct, float dx, float dx_inv,
-           float d_inv, float mass, const float* mp, int num_mp,
+           float* margin_out, unsigned int* wide_tiles, int num_tiles, int tile_lo,
+           int tile_hi, int tile, int g, int gzo, int num_oct_keys, int null_oct,
+           float dx, float dx_inv, float d_inv, float mass, const float* mp, int num_mp,
            void* stream) {
   if (num_tiles <= 0 || tile_lo < 0 || tile_hi <= tile_lo || tile_hi > num_tiles
       || tile < kMinTile || tile > kMaxTile || (tile & (tile - 1))
       || num_mp < 0 || num_mp > kMaxParams)
     return (int)cudaErrorInvalidValue;
   if ((M::kF && (F == nullptr || F_out == nullptr)) ||
-      (M::kAux && (aux == nullptr || aux_out == nullptr)))
+      (M::kAux && (aux == nullptr || aux_out == nullptr)) ||
+      (A::kWindow && wide_tiles == nullptr))
     return (int)cudaErrorInvalidValue;
   int per_sm = 0, bytes = 0, dev = 0, sms = 0;
   cudaError_t err = occupancy<M, A>(tile, &per_sm, &bytes);
@@ -1210,8 +1480,8 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Params p{pool_v, table, bcoord, tvalid, pos, F, aux, active, pid, dt,
            next_dt, pos_out, F_out, aux_out, active_out, pid_out, next_pool,
-           margin_key, margin_out, num_tiles, tile_lo, tile_hi, tile, g, gzo, num_oct_keys,
-           null_oct, dx, dx_inv, d_inv, mass, {}};
+           margin_key, margin_out, wide_tiles, num_tiles, tile_lo, tile_hi, tile, g, gzo,
+           num_oct_keys, null_oct, dx, dx_inv, d_inv, mass, {}};
   for (int i = 0; i < num_mp; ++i) p.mp[i] = mp[i];
   const int range = tile_hi - tile_lo;
   const int blocks = range < sms * per_sm ? range : sms * per_sm;
@@ -1249,23 +1519,24 @@ int info_span(int span, int tile, int* out) {
       const float* dt, const float* next_dt, float* pos_out, float* F_out,     \
       float* aux_out, unsigned char* active_out, int* pid_out,                 \
       float* next_pool, unsigned int* margin_key, float* margin_out,           \
-      int num_tiles, int tile_lo, int tile_hi, int tile, int span, int g,      \
-      int gzo, int num_oct_keys, int null_oct, float dx, float dx_inv,         \
-      float d_inv, float mass, const float* mp, int num_mp, void* stream) {    \
+      unsigned int* wide_tiles, int num_tiles, int tile_lo, int tile_hi,       \
+      int tile, int span, int g, int gzo, int num_oct_keys, int null_oct,      \
+      float dx, float dx_inv, float d_inv, float mass, const float* mp,        \
+      int num_mp, void* stream) {                                              \
     if (span == 2)                                                             \
       return launch<MAT, Span2>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
-                                margin_key, margin_out, num_tiles, tile_lo,    \
-                                tile_hi, tile, g,                              \
+                                margin_key, margin_out, wide_tiles, num_tiles, \
+                                tile_lo, tile_hi, tile, g,                     \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     if (span == 4)                                                             \
       return launch<MAT, Span4>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
-                                margin_key, margin_out, num_tiles, tile_lo,    \
-                                tile_hi, tile, g,                              \
+                                margin_key, margin_out, wide_tiles, num_tiles, \
+                                tile_lo, tile_hi, tile, g,                     \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     return (int)cudaErrorInvalidValue;                                         \

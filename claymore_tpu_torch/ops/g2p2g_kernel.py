@@ -36,6 +36,7 @@ _LAYOUT = {
     NACC: ("g2p2g_nacc", "F", "logJp", 3),
 }
 MIN_TILE, MAX_TILE = 32, 1024     # the kernel's range of particle_tile
+_WIDE = {}                        # device -> wide_tile_counter
 
 
 def kernel_params(material: Material) -> List[float]:
@@ -190,7 +191,7 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
         dt.data_ptr(), next_dt.data_ptr(), pos_out.data_ptr(),
         ptr(fields_out, f_name), ptr(fields_out, aux_name),
         active_out.data_ptr(), pid_out.data_ptr(), next_pool.data_ptr(),
-        margin_key.data_ptr(), margin.data_ptr(),
+        margin_key.data_ptr(), margin.data_ptr(), wide_tile_counter(dev).data_ptr(),
         num_tiles, lo, hi, cfg.particle_tile, cfg.arena_span, cfg.grid_size,
         cfg.grid_size_zo,
         cfg.num_oct_keys, cfg.null_oct,
@@ -201,6 +202,20 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
     new_model = ParticleModel(pos=pos_out, fields=fields_out,
                               active=active_out, pid=pid_out, tiles=tm)
     return new_model, next_pool, margin
+
+
+def wide_tile_counter(device) -> torch.Tensor:
+    """The device counter (i32[1] on ``device``) of the tiles K1's span-4
+    variant has transferred in more than one P2G pass (their post-advection
+    stencil bases span more than the 6 of one window on some axis), summed
+    over every launch on the device.  The substep never reads it; a
+    profiling script zeroes it (``zero_()``) and reads it after its run."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in _WIDE:
+        _WIDE[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _WIDE[dev]
 
 
 def kernel_info(material: Material, tile: int, span: int = 2) -> dict:

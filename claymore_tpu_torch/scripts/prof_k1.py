@@ -14,6 +14,13 @@ CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
 * K1-JF on dambreak12m (12,103,168 JFluid) after 20 substeps, K1-SD and
   K1-NC on the 2,132,820-particle sand and nacc boxes after 40 substeps,
   their grid velocities stirred so that the return maps branch;
+* K1's span-4 variant on the span-4 states ``chip_smoke.py`` holds to the
+  plain version: sphere25m after 61 substeps with a rebuild every 4
+  (FixedCorotated), sand and nacc after 21 and multimat's JFluid after 21
+  (``rebucket_every=4``, stirred), each also with every 4th live tile's
+  particles spread over the arena (``spread_tiles``), and each state's
+  share of wide tiles (``wide_tiles`` on K1's output; with the kernel's own
+  count beside it where the package has ``wide_tile_counter``);
 * the drift check on the sphere25m state (what the substep does after K1
   to decide on a rebuild, host read included) and, on the host clock, its
   drift-only substep (median of 20 synchronised substeps);
@@ -79,6 +86,65 @@ def permute_tiles(cfg, state, order: str, seed: int = SEED, model_idx: int = 0):
     return dataclasses.replace(state, models=tuple(models))
 
 
+WINDOW_BASES = 6     # stencil bases an axis of K1's span-4 P2G window (csrc/g2p2g.cu)
+
+
+def tile_extent(cfg, model) -> torch.Tensor:
+    """[3, T] extent per axis (max - min + 1) of the stencil bases
+    (``partition.base_cell``) of each tile's active particles; 0 for a dead
+    tile or one with none active.  On K1's output (post-advection
+    positions, the particles it kept) at span 4, a tile whose extent exceeds
+    ``WINDOW_BASES`` on some axis is one the kernel transfers in more than
+    one P2G pass."""
+    from claymore_tpu_torch.core import partition
+
+    t, n = model.tiles.tvalid.shape[0], cfg.particle_tile
+    base = partition.base_cell(cfg, model.pos).reshape(3, t, n)
+    live = (model.active.reshape(t, n) & model.tiles.tvalid[:, None])[None]
+    big = torch.iinfo(torch.int32).max
+    hi = torch.where(live, base, -big).amax(dim=2)
+    lo = torch.where(live, base, big).amin(dim=2)
+    return torch.where(live.any(dim=2), hi - lo + 1, torch.zeros_like(hi))
+
+
+def wide_tiles(cfg, model):
+    """(wide tiles, tiles holding an active particle) of ``model``: wide
+    where ``tile_extent`` exceeds ``WINDOW_BASES`` on some axis."""
+    ext = tile_extent(cfg, model)
+    return int((ext > WINDOW_BASES).any(dim=0).sum()), int((ext > 0).any(dim=0).sum())
+
+
+def spread_tiles(cfg, state, every: int = 4, seed: int = SEED, model_idx: int = 0):
+    """``state`` (span 4) with the active particles of every ``every``-th
+    live tile of one model moved to seeded positions spread over the tile's
+    arena: per tile and axis a run of 4..14 stencil bases at a seeded
+    offset among the arena's 14, so that nearly every such tile spans more
+    bases than K1's window and some the whole arena (three P2G passes an
+    axis).  The numbers come from numpy, so the CPU and the card get the
+    same state.  Tiles, partition, grid and fields are kept."""
+    if cfg.arena_span != 4:
+        raise ValueError("spread_tiles takes a span-4 state")
+    m = state.models[model_idx]
+    t, n, bs = m.tiles.tvalid.shape[0], cfg.particle_tile, cfg.block_size
+    pick = np.nonzero(m.tiles.tvalid.cpu().numpy())[0][::every]
+    rng = np.random.default_rng(seed)
+    k = len(pick)
+    width = rng.integers(4, 15, size=(3, k))
+    start = rng.integers(0, 15 - width)
+    # relative cell coordinates whose stencil bases run start .. start + width - 1
+    xs = start[..., None] + 0.5 + rng.random((3, k, n), dtype=np.float32) * width[..., None]
+    dev = m.pos.device
+    idx = torch.from_numpy(pick).to(dev)
+    org = ((m.tiles.bcoord[:, idx] + cfg.arena_lo) * bs).to(torch.float32)[..., None]
+    new = (org + torch.from_numpy(xs.astype(np.float32)).to(dev)) * cfg.dx
+    pos = m.pos.clone().reshape(3, t, n)
+    act = m.active.reshape(t, n)[idx][None]
+    pos[:, idx] = torch.where(act, new, pos[:, idx])
+    models = list(state.models)
+    models[model_idx] = dataclasses.replace(m, pos=pos.reshape(3, -1))
+    return dataclasses.replace(state, models=tuple(models))
+
+
 def stir(state, scale: float = 0.5, seed: int = SEED):
     """``state`` with seeded noise added to the grid velocity (momentum
     noise times mass)."""
@@ -115,13 +181,13 @@ def median_ms(fn, reps: int, batch: int = 1) -> float:
     return float(np.median([device_ms(run, "cuda") for _ in range(reps)])) / batch
 
 
-def k1_ms(cfg, mat, state, reps: int, dead: bool = False) -> float:
+def k1_ms(cfg, mat, state, reps: int, dead: bool = False, model_idx: int = 0) -> float:
     """K1 from one grid update of ``state`` into a pool it keeps adding to
     (the accumulator's contents do not change the work)."""
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
-    model = state.models[0]
+    model = state.models[model_idx]
     if dead:
         model = dataclasses.replace(model, tiles=dataclasses.replace(
             model.tiles, tvalid=torch.zeros_like(model.tiles.tvalid)))
@@ -147,13 +213,55 @@ def drift_check_ms(cfg, mat, state, reps: int) -> float:
     return median_ms(lambda: bool(partition.arena_margin(cfg, model) <= 0.0), reps)
 
 
-def engine(name: str, steps: int, stirred: bool = False):
-    import claymore_tpu_torch as ct
+def k1_wide(cfg, mat, state, model_idx: int = 0) -> dict:
+    """One K1 call on ``state``: ``wide_tiles`` of its output, and the
+    kernel's own count of wide tiles where the package has one."""
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
-    cfg, mat, pos, v0 = scene(name)
-    eng = ct.MPMEngine(cfg, [mat], tile_chunk=64, device="cuda")
-    state = eng.run_steps(eng.init_state([pos], [v0]), steps, np.float32(1e9))
-    return eng, cfg, mat, stir(state) if stirred else state
+    pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
+    counter = getattr(g2p2g_kernel, "wide_tile_counter", None)
+    if counter is not None:
+        counter("cuda").zero_()
+    out = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table,
+                             state.models[model_idx], state.dt, state.dt,
+                             torch.zeros_like(state.grid), 64)[0]
+    wide, live = wide_tiles(cfg, out)
+    return {"wide": wide, "live": live, "share": wide / max(live, 1),
+            "kernel_count": None if counter is None else int(counter("cuda")[0])}
+
+
+def engine(name: str, steps: int, stirred: bool = False, **cfg_kw):
+    """(engine, cfg, materials, state) of ``bench.py``'s scene ``name`` (its
+    configuration with ``cfg_kw`` replaced) after ``steps`` substeps."""
+    import claymore_tpu_torch as ct
+    from claymore_tpu_torch.scripts.bench import build
+
+    cfg, mats, parts, v0s, cols = build(name, False)
+    cfg = dataclasses.replace(cfg, **cfg_kw)
+    eng = ct.MPMEngine(cfg, mats, cols, tile_chunk=64, device="cuda")
+    state = eng.run_steps(eng.init_state(parts, v0s), steps, np.float32(1e9))
+    return eng, cfg, mats, stir(state) if stirred else state
+
+
+def span4_states(reps: int) -> dict:
+    """K1's span-4 variant on ``chip_smoke.py``'s span-4 states and on the
+    same with every 4th live tile spread over its arena: ms and wide tiles."""
+    out = {}
+    for key, name, steps, model_idx, kw, stirred in (
+            ("fc_sphere25m", "sphere25m", 61, 0, dict(rebucket_auto=False), False),
+            ("jf_multimat", "multimat", 21, 1, {}, True),
+            ("sd_sand", "sand", 21, 0, {}, True),
+            ("nc_nacc", "nacc", 21, 0, {}, True)):
+        _, cfg, mats, state = engine(name, steps, stirred, rebucket_every=4, **kw)
+        mat = mats[model_idx]
+        spread = spread_tiles(cfg, state, model_idx=model_idx)
+        out[key] = {"ms": k1_ms(cfg, mat, state, reps, model_idx=model_idx),
+                    "wide": k1_wide(cfg, mat, state, model_idx),
+                    "spread_ms": k1_ms(cfg, mat, spread, reps, model_idx=model_idx),
+                    "spread_wide": k1_wide(cfg, mat, spread, model_idx)}
+        del state, spread
+        torch.cuda.empty_cache()
+    return out
 
 
 def lane_probe_ms(reps: int, tiles: int = 65536) -> dict:
@@ -190,7 +298,8 @@ def main(argv=None) -> int:
     res = {"package": os.path.dirname(os.path.abspath(claymore_tpu_torch.__file__)),
            "device": device_label("cuda")}
     t0 = time.perf_counter()
-    eng, cfg, mat, state = engine("sphere25m", 1)
+    eng, cfg, mats, state = engine("sphere25m", 1)
+    mat = mats[0]
     fe = torch.tensor(1e9, device="cuda")
     for label, steps in (("after_1", 0), (f"after_{1 + args.substeps}", args.substeps)):
         state = eng.run_steps(state, steps, fe)
@@ -212,10 +321,11 @@ def main(argv=None) -> int:
     for key, name, steps, stirred in (("jf_dambreak12m", "dambreak12m", 20, False),
                                       ("sd_sand", "sand", 40, True),
                                       ("nc_nacc", "nacc", 40, True)):
-        _, cfg, mat, state = engine(name, steps, stirred)
-        res[key] = k1_ms(cfg, mat, state, args.reps)
+        _, cfg, mats, state = engine(name, steps, stirred)
+        res[key] = k1_ms(cfg, mats[0], state, args.reps)
         del state
         torch.cuda.empty_cache()
+    res["span4"] = span4_states(args.reps)
     res.update(lane_probe_ms(args.reps))
     res["wall_s"] = time.perf_counter() - t0
     print("PROFK1", json.dumps(res), flush=True)

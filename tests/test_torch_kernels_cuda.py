@@ -14,7 +14,7 @@ import torch
 
 import claymore_tpu_torch as ct
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
-from claymore_tpu_torch.scripts.prof_k1 import permute_tiles, stir
+from claymore_tpu_torch.scripts.prof_k1 import permute_tiles, spread_tiles, stir
 from claymore_tpu_torch.scripts.bench import sdf_dome
 
 pytestmark = pytest.mark.cuda
@@ -226,6 +226,25 @@ def test_g2p2g_span4_kernel_matches_plain(card, name):
     card.check_g2p2g_kernel(cfg, mat, stir(state), tile_chunk=8, time_it=False)
 
 
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid", "sand", "nacc"])
+def test_g2p2g_span4_wide_tiles_match_plain(card, name):
+    """Tiles wider than the span-4 variant's P2G window (every 4th live
+    tile's particles spread over its arena, ``spread_tiles``; the box above
+    never leaves the window): the kernel transfers them in several passes,
+    counts them (check_g2p2g_kernel holds the count equal to
+    ``prof_k1.wide_tiles`` of its output) and matches the plain version, on
+    the whole range and on the two ranges of the multi-device split."""
+    eng, state, _ = _span4_engine(name)
+    cfg, mat = eng.cfg, eng.materials[0]
+    spread = spread_tiles(cfg, stir(state))
+    r = card.check_g2p2g_kernel(cfg, mat, spread, tile_chunk=8, time_it=False)
+    assert r["wide_tiles"] > 0
+    nt = state.models[0].tiles.tvalid.shape[0]
+    r = card.check_g2p2g_kernel(cfg, mat, spread, tile_chunk=8, time_it=False,
+                                tile_split=8 * (nt // 16))
+    assert r["wide_tiles"] > 0
+
+
 def test_g2p2g_span4_engine_runs_on_the_kernel(card):
     """A span-4 engine with the incremental rebucket on the card: every
     substep launches the span-4 variant, mass and particles are kept, the
@@ -334,14 +353,19 @@ def test_init_on_the_card_rasterizes_like_the_cpu(card, monkeypatch, raster_tile
 
 
 def test_g2p2g_span4_refuses_a_tile_it_cannot_take(card):
-    """At span 4 FixedCorotated's layout at tile 1024 does not fit a block's
-    shared memory: the wrapper raises, and kernel_info says 0 blocks."""
+    """The span-4 layout (per-tile windows, span 2's shared memory) fits
+    every tile the kernel takes: at 512 two blocks per SM (JFluid three),
+    at 1024 one, and a span-4 engine at tile 1024 runs on the kernel.  What
+    it refuses is a tile outside 32..1024: the wrapper raises."""
     from claymore_tpu_torch.ops import g2p2g_kernel
 
-    mat = ct.FixedCorotated(volume=1e-6)
-    assert g2p2g_kernel.kernel_info(mat, 1024, 4)["blocks_per_sm"] == 0
-    assert g2p2g_kernel.kernel_info(mat, 512, 4)["blocks_per_sm"] >= 1
+    for name, blocks in (("fixed_corotated", 2), ("jfluid", 3), ("sand", 2), ("nacc", 2)):
+        mat = _material(name, 1e-6)
+        assert g2p2g_kernel.kernel_info(mat, 512, 4)["blocks_per_sm"] >= blocks, name
+        assert g2p2g_kernel.kernel_info(mat, 1024, 4)["blocks_per_sm"] >= 1, name
     eng, state, _ = _span4_engine("fixed_corotated", tile=1024)
+    card.check_g2p2g_kernel(eng.cfg, eng.materials[0], state, tile_chunk=8, time_it=False)
+    eng, state, _ = _span4_engine("fixed_corotated", tile=2048)
     with pytest.raises(NotImplementedError):
         eng.substep(state, 1.0)
 
