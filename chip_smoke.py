@@ -50,6 +50,14 @@ against its plain twin), and drives the port's main paths through
   the one-device file for one frame, both frames through the native
   writer and read back.
 
+The rebucket kernels (``csrc/rebucket.cu``: the home-block keys, the
+segment heads, the tile plan, the placement) are held against their plain
+twins bit for bit (``check_rebucket_kernel``) on the sphere25m final state
+as it is, with every tile's slots permuted, with every slot shuffled and
+in half its tiles (particles dropped), on dambreak12m's and dambreak_sdf's
+final states and on shard 0 of the 2x2 sphere with its region; every path
+counts their launches (the init's sort and each full rebuild).
+
 It also holds the probes P1-P6 (the kernels of the profiling scripts)
 against their plain versions at the TPU scripts' inputs and drives the
 profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches),
@@ -90,6 +98,7 @@ SEED = 0
 DEVICE = "cuda"
 SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
 PEAK_BOUND = 80e9         # bytes of device memory a path may peak at: one card
+REBUCKET_KERNELS = ("rebucket_keys", "rebucket_heads", "rebucket_plan", "rebucket_place")
 
 
 T0 = time.perf_counter()
@@ -371,6 +380,148 @@ def check_incremental_plan(cfg, model) -> dict:
     movers = int((model.active & (key != tk.repeat_interleave(cfg.particle_tile))).sum())
     return {"movers": movers, "deferred": int(d2[0]), "ms": ms,
             "slots": int(model.pos.shape[1]), "active": int(model.active.sum())}
+
+
+def _same(a, b) -> bool:
+    """Bit for bit: same dtype, shape and bits (floats compared as int32)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _abs_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def shuffle_slots(model, seed: int = SEED, keep_slots: int = None):
+    """``model`` with every slot moved by one seeded permutation of all
+    slots (the worst order for the rebucket's gathers); with
+    ``keep_slots``, only the first ``keep_slots`` of the shuffled slots (a
+    capacity the particles may overflow)."""
+    s_cap = model.pos.shape[1]
+    idx = torch.from_numpy(np.random.default_rng(seed).permutation(s_cap)).to(model.pos.device)
+    if keep_slots is not None:
+        idx = idx[:keep_slots]
+
+    def take(x):
+        return x[..., idx].contiguous()
+
+    return dataclasses.replace(model, pos=take(model.pos), active=take(model.active),
+                               pid=take(model.pid), tiles=None,
+                               fields={k: take(v) for k, v in model.fields.items()})
+
+
+def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
+                          reps: int = 10, plain_reps: int = 3) -> dict:
+    """The rebucket kernels (``ops/rebucket_kernel.py``) against their plain
+    twins (``core/partition.py``) on ``model``, bit for bit, each on the
+    same inputs: the keys (``home_keys``), the heads (``segment_heads``),
+    the plan (``segment_bases`` and ``tile_windows``) and the placement
+    (``place``), then the whole ``sort_permute`` against the plain version.
+    Times (CUDA events, median of ``reps``; the plain ones of
+    ``plain_reps``): the keys and the sort, the sort alone, each kernel,
+    the whole and the plain version, beside ``rebucket_bound``.  Not
+    counted."""
+    from claymore_tpu_torch.core import partition as part
+    from claymore_tpu_torch.ops import rebucket_kernel as rk
+    from claymore_tpu_torch.utils.bounds import rebucket_bound
+
+    s_cap = model.pos.shape[1]
+    nt = s_cap // cfg.particle_tile
+    errs = {}
+
+    def expect(name, a, b):
+        if not _same(a, b):
+            raise AssertionError(f"rebucket kernel {label}: {name} differs from the plain twin")
+        errs[name] = _abs_err(a, b)
+
+    expect("home_keys", rk.home_keys(cfg, model), part.home_keys(cfg, model))
+    skey, perm, region = rk.sort_keys(cfg, model, region_fn)
+    skey_p, perm_p, _ = part.sort_keys(cfg, model, region_fn)
+    expect("sorted keys", skey, skey_p)
+    expect("sort index", perm, perm_p)
+    del skey_p, perm_p
+    off, sentinel = part.region_offsets(cfg, region)
+
+    seg_start, meta = rk.launch_heads(cfg, skey, region)
+    heads = part.segment_heads(skey, sentinel)
+    g = heads.shape[0] - 1
+    expect("seg_start", seg_start[:g + 1], heads)
+    expect("meta", meta, torch.tensor([g, int(heads[-1])], dtype=torch.int32, device=DEVICE))
+    dstart, dlen, tile_keys, dropped, base = rk.launch_plan(cfg, skey, seg_start, meta, nt,
+                                                            region)
+    base_p = part.segment_bases(cfg, skey, heads)
+    plan_p = part.tile_windows(cfg, skey, heads, base_p, nt, region)
+    expect("base", base[:g], base_p)
+    for name, a, b in zip(("dstart", "dlen", "tile_keys", "dropped"),
+                          (dstart, dlen, tile_keys, dropped), plan_p):
+        expect(name, a, b)
+    out = rk.place(cfg, model, perm, dstart, dlen)
+    ref = part.place(cfg, model, perm, plan_p[0], plan_p[1])
+    for name in ("pos", "active", "pid"):
+        expect("place." + name, getattr(out, name), getattr(ref, name))
+    for k in model.fields:
+        expect("place." + k, out.fields[k], ref.fields[k])
+    del out, ref
+    whole = rk.sort_permute(cfg, model, nt, region_fn)
+    plain = part.sort_permute(cfg, model, nt, region_fn)
+    for name, a, b in (("pos", whole[0].pos, plain[0].pos), ("pid", whole[0].pid, plain[0].pid),
+                       ("active", whole[0].active, plain[0].active),
+                       ("tile_keys", whole[1], plain[1]), ("dropped", whole[2], plain[2]),
+                       *((k, whole[0].fields[k], plain[0].fields[k]) for k in model.fields)):
+        expect("sort_permute." + name, a, b)
+    n_act = int(heads[-1])
+    n_dropped = int(whole[2][0])
+    del whole, plain
+    src = part.region_source(cfg, rk.home_keys(cfg, model), region_fn)
+    ms = {
+        "keys+sort": cuda_ms(lambda: rk.sort_keys(cfg, model, region_fn), reps=reps),
+        "sort": cuda_ms(lambda: torch.sort(src, stable=True), reps=reps),
+        "keys": cuda_ms(lambda: rk.home_keys(cfg, model), reps=reps),
+        "heads": cuda_ms(lambda: rk.launch_heads(cfg, skey, region), reps=reps),
+        "plan": cuda_ms(lambda: rk.launch_plan(cfg, skey, seg_start, meta, nt, region),
+                        reps=reps),
+        "place": cuda_ms(lambda: rk.place(cfg, model, perm, dstart, dlen), reps=reps),
+        "sort_permute": cuda_ms(lambda: rk.sort_permute(cfg, model, nt, region_fn), reps=reps),
+    }
+    plain = {
+        "keys": lambda: part.home_keys(cfg, model),
+        "heads": lambda: part.segment_heads(skey, sentinel),
+        "plan": lambda: part.tile_windows(cfg, skey, heads, part.segment_bases(cfg, skey, heads),
+                                          nt, region),
+        "place": lambda: part.place(cfg, model, perm, dstart, dlen),
+        "sort_permute": lambda: part.sort_permute(cfg, model, nt, region_fn),
+    }
+    plain_ms = {k: cuda_ms(f, reps=plain_reps) for k, f in plain.items()}
+    del src
+    channels = 3 + sum(v.numel() // s_cap for v in model.fields.values()) + 1
+    b = rebucket_bound(cfg, s_cap, channels, active=n_act, segments=g)
+    beyond = ms["sort_permute"] - ms["sort"]
+    res = {"label": label, "slots": s_cap, "active": n_act, "segments": g, "tiles": nt,
+           "dropped": n_dropped, "region": region, "max_abs_err": max(errs.values()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+           "sort_bound_ms": b["sort"]["bound_ms"], "beyond_sort_ms": beyond,
+           "share": b["bound_ms"] / beyond if beyond > 0 else None,
+           "stages": {k: {"ms": ms[k], "plain_ms": plain_ms[k],
+                          "bound_ms": b["stages"][k]["bound_ms"],
+                          "share": b["stages"][k]["bound_ms"] / ms[k]}
+                      for k in ("keys", "heads", "plan", "place")}}
+    share = "n/a" if res["share"] is None else f"{res['share']:.1%}"
+    log(f"rebucket kernels vs plain twins, {label}: {s_cap} slots, {n_act} active, {g} "
+        f"segments, dropped {n_dropped}: every output equal bit for bit; ms (median of "
+        f"{reps}) keys+sort {ms['keys+sort']:.4f}, sort {ms['sort']:.4f} (bound "
+        f"{b['sort']['bound_ms']:.4f}), keys {ms['keys']:.4f}, heads {ms['heads']:.4f}, plan "
+        f"{ms['plan']:.4f}, place {ms['place']:.4f}, sort_permute {ms['sort_permute']:.4f}; "
+        f"plain twins keys {plain_ms['keys']:.4f}, heads "
+        f"{plain_ms['heads']:.4f}, plan {plain_ms['plan']:.4f}, place "
+        f"{plain_ms['place']:.4f}, sort_permute {plain_ms['sort_permute']:.4f}; bound beyond "
+        f"the sort {b['bound_ms']:.4f} ms ({b['bound_by']}) against {beyond:.4f}: {share}; "
+        f"stage bounds and shares " + ", ".join(
+            f"{k} {v['bound_ms']:.4f} ({v['share']:.1%})" for k, v in res["stages"].items())
+        + f" | {facts}")
+    return res
 
 
 def k1_order_sensitivity(cfg, mat, state, as_is: dict, facts: str) -> dict:
@@ -917,10 +1068,10 @@ def probe(state, n: int = 4096, model_idx: int = 0) -> np.ndarray:
 
 
 def _launch_dicts():
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, probe_kernels
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, probe_kernels, rebucket_kernel
 
     return (grid_kernel.grid_update.launches, g2p2g_kernel.g2p2g.launches,
-            probe_kernels.launches)
+            probe_kernels.launches, rebucket_kernel.launches)
 
 
 def reset_counts() -> None:
@@ -1028,6 +1179,12 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "deferred": all(max(r["deferred"]) == 0 for r in rebuild_log),
         "rebuild_kind": all((r["kind"] == "full") == r["full"] for r in rebuild_log),
         "peak": peak_gib * 2**30 < PEAK_BOUND,
+        # the init's sort of each model and each model's full rebuild (and
+        # each incremental plan that fell back) run the rebucket kernels
+        "rebucket_launches": (
+            len({launches[k] for k in REBUCKET_KERNELS}) == 1
+            and launches["rebucket_place"] >= len(mats) * (
+                1 + sum(r["kind"] == "full" for r in rebuild_log))),
     }
     total_ms = sum(plain_ms) + sum(rebuild_ms)
     full = [r["ms"] for r in rebuild_log if r["full"]]
@@ -1040,6 +1197,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "ms_drift_only": float(np.mean(plain_ms)) if plain_ms else None,
         "init_s": init_s, "peak_gib": peak_gib, "mass_rel_err": mass_err,
         "displacement": disp, "launches": {k: launches[k] for k in used},
+        "rebucket_launches": {k: launches[k] for k in REBUCKET_KERNELS},
         "fused_margins": margins, "arena_span": cfg.arena_span,
         "defrag_every": cfg.defrag_every,
         "rebuilds_full": len(full), "rebuilds_incremental": len(inc),
@@ -1067,8 +1225,8 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         f"{out['ms_rebuilding'] if out['ms_rebuilding'] is None else round(out['ms_rebuilding'], 3)} ms, "
         f"drift-only substep {out['ms_drift_only'] if out['ms_drift_only'] is None else round(out['ms_drift_only'], 3)} ms, "
         f"init {init_s:.2f} s, peak {peak_gib:.2f} GiB, mass_rel_err {mass_err:.3e}, "
-        f"displacement {disp:.3e}, launches {out['launches']}, fused margins "
-        f"{margins} == arena_margin | {facts}")
+        f"displacement {disp:.3e}, launches {out['launches']}, rebucket "
+        f"{out['rebucket_launches']}, fused margins {margins} == arena_margin | {facts}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         msg = (f"main path {label} checks failed: {failed} ({d}, launches {launches}, "
@@ -1227,9 +1385,10 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
     ``state`` (single model): K2 (with ``colliders``), the CFL step, K1
     (which computes the drift margin in its epilogue), what is left of the
     drift check, the host read of that margin, and the three parts of a
-    rebuild.  Not counted."""
+    rebuild (``sort_permute`` as the engine runs it, through the rebucket
+    kernels, with its keys and sort alone beside it).  Not counted."""
     from claymore_tpu_torch.core import grid, partition
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, rebucket_kernel
 
     mat, model = mats[0], state.models[0]
     fe = torch.tensor(1e9, device=DEVICE)
@@ -1242,7 +1401,7 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
     _, _, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, model,
                                       state.dt, next_dt, acc, tile_chunk)
     nt = model.tiles.block.shape[0]
-    pm, tk, dr = partition.sort_permute(cfg, model, nt)
+    pm, tk, dr = rebucket_kernel.sort_permute(cfg, model, nt)
     part, _ = partition.rebuild(cfg, state.grid, state.partition, (tk,))
     stages = {
         "K2 grid_update": lambda: grid_kernel.grid_update(
@@ -1252,7 +1411,8 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
             cfg, mat, pool_v, state.partition.table, model, state.dt, next_dt,
             acc, tile_chunk),
         "drift check host read": lambda: bool(margin <= 0.0),
-        "sort_permute": lambda: partition.sort_permute(cfg, model, nt),
+        "sort_permute": lambda: rebucket_kernel.sort_permute(cfg, model, nt),
+        "sort_permute: keys+sort": lambda: rebucket_kernel.sort_keys(cfg, model),
         "rebuild": lambda: partition.rebuild(cfg, state.grid, state.partition, (tk,)),
         "finalize_tiles": lambda: partition.finalize_tiles(cfg, part, tk, dr),
     }
@@ -1704,7 +1864,8 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     expected = n * mats[0].mass
     k1 = variant_name(mats[0], cfg.arena_span)
     nd = eng.n_dev
-    used = {"grid_update": launches["grid_update"], k1: launches[k1]}
+    used = {"grid_update": launches["grid_update"], k1: launches[k1],
+            **{k: launches[k] for k in REBUCKET_KERNELS}}
     bytes_ = comm.exchanged_bytes([st.partition for st in state], state[0].models)
     checks = {
         "finite": bool(np.isfinite(d["t"]) and torch.isfinite(pos).all()),
@@ -1720,6 +1881,8 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         "positions": pos_err < MULTI_BOUND and pos_err_all < MULTI_BOUND,
         "moves": disp > 0.0,
         "launches": used["grid_update"] == steps * nd and used[k1] >= steps * nd,
+        # every shard's initial sort at least
+        "rebucket_launches": min(used[k] for k in REBUCKET_KERNELS) >= nd,
         "peak": peak_gib * 2**30 < PEAK_BOUND,
     }
     out = {"mesh": list(mesh), "particles": n, "substeps": steps, "overlap_halo": overlap,
@@ -1970,6 +2133,10 @@ def multi_paths(facts: str) -> dict:
                              time_it=False)
     log(f"K1 on shard 0 of the multi sphere25m state vs plain: grid err "
         f"{k1s['max_abs_err']:.3e}, pos {k1s['pos_err']:.3e} | {facts}")
+    # the rebucket kernels on shard 0 with its region (boundary blocks first)
+    p1["rebucket"] = check_rebucket_kernel(
+        eng.cfg, st[0].models[0], "shard 0 of the multi sphere25m 2x2 state, its region",
+        facts, region_fn=lambda k: eng.comm.is_boundary_key(k, eng.comm.shards[0]))
     del st, eng
     torch.cuda.empty_cache()
     p2 = multi_run("sphere25m", (2, 2), 40, facts, ref, overlap=False,
@@ -2168,7 +2335,8 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
     del p0
     margins = check_fused_margin(eng, state)
     k1 = variant_name(mat, cfg.arena_span)
-    used = {"grid_update": launches["grid_update"], k1: launches[k1]}
+    used = {"grid_update": launches["grid_update"], k1: launches[k1],
+            **{k: launches[k] for k in REBUCKET_KERNELS}}
     checks = {
         "mass": mass_err < 1e-5,
         "null_row": d["null_block_mass"] == 0.0,
@@ -2179,6 +2347,8 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
         "finite": bool(np.isfinite(d["t"]) and torch.isfinite(pos).all()),
         "moves": disp > 0.0,
         "launches": used["grid_update"] == steps and used[k1] == steps,
+        # the init's sort and every substep's rebuild
+        "rebucket_launches": all(used[k] == steps + 1 for k in REBUCKET_KERNELS),
         "rebuilds": eng.rebuilds == steps,          # rebucket_every=1: every substep
         "peak": peak < PEAK_BOUND,
     }
@@ -2203,6 +2373,9 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
     out["stages_ms"] = stages
     out["k1"] = {"ms": stages["K1 g2p2g"], **g2p2g_bound(cfg, mat, state)}
     out["k2"] = {"ms": stages["K2 grid_update"], **grid_bound(cfg, state.grid, state.partition)}
+    log(f"config 5 on one device, through the rebucket kernels: sort_permute "
+        f"{stages['sort_permute']:.3f} ms (keys+sort {stages['sort_permute: keys+sort']:.3f}), "
+        f"peak {out['peak_gib']:.2f} GiB | {facts}")
     log("config 5 on one device, stages on its final state (ms, median of 5): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; K1 bound {out['k1']['bound_ms']:.4f} ms ({out['k1']['bound_by']}), K2 bound "
@@ -2488,7 +2661,8 @@ def main() -> int:
     torch.cuda.synchronize()
     rebuild_ms = (time.perf_counter() - t0) / 3 * 1e3
     counts = read_counts()
-    launches = {k: counts[k] for k in ("grid_update", "g2p2g_fixed_corotated")}
+    launches = {k: counts[k] for k in ("grid_update", "g2p2g_fixed_corotated",
+                                       *REBUCKET_KERNELS)}
     substeps = 1 + steps + 3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rebuilds = auto_rebuilds + eng_every.rebuilds
@@ -2506,7 +2680,10 @@ def main() -> int:
         "finite": bool(np.isfinite(d["t"]) and np.isfinite(float(state.max_vel))),
         "moves": disp > 0.0,
         "rebuilt": eng_every.rebuilds == 3,
-        "launches": min(launches.values()) >= substeps,
+        "launches": min(launches[k] for k in ("grid_update", "g2p2g_fixed_corotated"))
+        >= substeps,
+        # the init's sort and every rebuild's
+        "rebucket_launches": all(launches[k] == 1 + rebuilds for k in REBUCKET_KERNELS),
         "steps": d["step"] == substeps,
     }
     ms = elapsed / steps * 1e3
@@ -2549,6 +2726,25 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in prof.items())
         + "; stage_breakdown (median of 10): "
         + ", ".join(f"{k} {v:.3f}" for k, v in sb.items()) + f" | {facts}")
+    # the rebucket kernels against their plain twins on the final state: as
+    # it is, every tile's slots permuted (as K1's order check), every slot
+    # shuffled, and half the shuffled slots' tiles (particles dropped)
+    model25 = state.models[0]
+    rebucket_checks = {"sphere25m": check_rebucket_kernel(cfg25, model25, "sphere25m final state",
+                                                          facts)}
+    rebucket_checks["sphere25m_permuted"] = check_rebucket_kernel(
+        cfg25, prof_k1.permute_tiles(cfg25, state, "permuted").models[0],
+        "sphere25m final state, every tile's slots permuted", facts)
+    rebucket_checks["sphere25m_shuffled"] = check_rebucket_kernel(
+        cfg25, shuffle_slots(model25), "sphere25m final state, every slot shuffled", facts)
+    tight = check_rebucket_kernel(
+        cfg25, shuffle_slots(model25, keep_slots=nt25 // 2 * cfg25.particle_tile),
+        f"sphere25m final state shuffled, its first {nt25 // 2} of {nt25} tiles", facts,
+        reps=3)
+    if tight["dropped"] == 0:
+        raise AssertionError("rebucket check: the tight state dropped no particle")
+    rebucket_checks["sphere25m_tight"] = tight
+    torch.cuda.empty_cache()
     del state, eng, eng_every, before
     torch.cuda.empty_cache()
 
@@ -2605,6 +2801,8 @@ def main() -> int:
     stages = stage_breakdown(db["cfg"], db["mats"], db["state"])
     log("dambreak12m stages on its final state (ms, median of 10): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {facts}")
+    rebucket_checks["dambreak12m"] = check_rebucket_kernel(
+        db["cfg"], db["state"].models[0], "dambreak12m final state", facts)
     del db
     torch.cuda.empty_cache()
 
@@ -2694,6 +2892,8 @@ def main() -> int:
     if touched == 0:
         raise AssertionError("dambreak_sdf: the fluid never reached the SDF dome")
     paths["dambreak_sdf"].update(scene_stages(sdfrun, facts))
+    rebucket_checks["dambreak_sdf"] = check_rebucket_kernel(
+        sdfrun["cfg"], sdfrun["state"].models[0], "dambreak_sdf final state", facts)
     del sdfrun
     torch.cuda.empty_cache()
 
@@ -2842,6 +3042,37 @@ def main() -> int:
         if name != "rmw":
             e["plan"] = check["plan"]
         kernels.append(e)
+    # the rebucket kernels: not TPU kernels (the JAX package runs the stage
+    # in XLA); times on the sphere25m final state, every state's checks
+    # beside them, and their launches on the other paths
+    rebucket_checks["multi_sphere25m_2x2_shard0"] = paths["multi_sphere25m_2x2"]["rebucket"]
+    rb = rebucket_checks["sphere25m"]
+    for name, stage in zip(REBUCKET_KERNELS, ("keys", "heads", "plan", "place")):
+        e = {"name": name, "route": "cuda", "source": src + "rebucket.cu",
+             "replaces": "claymore_tpu/core/partition.py:83",
+             "tpu_route": "not a TPU kernel: XLA in the JAX package (sort_permute's lax.sort "
+                          "carrying every channel, searchsorted, window slices)",
+             "launches": paths["sphere25m"]["launches"][name],
+             "max_abs_err": max(c["max_abs_err"] for c in rebucket_checks.values()),
+             "ms": rb["stages"][stage]["ms"], "plain_ms": rb["stages"][stage]["plain_ms"],
+             "bound_ms": rb["stages"][stage]["bound_ms"], "bound_by": "bytes",
+             "library_ms": None,
+             "states": {k: {"slots": c["slots"], "dropped": c["dropped"],
+                            "ms": c["stages"][stage]["ms"],
+                            "bound_ms": c["stages"][stage]["bound_ms"]}
+                        for k, c in rebucket_checks.items()},
+             "launches_paths": {p: paths[p]["rebucket_launches"][name]
+                                for p in ("dambreak12m", "dambreak_sdf",
+                                          "dambreak12m_incremental")}}
+        e["launches_paths"]["config5_one_device"] = paths["config5_one_device"]["launches"][name]
+        e["launches_paths"]["multi_sphere25m_2x2"] = (
+            paths["multi_sphere25m_2x2"]["launches"][name])
+        if stage == "keys":
+            e["sort_permute"] = {k: rb[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                    "sort_bound_ms", "beyond_sort_ms",
+                                                    "share")}
+        kernels.append(e)
+    paths["rebucket_checks"] = rebucket_checks
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on its main path: {kernels}")
     # the benchmark entry point's launches, by scene, on K1's and K2's rows

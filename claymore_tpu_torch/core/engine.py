@@ -5,8 +5,10 @@ Port of ``claymore_tpu/core/engine.py``: ``init_impl`` builds the partition,
 tiles and rasterized grid; ``substep_impl`` runs one explicit MPM substep,
 grid update (CUDA kernel K2) -> CFL step -> fused G2P2G (CUDA kernel K1,
 which also returns the drift margin) -> drift check -> rebucket when
-needed.  On CPU tensors the kernel wrappers run their plain PyTorch
-versions, which is how the tests hold the port against the JAX package.
+needed (the full sort's keys, slot plan and placement as CUDA kernels,
+``ops/rebucket_kernel.py``).  On CPU tensors the kernel wrappers run
+their plain PyTorch versions, which is how the tests hold the port
+against the JAX package.
 
 PyTorch runs eagerly, so the JAX package's on-device ``lax.while_loop``
 frame loop becomes a host loop over substeps.  Several materials share one
@@ -47,7 +49,7 @@ import torch
 from ..config import SimConfig
 from ..models.boundary import check_colliders
 from ..models.materials import Material
-from ..ops import g2p2g_kernel, grid_kernel
+from ..ops import g2p2g_kernel, grid_kernel, rebucket_kernel
 from ..utils.timers import device_ms
 from . import grid as grid_ops
 from . import partition as part
@@ -120,7 +122,7 @@ def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
             pos=pos, fields=mat.init_fields(s_cap, dev), active=active,
             pid=torch.where(active, ids, torch.full_like(ids, s_cap)),
             tiles=None)
-        pm, tk, dr = part.sort_permute(cfg, raw, nt, region_fn)
+        pm, tk, dr = rebucket_kernel.sort_permute(cfg, raw, nt, region_fn)
         permuted.append(pm)
         tile_keys.append(tk)
         droppeds.append(dr)
@@ -181,13 +183,14 @@ def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
                  for m in models]
         kind, deferred = "stale", []
     elif full:
-        plans = [part.sort_permute(cfg, m, m.tiles.block.shape[0], region_fn) for m in models]
+        plans = [rebucket_kernel.sort_permute(cfg, m, m.tiles.block.shape[0], region_fn)
+                 for m in models]
         kind, deferred = "full", []
     else:
         plans = [part.incremental_plan(cfg, m, part.tile_block_keys(cfg, m.tiles))
                  for m in models]
         deferred = [int(d) for d in torch.cat([dr for _, _, dr in plans]).tolist()]
-        plans = [part.sort_permute(cfg, m, m.tiles.block.shape[0]) if d > 0 else plan
+        plans = [rebucket_kernel.sort_permute(cfg, m, m.tiles.block.shape[0]) if d > 0 else plan
                  for m, plan, d in zip(models, plans, deferred)]
         kind = "fallback" if max(deferred) > 0 else "incremental"
     partition, pool = part.rebuild(cfg, pool, partition, tuple(tk for _, tk, _ in plans),
@@ -651,7 +654,7 @@ class MPMEngine:
             raw = ParticleModel(pos=pos, fields=fields, active=active,
                                 pid=torch.where(active, iota, torch.full_like(iota, s_cap)),
                                 tiles=None)
-            planned.append(part.sort_permute(new_cfg, raw, nt))
+            planned.append(rebucket_kernel.sort_permute(new_cfg, raw, nt))
 
         # the octs the new plan's particles reach (what init_impl's rebuild
         # activates), united with the old live octs; rows relabel by key

@@ -7,10 +7,15 @@ home block changed into free tiles.  The padded destination slots come
 from the same segment arithmetic as the JAX package, so slot order, tile
 keys and the partition agree exactly.
 
-Nothing here reads a value back to the host: variable-length results
-(nonzero, dropped elements) are written through a trailing dummy slot
-instead of boolean indexing, so the rebuild queues on the device without a
-synchronisation.
+The full rebucket's plain version is the stable key sort
+(``sort_keys``) and the plain twins of its CUDA kernels (``home_keys``,
+``segment_heads``, ``segment_bases``, ``tile_windows``, ``place``;
+``ops/rebucket_kernel.py`` launches the kernels).  ``segment_heads``
+and ``segment_bases`` read their counts back to the host (the kernels do
+not).  Nothing else here does:
+variable-length results (nonzero, dropped elements) are written through a
+trailing dummy slot instead of boolean indexing, so the rebuild queues on
+the device without a synchronisation.
 """
 
 from __future__ import annotations
@@ -93,6 +98,153 @@ def _compact_into(n_out: int, dest: torch.Tensor, src: torch.Tensor,
 # tile (bucket) building
 # --------------------------------------------------------------------------
 
+def home_keys(cfg: SimConfig, model) -> torch.Tensor:
+    """i32[S]: each slot's home-block key, ``G^3`` for an inactive slot or
+    one outside the grid."""
+    n3 = cfg.grid_size ** 3
+    key = flatten_key(cfg, home_block(cfg, model.pos))
+    return torch.where(model.active, key, torch.full_like(key, n3)).to(torch.int32)
+
+
+def region_source(cfg: SimConfig, key: torch.Tensor, region_fn=None) -> torch.Tensor:
+    """The sort keys from the home-block keys: as they are, or with the
+    interior's offset added where ``region_fn`` is given (see
+    ``sort_permute``)."""
+    if region_fn is None:
+        return key
+    n3 = cfg.grid_size ** 3
+    off, sentinel = region_offsets(cfg, True)
+    if sentinel >= 1 << 30:
+        raise ValueError("domain too large for region packing")
+    interior = ~region_fn(torch.clamp(key, max=n3 - 1))
+    return torch.where(key < n3, key + interior.to(torch.int32) * off,
+                       torch.full_like(key, sentinel))
+
+
+def sort_keys(cfg: SimConfig, model, region_fn=None):
+    """The rebucket's sort: ``region_source`` of ``home_keys``, sorted
+    stably.
+
+    Returns (skey i32[S], perm i64[S], region): ``perm[i]`` is the slot of
+    the i-th sorted key, ``region`` whether the keys carry the offset."""
+    skey, perm = torch.sort(region_source(cfg, home_keys(cfg, model), region_fn), stable=True)
+    return skey, perm, region_fn is not None
+
+
+def region_offsets(cfg: SimConfig, region: bool):
+    """(offset, sentinel) of the sort keys: the interior's offset ``G^3 + 8``
+    and the sentinel ``2 (G^3 + 8)`` with a region, else (0, G^3)."""
+    n3 = cfg.grid_size ** 3
+    return (n3 + 8, 2 * (n3 + 8)) if region else (0, n3)
+
+
+def segment_heads(skey: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """i32[G + 1]: the sorted index at which each of the G block segments
+    starts (an active key unlike the one before it), then the count of
+    active keys (they form a prefix of the sorted keys)."""
+    act = skey < sentinel
+    head = act.clone()
+    head[1:] &= skey[1:] != skey[:-1]
+    starts = torch.nonzero(head).flatten()
+    return torch.cat([starts, act.sum().reshape(1)]).to(torch.int32)
+
+
+def segment_bases(cfg: SimConfig, skey: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """i64[G]: the padded slot at which each segment's elements start.
+
+    Level 1 takes each segment to a whole number of tiles; level 2 takes
+    each home oct (the segments whose keys agree but for the low 3 bits) to
+    a multiple of ``group_tiles`` tiles.  Element i of segment g lands in
+    slot ``base[g] + i - seg_start[g]``: the JAX package's
+    ``p1 + cumsum(waste2)``, since the waste at each head is the padding
+    of the segment (level 1) or oct (level 2) before it."""
+    tile = cfg.particle_tile
+    gt = cfg.group_tiles * tile
+    st = seg_start.long()
+    length = st[1:] - st[:-1]
+    padded = (length + tile - 1) // tile * tile
+    okey = skey[st[:-1]].long() >> 3
+    ohead = torch.ones_like(okey, dtype=torch.bool)
+    ohead[1:] = okey[1:] != okey[:-1]
+    l1 = torch.cumsum(padded, dim=0) - padded            # level-1 start
+    oid = torch.cumsum(ohead.long(), dim=0) - 1
+    o_l1 = l1[ohead]
+    span = torch.diff(o_l1, append=padded.sum().reshape(1))
+    span = (span + gt - 1) // gt * gt
+    o_base = torch.cumsum(span, dim=0) - span
+    return o_base[oid] + l1 - o_l1[oid]
+
+
+def tile_windows(cfg: SimConfig, skey: torch.Tensor, seg_start: torch.Tensor,
+                 base: torch.Tensor, num_tiles: int, region: bool = False):
+    """Each destination tile's window of sorted indices, from the segments'
+    starts and bases.
+
+    Returns (dstart i32[T], dlen i32[T], tile_keys i32[T], dropped i32[1]):
+    tile t takes the sorted elements ``dstart[t] .. dstart[t] + dlen[t] -
+    1`` into its first ``dlen[t]`` slots (``dstart`` is the JAX package's
+    ``searchsorted`` of ``t * tile`` in the destination slots, empty tiles
+    too); ``tile_keys`` is the block key of a tile's elements (less the
+    region offset), ``G^3`` for an empty tile; ``dropped`` counts the
+    active elements whose slot lies past the capacity ``num_tiles *
+    tile``."""
+    tile = cfg.particle_tile
+    n3 = cfg.grid_size ** 3
+    s_cap = num_tiles * tile
+    dev = skey.device
+    off, _ = region_offsets(cfg, region)
+    st = seg_start.long()
+    g_count = st.shape[0] - 1
+    if g_count == 0:
+        zero = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+        return (zero, zero.clone(), torch.full_like(zero, n3),
+                torch.zeros((1,), dtype=torch.int32, device=dev))
+    length = st[1:] - st[:-1]
+    target = torch.arange(num_tiles, dtype=torch.int64, device=dev) * tile
+    g = torch.searchsorted(base, target, right=True) - 1     # base[0] == 0
+    into = target - base[g]
+    inside = into < length[g]
+    dstart = torch.where(inside, st[g] + into, st[g + 1])
+    dlen = torch.where(inside, torch.clamp(length[g] - into, max=tile), 0)
+    key = skey[st[:-1]]
+    if region:
+        key = torch.where(key >= off, key - off, key)
+    tile_keys = torch.where(inside, key[g], n3)
+    fit = torch.minimum(torch.clamp(s_cap - base, min=0), length)
+    dropped = (st[-1] - fit.sum()).to(torch.int32).reshape(1)
+    return (dstart.to(torch.int32), dlen.to(torch.int32), tile_keys.to(torch.int32),
+            dropped)
+
+
+def tile_plan(cfg: SimConfig, skey: torch.Tensor, num_tiles: int, region: bool = False):
+    """The slot plan of the sorted keys: ``segment_heads``, then
+    ``segment_bases``, then ``tile_windows``, whose result it returns:
+    (dstart, dlen, tile_keys, dropped)."""
+    seg_start = segment_heads(skey, region_offsets(cfg, region)[1])
+    base = segment_bases(cfg, skey, seg_start)
+    return tile_windows(cfg, skey, seg_start, base, num_tiles, region)
+
+
+def place(cfg: SimConfig, model, perm: torch.Tensor, dstart: torch.Tensor,
+          dlen: torch.Tensor):
+    """Move every channel into the planned layout: slot ``t * tile + j``
+    with ``j < dlen[t]`` takes slot ``perm[dstart[t] + j]`` of ``model``
+    (position, each field, id) and is active; any other slot is empty:
+    position and fields 0, id ``S``, inactive."""
+    s_cap = model.pos.shape[1]
+    tile = cfg.particle_tile
+    j = torch.arange(tile, dtype=torch.int64, device=dstart.device)
+    active = (j[None, :] < dlen[:, None].long()).reshape(-1)
+    src = torch.clamp(dstart[:, None].long() + j[None, :], max=s_cap - 1).reshape(-1)
+    gather = perm[src]
+
+    def move(x, fill=0):
+        return torch.where(active, x[..., gather], fill)
+
+    return type(model)(pos=move(model.pos), fields={k: move(v) for k, v in model.fields.items()},
+                       active=active, pid=move(model.pid, s_cap), tiles=model.tiles)
+
+
 def sort_permute(cfg: SimConfig, model, num_tiles: int, region_fn=None):
     """Full rebucket: group slots into block-aligned, oct-group-padded tiles
     and move the whole particle state into the new layout.
@@ -108,69 +260,18 @@ def sort_permute(cfg: SimConfig, model, num_tiles: int, region_fn=None):
     interior's offset ``G^3 + 8`` is a multiple of 8, so oct grouping
     (key >> 3) survives it.
 
+    The plain version, on any device: ``sort_keys`` (``home_keys`` and
+    the sort), ``tile_plan`` and ``place``, the plain twins of the CUDA
+    kernels behind ``ops/rebucket_kernel.py:sort_permute``, which the
+    engine calls.
+
     Returns (permuted model, tile_keys i32[T], dropped i32[1]).
     """
-    s_cap = model.pos.shape[1]
-    tile = cfg.particle_tile
-    n3 = cfg.grid_size ** 3
-    dev = model.pos.device
-
-    key = flatten_key(cfg, home_block(cfg, model.pos))
-    key = torch.where(model.active, key, torch.full_like(key, n3)).to(torch.int32)
-    if region_fn is None:
-        sort_src, sentinel = key, n3
-    else:
-        off = n3 + 8
-        sentinel = 2 * off
-        if sentinel >= 1 << 30:
-            raise ValueError("domain too large for region packing")
-        interior = ~region_fn(torch.clamp(key, max=n3 - 1))
-        sort_src = torch.where(key < n3, key + interior.to(torch.int32) * off,
-                               torch.full_like(key, sentinel))
-    skey, perm = torch.sort(sort_src, stable=True)
-    act_s = skey < sentinel
-
-    skey64 = skey.long()
-    iota = torch.arange(s_cap, dtype=torch.int64, device=dev)
-    prev_key = _shift_right(skey64, -1)
-    boundary = (skey64 != prev_key) & act_s
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    seg_start = _last_marked(boundary, iota)
-    prev_seg_start = _shift_right(seg_start, 0)
-    prev_len = torch.where(boundary, iota - prev_seg_start, zero)
-    waste = torch.where(boundary, (-prev_len) % tile, zero)
-    p1 = iota + torch.cumsum(waste, dim=0)
-    gt = cfg.group_tiles * tile
-    o_boundary = ((skey64 >> 3) != (prev_key >> 3)) & boundary
-    o_start_p1 = _last_marked(o_boundary, p1)
-    prev_o_p1 = _shift_right(o_start_p1, 0)
-    prev_o_len = torch.where(o_boundary, p1 - prev_o_p1, zero)
-    waste2 = torch.where(o_boundary, (-prev_o_len) % gt, zero)
-    new_slot = p1 + torch.cumsum(waste2, dim=0)
-    fits = act_s & (new_slot < s_cap)
-    dropped = (act_s & ~fits).sum(dtype=torch.int32).reshape(1)
-    dest = torch.where(fits, new_slot, torch.full_like(new_slot, s_cap))
-
-    # invert the placement once (sorted index landing in each slot, -1 for
-    # an empty slot), then move every channel with one gather
-    src = _compact_into(s_cap, dest, iota, -1)
-    active = src >= 0
-    src = torch.clamp(src, min=0)
-    gather = perm[src]
-
-    def place(x, fill=0):
-        return torch.where(active, x[..., gather], fill)
-
-    pos = place(model.pos)
-    fields = {k: place(v) for k, v in model.fields.items()}
-    pid = place(model.pid, s_cap)
-    # each tile's block key: the sort key less the region offset
-    tkey = skey if region_fn is None else key[perm]
-    tile_keys = torch.where(active, tkey[src], n3)[::tile].contiguous()
-
-    new_model = type(model)(pos=pos, fields=fields, active=active, pid=pid,
-                            tiles=model.tiles)
-    return new_model, tile_keys, dropped
+    if model.pos.shape[1] != num_tiles * cfg.particle_tile:
+        raise ValueError(f"slot capacity {model.pos.shape[1]} != {num_tiles} tiles")
+    skey, perm, region = sort_keys(cfg, model, region_fn)
+    dstart, dlen, tile_keys, dropped = tile_plan(cfg, skey, num_tiles, region)
+    return place(cfg, model, perm, dstart, dlen), tile_keys, dropped
 
 
 def arena_margin(cfg: SimConfig, model) -> torch.Tensor:

@@ -8,17 +8,21 @@ FixedCorotated particles; 226,981 with ``--quick``) with tile capacities
 ``exact_tiles(slack=1.25)``, after ``init_state``, timed one stage after
 another under the JAX script's names:
 
-* ``sort``: the home-block keys and their stable sort, alone;
-* ``sort_permute``: the full tile plan, ``core/partition.py:sort_permute``
-  (the sort, the slot arithmetic and one gather per channel);
+* ``sort``: the home-block keys and their stable sort, alone
+  (``ops/rebucket_kernel.py:sort_keys``: on a card the keys kernel, then
+  torch's sort);
+* ``sort_permute``: the full rebucket as the engine runs it,
+  ``ops/rebucket_kernel.py:sort_permute`` (on a card the sort, then the
+  CUDA kernels of ``csrc/rebucket.cu``; on the CPU the plain version);
 * ``table_rebuild+remap``: ``core/partition.py:rebuild`` (the oct set, its
   compaction, the table and the pool rows remapped).
 
 Each is the best of ``--reps`` runs of ``--iters`` calls back to back (CUDA
 events on a card, the host clock on the CPU).  ``permute`` is
-``sort_permute`` less ``sort``: what the slot arithmetic and the gathers
-add to the sort.  ``sort_gkeys_per_s`` is the keys sorted per second.
-Prints one JSON line; exits 2 when ``--device cuda`` finds no card.
+``sort_permute`` less ``sort``: what the slot plan and the placement add to
+the sort; ``plan`` and ``place`` time those two stages alone on the sorted
+keys (``tile_plan``, ``place``).  ``sort_gkeys_per_s`` is the keys sorted
+per second.  Prints one JSON line; exits 2 when ``--device cuda`` finds no card.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ def main(argv=None) -> int:
         return 2
     from .. import MPMEngine
     from ..core import partition as part
+    from ..ops import rebucket_kernel as rk
     from ..utils.timers import best_ms, device_label
     from .prof_k1 import scene
 
@@ -54,18 +59,16 @@ def main(argv=None) -> int:
     state = eng.init_state([pos], [v0])
     model = state.models[0]
     nt = model.tiles.block.shape[0]
-    n3 = cfg.grid_size ** 3
     tk = part.tile_block_keys(cfg, model.tiles)
-
-    def sort_only():
-        key = part.flatten_key(cfg, part.home_block(cfg, model.pos))
-        key = torch.where(model.active, key, torch.full_like(key, n3)).to(torch.int32)
-        return torch.sort(key, stable=True)
+    skey, perm, _ = rk.sort_keys(cfg, model)
+    dstart, dlen, _, _ = rk.tile_plan(cfg, skey, nt)
 
     stages = {
-        "sort": sort_only,
-        "sort_permute": lambda: part.sort_permute(cfg, model, nt),
+        "sort": lambda: rk.sort_keys(cfg, model),
+        "sort_permute": lambda: rk.sort_permute(cfg, model, nt),
         "table_rebuild+remap": lambda: part.rebuild(cfg, state.grid, state.partition, (tk,)),
+        "plan": lambda: rk.tile_plan(cfg, skey, nt),
+        "place": lambda: rk.place(cfg, model, perm, dstart, dlen),
     }
     out = {k: best_ms(f, dev, iters=args.iters, reps=args.reps) for k, f in stages.items()}
     out["permute"] = out["sort_permute"] - out["sort"]

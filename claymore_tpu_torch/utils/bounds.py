@@ -7,7 +7,8 @@ divisions, square roots and transcendentals counted one each, per cell or
 particle as the kernel source does them, for the work these inputs need.
 
 ``grid_bound`` is the grid kernels' (K2, K2-AC, K2-SDF), ``g2p2g_bound``
-the transfer kernel's (K1), ``dma_bound`` the pool-row probes' (P5, P6);
+the transfer kernel's (K1), ``dma_bound`` the pool-row probes' (P5, P6),
+``rebucket_bound`` the full rebucket's (``csrc/rebucket.cu``);
 ``chip_smoke.py`` and the profiling scripts report them beside the
 kernels' times.
 """
@@ -109,3 +110,41 @@ def dma_bound(idx, run_rows: int, rmw: bool = False) -> dict:
     nbytes = (distinct * row_bytes * (2 if rmw else 1) + idx.numel() * 4
               + g * (128 * 4 if rmw else row_bytes))
     return bound(nbytes, g * d * run_rows * 16 * 128)
+
+
+def rebucket_bound(cfg, slots: int, channels: int, active: int = None,
+                   segments: int = 0) -> dict:
+    """The full rebucket's bound (``ops/rebucket_kernel.py:sort_permute``)
+    over ``slots`` slots of ``channels`` 4-byte channels (position 3, the
+    material's fields, the id: 13 for FixedCorotated), ``active`` of them
+    active (all by default), in ``segments`` block segments.
+
+    Beyond the sort, per slot: its active flag read, 1 B, its key written,
+    4 B, every channel written, 4 C B, and its new active flag, 1 B; per
+    active slot: its position read for the key, 12 B, its sorted key, 4 B
+    (the heads pass: the active keys are a prefix), its sort index, 8 B,
+    and every channel read once, 4 C B.  In all
+    ``slots (6 + 4 C) + active (24 + 4 C)`` bytes, 30 + 8 C = 134 a slot
+    for FixedCorotated when every slot is active.  The plan's own traffic
+    is added (per segment its start written and read and its key read, per
+    tile its window and key written); operations are negligible.  ``sort``
+    is the key sort alone, its own line: each key read and each sorted key
+    and index written, 16 B a slot.  ``stages`` splits the bytes over the
+    kernels, each kernel's inputs and outputs: ``keys`` (flags and the
+    active positions in, keys out), ``heads`` (the active sorted keys in,
+    the starts out), ``plan`` (the starts and the heads' keys in, the
+    tiles' windows and keys and the drop count out) and ``place``
+    (windows, indices and channels in, channels and the flag out); the
+    total is their sum."""
+    active = slots if active is None else active
+    tiles = slots // cfg.particle_tile
+    stages = {
+        "keys": 5 * slots + 12 * active,
+        "heads": 4 * (active + 1) + 4 * (segments + 1),
+        "plan": 4 * (segments + 1) + 4 * segments + 12 * tiles + 4,
+        "place": 8 * tiles + active * (8 + 4 * channels) + slots * (4 * channels + 1),
+    }
+    out = bound(sum(stages.values()), 0)
+    out["sort"] = bound(16 * slots, 0)
+    out["stages"] = {k: bound(v, 0) for k, v in stages.items()}
+    return out

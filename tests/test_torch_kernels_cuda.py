@@ -385,6 +385,104 @@ def test_incremental_plan_on_the_card_equals_the_cpu(card):
     assert r["deferred"] > 0
 
 
+def _raw_model(case, name, tile=64):
+    """A raw slot layout on the card for the rebucket checks: a sampled box
+    of ``name``'s particles shuffled over the slots with holes (``scattered``),
+    all in one block (``one_segment``), none active (``all_inactive``), or
+    half the scattered slots (``tight``: the particles overflow them)."""
+    import numpy as np
+
+    from claymore_tpu_torch.core.types import ParticleModel
+
+    cfg = ct.SimConfig(domain_bits=6, max_active_blocks=512, particle_tile=tile)
+    mat = _material(name, cfg.default_volume())
+    pts = sample_uniform_box_world(cfg.dx, [0.3, 0.35, 0.3], [0.55, 0.5, 0.6], cfg.ppc)
+    if case == "one_segment":
+        pts = pts[:300] * 0.0 + np.float32(6.5 * cfg.dx)    # home block (1, 1, 1)
+    n_tiles = 3 * cfg.tiles_for(len(pts))      # room for every oct's group padding
+    s_cap = n_tiles * tile
+    rng = np.random.default_rng(7)
+    slots = rng.permutation(s_cap)[:len(pts)]
+    pos = rng.uniform(0.0, 1.0, size=(3, s_cap)).astype(np.float32)
+    pos[:, slots] = pts.T
+    active = np.zeros((s_cap,), bool)
+    active[slots] = case != "all_inactive"
+    dev = torch.device("cuda")
+    fields = {k: torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32)).to(dev)
+              for k, v in mat.init_fields(s_cap, dev).items()}
+    pid = np.where(active, rng.permutation(s_cap), s_cap).astype(np.int32)
+    model = ParticleModel(pos=torch.from_numpy(pos).to(dev), fields=fields,
+                          active=torch.from_numpy(active).to(dev),
+                          pid=torch.from_numpy(pid).to(dev), tiles=None)
+    return cfg, model
+
+
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid", "sand", "nacc"])
+@pytest.mark.parametrize("case", ["scattered", "one_segment", "all_inactive", "tight",
+                                  "region", "region_no_interior", "region_no_boundary"])
+def test_rebucket_kernels_match_plain(card, case, name):
+    """The heads, plan and placement kernels equal their plain twins bit for
+    bit (``chip_smoke.check_rebucket_kernel``), and the wrapper's
+    sort_permute the plain version."""
+    cfg, model = _raw_model("one_segment" if case == "one_segment" else
+                            "all_inactive" if case == "all_inactive" else "scattered", name)
+    if case == "tight":
+        model = card.shuffle_slots(model, keep_slots=model.pos.shape[1] // 12 // 64 * 64)
+    region = {"region": lambda k: (k % 3) == 0, "region_no_interior": lambda k: k >= 0,
+              "region_no_boundary": lambda k: k < 0}.get(case)
+    r = card.check_rebucket_kernel(cfg, model, f"{case} {name}", "test", region_fn=region,
+                                   reps=1, plain_reps=1)
+    assert r["max_abs_err"] == 0.0
+    assert (r["dropped"] > 0) == (case == "tight")
+    assert (r["segments"] == 0) == (case == "all_inactive")
+
+
+def test_rebucket_keys_kernel_at_the_edges(card):
+    """The keys kernel equals ``partition.home_keys`` on the card bit for bit
+    where positions leave the grid, sit on cell-rounding boundaries or are
+    not finite."""
+    import numpy as np
+
+    from claymore_tpu_torch.core import partition
+    from claymore_tpu_torch.core.types import ParticleModel
+    from claymore_tpu_torch.ops import rebucket_kernel
+
+    cfg = ct.SimConfig(domain_bits=6, particle_tile=64)
+    rng = np.random.default_rng(3)
+    s_cap = 64 * 200
+    pos = rng.uniform(-0.2, 1.2, size=(3, s_cap)).astype(np.float32)
+    pos[:, :2000] = (rng.integers(-4, 70, size=(3, 2000)) + 0.5) / 64.0    # x / dx + 0.5 whole
+    pos[0, 2000:2006] = [np.nan, np.inf, -np.inf, 3e38, -3e38, -0.0]
+    active = rng.uniform(size=s_cap) < 0.9
+    dev = torch.device("cuda")
+    model = ParticleModel(pos=torch.from_numpy(pos).to(dev), fields={},
+                          active=torch.from_numpy(active).to(dev),
+                          pid=torch.zeros(s_cap, dtype=torch.int32, device=dev), tiles=None)
+    got = rebucket_kernel.home_keys(cfg, model)
+    assert torch.equal(got, partition.home_keys(cfg, model))
+    assert int((got < cfg.grid_size ** 3).sum()) > 0
+
+
+def test_engine_rebuilds_through_the_rebucket_kernels(card):
+    """An engine on the card that rebuilds every substep launches each
+    rebucket kernel once a rebuild (and once for the init's sort), and loses
+    no particle."""
+    from claymore_tpu_torch.ops import rebucket_kernel
+
+    cfg = ct.SimConfig(domain_bits=6, max_active_blocks=512, default_dt=2e-4,
+                       rebucket_auto=False, rebucket_every=1)
+    mat = ct.FixedCorotated(volume=cfg.default_volume(), e=1e4, nu=0.3)
+    pos = sample_uniform_box_world(cfg.dx, [0.4, 0.45, 0.4], [0.55, 0.6, 0.55], cfg.ppc)
+    eng = ct.MPMEngine(cfg, [mat], tile_chunk=8, device="cuda")
+    for k in rebucket_kernel.launches:
+        rebucket_kernel.launches[k] = 0
+    state = eng.run_steps(eng.init_state([pos], [(0.5, -1.0, 0.3)]), 3, 1.0)
+    assert eng.rebuilds == 3
+    assert set(rebucket_kernel.launches.values()) == {4}
+    d = eng.diagnostics(state)
+    assert d["model0_active"] == len(pos) and d["model0_dropped_tiles"] == 0
+
+
 @pytest.mark.parametrize("name", ["dyn_roll", "dyn_lane_read", "dyn_lane_read_wide",
                                   "dyn_lane_write"])
 def test_lane_probe_kernel_matches_plain(card, name):
