@@ -58,6 +58,17 @@ in half its tiles (particles dropped), on dambreak12m's and dambreak_sdf's
 final states and on shard 0 of the 2x2 sphere with its region; every path
 counts their launches (the init's sort and each full rebuild).
 
+The partition kernels (``csrc/partition.cu``: the first-k compaction
+``first_marked``, the oct flags, the remap, ``finalize_tiles``) are held
+against their plain twins bit for bit (``check_partition_kernel``) on the
+stale rebuild of the sphere25m final state, of its span-4 state, of
+dambreak12m's, dambreak_sdf's and config 5's one-device final states and of
+shard 0 of the 2x2 sphere with its halo mask, and on the sphere25m tiles
+rebuilt into half the octs they need (overflow); ``first_marked`` also on
+42.9M-flag masks into 262,144 indices, fewer and more marked than that
+(``check_first_marked``).  Every path counts their launches: each rebuild
+(the init's, each substep's on a mesh) and each compaction of a migration.
+
 It also holds the probes P1-P6 (the kernels of the profiling scripts)
 against their plain versions at the TPU scripts' inputs and drives the
 profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches),
@@ -99,6 +110,7 @@ DEVICE = "cuda"
 SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
 PEAK_BOUND = 80e9         # bytes of device memory a path may peak at: one card
 REBUCKET_KERNELS = ("rebucket_keys", "rebucket_heads", "rebucket_plan", "rebucket_place")
+PARTITION_KERNELS = ("first_marked", "oct_mask", "remap", "finalize_tiles")
 
 
 T0 = time.perf_counter()
@@ -522,6 +534,160 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
             f"{k} {v['bound_ms']:.4f} ({v['share']:.1%})" for k, v in res["stages"].items())
         + f" | {facts}")
     return res
+
+
+def _bits_err(a, b) -> float:
+    """Largest absolute difference of two tensors equal bit for bit (NaNs
+    in the same places count 0)."""
+    if not a.numel():
+        return 0.0
+    return float(torch.nan_to_num((a.double() - b.double()).abs(), nan=0.0).max())
+
+
+def rebuild_inputs(cfg, state):
+    """The stale rebuild's inputs of ``state``: its pool, its partition and
+    every model's tile block keys (what a mesh shard rebuilds from on every
+    substep, ``engine.rebucket(..., stale=True)``)."""
+    from claymore_tpu_torch.core import partition as part
+
+    return (state.grid, state.partition,
+            tuple(part.tile_block_keys(cfg, m.tiles) for m in state.models))
+
+
+def check_partition_kernel(cfg, pool, partition, tile_keys, label: str, facts: str,
+                           extra_mask=None, reps: int = 10, plain_reps: int = 3,
+                           time_it: bool = True) -> dict:
+    """The partition kernels (``ops/partition_kernel.py``) against their
+    plain twins (``core/partition.py``) on one rebuild's inputs, bit for
+    bit, each on the same inputs: the oct flags (``oct_flags``), the
+    compaction of the flags (``_first_marked``), the remap (``remap``: the
+    table, keys, count, overflow and every pool row), the whole rebuild
+    (``rebuild``) and every model's ``finalize_tiles``.  Times (CUDA
+    events, median of ``reps``; the plain ones of ``plain_reps``): each
+    kernel, its twin, ``rebuild`` + ``finalize_tiles`` both ways, and
+    ``torch.nonzero(flags)[:nb]`` as the compaction's library call (it
+    synchronises: its time holds the host's round trip), beside
+    ``partition_bound``.  Not counted."""
+    from claymore_tpu_torch.core import partition as part
+    from claymore_tpu_torch.ops import partition_kernel as pk
+    from claymore_tpu_torch.utils.bounds import first_marked_bound, partition_bound
+
+    no, nb = cfg.num_oct_keys, cfg.max_active_octs
+    errs = {}
+
+    def expect(name, a, b):
+        if not _same(a, b):
+            raise AssertionError(f"partition kernel {label}: {name} differs from the plain twin")
+        errs[name] = _bits_err(a, b)
+
+    flags = pk.oct_mask(cfg, pool, partition, tile_keys, extra_mask)
+    expect("oct_mask", flags, part.oct_flags(cfg, pool, partition, tile_keys, extra_mask))
+    idx, total = pk.first_marked(flags, nb, no)
+    expect("first_marked", idx, part._first_marked(flags, nb, no))
+    expect("first_marked total", total, flags.sum(dtype=torch.int32).reshape(1))
+    newp, newpool = pk.remap(cfg, pool, partition, flags)
+    refp, refpool = part.remap(cfg, pool, partition, flags)
+    for f in ("table", "keys", "count", "overflow"):
+        expect("remap." + f, getattr(newp, f), getattr(refp, f))
+    expect("remap.pool", newpool, refpool)
+    del newpool, refpool
+    wp, wpool = pk.rebuild(cfg, pool, partition, tile_keys, extra_mask)
+    pp, ppool = part.rebuild(cfg, pool, partition, tile_keys, extra_mask)
+    for f in ("table", "keys", "count", "overflow"):
+        expect("rebuild." + f, getattr(wp, f), getattr(pp, f))
+    expect("rebuild.pool", wpool, ppool)
+    del wpool, ppool
+    dropped = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+    for i, tk in enumerate(tile_keys):
+        t, r = pk.finalize_tiles(cfg, newp, tk, dropped), part.finalize_tiles(cfg, refp, tk, dropped)
+        for f in ("block", "bcoord", "tvalid"):
+            expect(f"finalize_tiles[{i}].{f}", getattr(t, f), getattr(r, f))
+    n_tiles = sum(int(tk.shape[0]) for tk in tile_keys)
+    res = {"label": label, "oct_keys": no, "capacity": nb, "live_rows": int(partition.count[0]),
+           "tiles": n_tiles, "extra_mask": extra_mask is not None,
+           "flagged": int(total[0]), "octs": int(newp.count[0]),
+           "overflow": int(newp.overflow[0]), "max_abs_err": max(errs.values())}
+    if not time_it:
+        return res
+
+    def kernels():
+        p2, _ = pk.rebuild(cfg, pool, partition, tile_keys, extra_mask)
+        return [pk.finalize_tiles(cfg, p2, tk, dropped) for tk in tile_keys]
+
+    def plain():
+        p2, _ = part.rebuild(cfg, pool, partition, tile_keys, extra_mask)
+        return [part.finalize_tiles(cfg, p2, tk, dropped) for tk in tile_keys]
+
+    ms = {"first_marked": cuda_ms(lambda: pk.first_marked(flags, nb, no), reps=reps),
+          "oct_mask": cuda_ms(lambda: pk.oct_mask(cfg, pool, partition, tile_keys, extra_mask),
+                              reps=reps),
+          "remap": cuda_ms(lambda: pk.remap(cfg, pool, partition, flags), reps=reps),
+          "finalize_tiles": cuda_ms(lambda: [pk.finalize_tiles(cfg, newp, tk, dropped)
+                                             for tk in tile_keys], reps=reps),
+          "rebuild+finalize": cuda_ms(kernels, reps=reps)}
+    plain_ms = {
+        "first_marked": cuda_ms(lambda: part._first_marked(flags, nb, no), reps=plain_reps),
+        "oct_mask": cuda_ms(lambda: part.oct_flags(cfg, pool, partition, tile_keys, extra_mask),
+                            reps=plain_reps),
+        "remap": cuda_ms(lambda: part.remap(cfg, pool, partition, flags), reps=plain_reps),
+        "finalize_tiles": cuda_ms(lambda: [part.finalize_tiles(cfg, refp, tk, dropped)
+                                           for tk in tile_keys], reps=plain_reps),
+        "rebuild+finalize": cuda_ms(plain, reps=plain_reps)}
+    library_ms = cuda_ms(lambda: torch.nonzero(flags)[:nb], reps=reps)
+    b = partition_bound(cfg, res["live_rows"], n_tiles, extra_mask is not None, res["octs"])
+    bounds = {"first_marked": first_marked_bound(no, nb)["bound_ms"],
+              **{k: v["bound_ms"] for k, v in b["stages"].items()},
+              "rebuild+finalize": b["bound_ms"]}
+    res.update(ms=ms, plain_ms=plain_ms, bound_ms=bounds, library_ms=library_ms,
+               share={k: bounds[k] / ms[k] for k in ms})
+    log(f"partition kernels vs plain twins, {label}: {no} oct keys, {res['live_rows']} live "
+        f"rows, {n_tiles} tiles, halo mask {res['extra_mask']}, {res['flagged']} octs flagged, "
+        f"{res['octs']} kept, overflow {res['overflow']}: every output equal bit for bit; "
+        f"ms (median of {reps}) " + ", ".join(
+            f"{k} {ms[k]:.4f} (plain {plain_ms[k]:.4f}, bound {bounds[k]:.4f}, "
+            f"{res['share'][k]:.1%})" for k in ms)
+        + f"; torch.nonzero(flags)[:nb] {library_ms:.4f} (synchronises) | {facts}")
+    return res
+
+
+def check_first_marked(n: int, size: int, facts: str, reps: int = 10) -> dict:
+    """``first_marked`` at a mesh shard's migration shape, ``n`` flags into
+    ``size`` indices, against its plain twin bit for bit on three seeded
+    masks: fewer marked than ``size`` (the crossers of a substep), more
+    (the total past the capacity), and holes before a long marked suffix
+    (``_place``'s free slots).  Kernel, twin and ``torch.nonzero(mark)[:size]``
+    times (CUDA events; nonzero synchronises) beside
+    ``first_marked_bound``.  Not counted."""
+    from claymore_tpu_torch.core import partition as part
+    from claymore_tpu_torch.ops import partition_kernel as pk
+    from claymore_tpu_torch.utils.bounds import first_marked_bound
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    u = torch.rand((n,), generator=gen, device=DEVICE)
+    iota = torch.arange(n, device=DEVICE)
+    masks = {"below": u < 0.5 * size / n, "above": u < 4.0 * size / n,
+             "suffix": (u < 0.002) | (iota >= n - size // 2)}
+    del iota
+    out = {}
+    for name, mark in masks.items():
+        idx, total = pk.first_marked(mark, size, n)
+        want = part._first_marked(mark, size, n)
+        if not (_same(idx, want) and int(total[0]) == int(mark.sum())):
+            raise AssertionError(f"first_marked {name}: differs from the plain twin")
+        err = _bits_err(idx, want)
+        del want
+        r = {"n": n, "size": size, "marked": int(total[0]), "max_abs_err": err,
+             "ms": cuda_ms(lambda: pk.first_marked(mark, size, n), reps=reps),
+             "plain_ms": cuda_ms(lambda: part._first_marked(mark, size, n), reps=3),
+             "library_ms": cuda_ms(lambda: torch.nonzero(mark)[:size], reps=reps),
+             "bound_ms": first_marked_bound(n, size)["bound_ms"]}
+        r["share"] = r["bound_ms"] / r["ms"]
+        out[name] = r
+        log(f"first_marked vs plain twin, {n} flags, size {size}, {name}: {r['marked']} "
+            f"marked, equal bit for bit; kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['share']:.1%}), plain {r['plain_ms']:.4f}, torch.nonzero {r['library_ms']:.4f} "
+            f"(synchronises) | {facts}")
+    return out
 
 
 def k1_order_sensitivity(cfg, mat, state, as_is: dict, facts: str) -> dict:
@@ -1068,10 +1234,11 @@ def probe(state, n: int = 4096, model_idx: int = 0) -> np.ndarray:
 
 
 def _launch_dicts():
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, probe_kernels, rebucket_kernel
+    from claymore_tpu_torch.ops import (g2p2g_kernel, grid_kernel, partition_kernel,
+                                        probe_kernels, rebucket_kernel)
 
     return (grid_kernel.grid_update.launches, g2p2g_kernel.g2p2g.launches,
-            probe_kernels.launches, rebucket_kernel.launches)
+            probe_kernels.launches, rebucket_kernel.launches, partition_kernel.launches)
 
 
 def reset_counts() -> None:
@@ -1185,6 +1352,11 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
             len({launches[k] for k in REBUCKET_KERNELS}) == 1
             and launches["rebucket_place"] >= len(mats) * (
                 1 + sum(r["kind"] == "full" for r in rebuild_log))),
+        # the init's rebuild and every rebuild's, each finalizing every model
+        "partition_launches": (
+            launches["oct_mask"] == launches["remap"] == 1 + eng.rebuilds
+            and launches["finalize_tiles"] == len(mats) * (1 + eng.rebuilds)
+            and launches["first_marked"] >= launches["remap"]),
     }
     total_ms = sum(plain_ms) + sum(rebuild_ms)
     full = [r["ms"] for r in rebuild_log if r["full"]]
@@ -1198,6 +1370,7 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         "init_s": init_s, "peak_gib": peak_gib, "mass_rel_err": mass_err,
         "displacement": disp, "launches": {k: launches[k] for k in used},
         "rebucket_launches": {k: launches[k] for k in REBUCKET_KERNELS},
+        "partition_launches": {k: launches[k] for k in PARTITION_KERNELS},
         "fused_margins": margins, "arena_span": cfg.arena_span,
         "defrag_every": cfg.defrag_every,
         "rebuilds_full": len(full), "rebuilds_incremental": len(inc),
@@ -1226,7 +1399,8 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
         f"drift-only substep {out['ms_drift_only'] if out['ms_drift_only'] is None else round(out['ms_drift_only'], 3)} ms, "
         f"init {init_s:.2f} s, peak {peak_gib:.2f} GiB, mass_rel_err {mass_err:.3e}, "
         f"displacement {disp:.3e}, launches {out['launches']}, rebucket "
-        f"{out['rebucket_launches']}, fused margins {margins} == arena_margin | {facts}")
+        f"{out['rebucket_launches']}, partition {out['partition_launches']}, fused margins "
+        f"{margins} == arena_margin | {facts}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         msg = (f"main path {label} checks failed: {failed} ({d}, launches {launches}, "
@@ -1386,9 +1560,10 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
     (which computes the drift margin in its epilogue), what is left of the
     drift check, the host read of that margin, and the three parts of a
     rebuild (``sort_permute`` as the engine runs it, through the rebucket
-    kernels, with its keys and sort alone beside it).  Not counted."""
-    from claymore_tpu_torch.core import grid, partition
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, rebucket_kernel
+    kernels, with its keys and sort alone beside it; ``rebuild`` and
+    ``finalize_tiles`` through the partition kernels).  Not counted."""
+    from claymore_tpu_torch.core import grid
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, partition_kernel, rebucket_kernel
 
     mat, model = mats[0], state.models[0]
     fe = torch.tensor(1e9, device=DEVICE)
@@ -1402,7 +1577,7 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
                                       state.dt, next_dt, acc, tile_chunk)
     nt = model.tiles.block.shape[0]
     pm, tk, dr = rebucket_kernel.sort_permute(cfg, model, nt)
-    part, _ = partition.rebuild(cfg, state.grid, state.partition, (tk,))
+    part, _ = partition_kernel.rebuild(cfg, state.grid, state.partition, (tk,))
     stages = {
         "K2 grid_update": lambda: grid_kernel.grid_update(
             cfg, state.grid, state.partition, state.dt, colliders, state.t, table, ptrs),
@@ -1413,8 +1588,8 @@ def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
         "drift check host read": lambda: bool(margin <= 0.0),
         "sort_permute": lambda: rebucket_kernel.sort_permute(cfg, model, nt),
         "sort_permute: keys+sort": lambda: rebucket_kernel.sort_keys(cfg, model),
-        "rebuild": lambda: partition.rebuild(cfg, state.grid, state.partition, (tk,)),
-        "finalize_tiles": lambda: partition.finalize_tiles(cfg, part, tk, dr),
+        "rebuild": lambda: partition_kernel.rebuild(cfg, state.grid, state.partition, (tk,)),
+        "finalize_tiles": lambda: partition_kernel.finalize_tiles(cfg, part, tk, dr),
     }
     return {k: cuda_ms(f, reps=reps) for k, f in stages.items()}
 
@@ -1865,7 +2040,7 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     k1 = variant_name(mats[0], cfg.arena_span)
     nd = eng.n_dev
     used = {"grid_update": launches["grid_update"], k1: launches[k1],
-            **{k: launches[k] for k in REBUCKET_KERNELS}}
+            **{k: launches[k] for k in REBUCKET_KERNELS + PARTITION_KERNELS}}
     bytes_ = comm.exchanged_bytes([st.partition for st in state], state[0].models)
     checks = {
         "finite": bool(np.isfinite(d["t"]) and torch.isfinite(pos).all()),
@@ -1883,6 +2058,11 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         "launches": used["grid_update"] == steps * nd and used[k1] >= steps * nd,
         # every shard's initial sort at least
         "rebucket_launches": min(used[k] for k in REBUCKET_KERNELS) >= nd,
+        # every shard's init and rebuilds (the compaction of each, and of
+        # every migration where a comm is live)
+        "partition_launches": (min(used[k] for k in PARTITION_KERNELS) >= nd
+                               and used["oct_mask"] == used["remap"]
+                               and used["first_marked"] >= used["remap"]),
         "peak": peak_gib * 2**30 < PEAK_BOUND,
     }
     out = {"mesh": list(mesh), "particles": n, "substeps": steps, "overlap_halo": overlap,
@@ -2137,6 +2317,17 @@ def multi_paths(facts: str) -> dict:
     p1["rebucket"] = check_rebucket_kernel(
         eng.cfg, st[0].models[0], "shard 0 of the multi sphere25m 2x2 state, its region",
         facts, region_fn=lambda k: eng.comm.is_boundary_key(k, eng.comm.shards[0]))
+    # the partition kernels on shard 0's stale rebuild with the halo mask of
+    # the rows its neighbours send it
+    received, _ = eng.comm.exchange_halo([s.grid for s in st], [s.partition for s in st])
+    eng.comm.wait_halo()
+    extra = eng.comm.halo_mass_mask(received[0])
+    if extra is None or not bool(extra.any()):
+        raise AssertionError("multi sphere25m 2x2: shard 0 received no halo mass")
+    p1["partition"] = check_partition_kernel(
+        eng.cfg, *rebuild_inputs(eng.cfg, st[0]),
+        "shard 0 of the multi sphere25m 2x2 state, its halo mask", facts, extra_mask=extra)
+    del received, extra
     del st, eng
     torch.cuda.empty_cache()
     p2 = multi_run("sphere25m", (2, 2), 40, facts, ref, overlap=False,
@@ -2199,6 +2390,7 @@ C5_SCENE = Path(__file__).resolve().parent / "scenes" / "sphere_100m_8dev.json"
 C5_STEPS = 6      # substeps of the scene on one device and on its mesh: the
 #                   mesh on one card takes ~0.5 s a substep
 C5_BUSY_STEPS = 12  # one-device substeps (~1.4 s) run while a frame is written
+C5_SHARD_SLOTS = 42_942_464   # slots of each shard of the 4x2 mesh (config5_mesh logs them)
 
 
 def config5_one_device_scene(work: Path) -> Path:
@@ -2336,7 +2528,7 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
     margins = check_fused_margin(eng, state)
     k1 = variant_name(mat, cfg.arena_span)
     used = {"grid_update": launches["grid_update"], k1: launches[k1],
-            **{k: launches[k] for k in REBUCKET_KERNELS}}
+            **{k: launches[k] for k in REBUCKET_KERNELS + PARTITION_KERNELS}}
     checks = {
         "mass": mass_err < 1e-5,
         "null_row": d["null_block_mass"] == 0.0,
@@ -2349,6 +2541,7 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
         "launches": used["grid_update"] == steps and used[k1] == steps,
         # the init's sort and every substep's rebuild
         "rebucket_launches": all(used[k] == steps + 1 for k in REBUCKET_KERNELS),
+        "partition_launches": all(used[k] == steps + 1 for k in PARTITION_KERNELS),
         "rebuilds": eng.rebuilds == steps,          # rebucket_every=1: every substep
         "peak": peak < PEAK_BOUND,
     }
@@ -2373,6 +2566,9 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
     out["stages_ms"] = stages
     out["k1"] = {"ms": stages["K1 g2p2g"], **g2p2g_bound(cfg, mat, state)}
     out["k2"] = {"ms": stages["K2 grid_update"], **grid_bound(cfg, state.grid, state.partition)}
+    out["partition"] = check_partition_kernel(cfg, *rebuild_inputs(cfg, state),
+                                              "config 5 one-device final state", facts,
+                                              reps=5, plain_reps=2)
     log(f"config 5 on one device, through the rebucket kernels: sort_permute "
         f"{stages['sort_permute']:.3f} ms (keys+sort {stages['sort_permute: keys+sort']:.3f}), "
         f"peak {out['peak_gib']:.2f} GiB | {facts}")
@@ -2522,7 +2718,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import claymore_tpu_torch as ct
-    from claymore_tpu_torch.ops import _build
+    from claymore_tpu_torch.ops import _build, partition_kernel
     from claymore_tpu_torch.ops import probe_kernels as pk
     from claymore_tpu_torch.scripts import prof_k1
 
@@ -2662,7 +2858,7 @@ def main() -> int:
     rebuild_ms = (time.perf_counter() - t0) / 3 * 1e3
     counts = read_counts()
     launches = {k: counts[k] for k in ("grid_update", "g2p2g_fixed_corotated",
-                                       *REBUCKET_KERNELS)}
+                                       *REBUCKET_KERNELS, *PARTITION_KERNELS)}
     substeps = 1 + steps + 3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rebuilds = auto_rebuilds + eng_every.rebuilds
@@ -2684,6 +2880,8 @@ def main() -> int:
         >= substeps,
         # the init's sort and every rebuild's
         "rebucket_launches": all(launches[k] == 1 + rebuilds for k in REBUCKET_KERNELS),
+        # and the init's partition rebuild and every rebuild's
+        "partition_launches": all(launches[k] == 1 + rebuilds for k in PARTITION_KERNELS),
         "steps": d["step"] == substeps,
     }
     ms = elapsed / steps * 1e3
@@ -2744,6 +2942,24 @@ def main() -> int:
     if tight["dropped"] == 0:
         raise AssertionError("rebucket check: the tight state dropped no particle")
     rebucket_checks["sphere25m_tight"] = tight
+    # the partition kernels against their twins on the stale rebuild of the
+    # final state, and on its tiles rebuilt into a partition of half its
+    # octs (overflow); first_marked at a config-5 mesh shard's migration
+    # shape (42,942,464 slots, 262,144 migrants)
+    from claymore_tpu_torch.core.engine import empty_partition
+
+    partition_checks = {"sphere25m": check_partition_kernel(
+        cfg25, *rebuild_inputs(cfg25, state), "sphere25m final state", facts)}
+    cfg_half = dataclasses.replace(cfg25, max_active_blocks=int(state.partition.count[0]) // 2)
+    over = check_partition_kernel(
+        cfg_half, torch.zeros((cfg_half.max_active_octs + 1, 16, 128), device=DEVICE),
+        empty_partition(cfg_half, DEVICE), rebuild_inputs(cfg25, state)[2],
+        f"sphere25m final state's tiles into {cfg_half.max_active_octs} octs", facts,
+        reps=3, plain_reps=1)
+    if over["overflow"] == 0:
+        raise AssertionError("partition check: the half-capacity rebuild did not overflow")
+    partition_checks["sphere25m_overflow"] = over
+    first_marked_checks = check_first_marked(C5_SHARD_SLOTS, MIG_CAP, facts)
     torch.cuda.empty_cache()
     del state, eng, eng_every, before
     torch.cuda.empty_cache()
@@ -2762,6 +2978,9 @@ def main() -> int:
         log(f"sphere25m {key}: K1 {run['metrics']['launches']} alone on the final state "
             f"{k1ms:.4f} ms | {facts}")
         if key == "span4_every4":
+            partition_checks["sphere25m_span4"] = check_partition_kernel(
+                run["cfg"], *rebuild_inputs(run["cfg"], run["state"]),
+                "sphere25m span-4 final state", facts, reps=3, plain_reps=1)
             k1s4 = check_g2p2g_kernel(run["cfg"], mat25, run["state"], tile_chunk=64,
                                       reps=10, plain_reps=1)
             log_k1("g2p2g_fixed_corotated_span4, sphere25m span-4 state", k1s4, facts)
@@ -2803,6 +3022,9 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {facts}")
     rebucket_checks["dambreak12m"] = check_rebucket_kernel(
         db["cfg"], db["state"].models[0], "dambreak12m final state", facts)
+    partition_checks["dambreak12m"] = check_partition_kernel(
+        db["cfg"], *rebuild_inputs(db["cfg"], db["state"]), "dambreak12m final state", facts,
+        reps=3, plain_reps=1)
     del db
     torch.cuda.empty_cache()
 
@@ -2894,6 +3116,9 @@ def main() -> int:
     paths["dambreak_sdf"].update(scene_stages(sdfrun, facts))
     rebucket_checks["dambreak_sdf"] = check_rebucket_kernel(
         sdfrun["cfg"], sdfrun["state"].models[0], "dambreak_sdf final state", facts)
+    partition_checks["dambreak_sdf"] = check_partition_kernel(
+        sdfrun["cfg"], *rebuild_inputs(sdfrun["cfg"], sdfrun["state"]),
+        "dambreak_sdf final state", facts, reps=3, plain_reps=1)
     del sdfrun
     torch.cuda.empty_cache()
 
@@ -3073,6 +3298,59 @@ def main() -> int:
                                                     "share")}
         kernels.append(e)
     paths["rebucket_checks"] = rebucket_checks
+    # the partition kernels: not TPU kernels either (XLA in the JAX
+    # package); times on the sphere25m final state's stale rebuild (the
+    # compaction there: the oct flags into the partition's capacity), every
+    # state's checks beside them, first_marked also at a config-5 mesh
+    # shard's migration shape, and their launches on the other paths
+    partition_checks["multi_sphere25m_2x2_shard0"] = paths["multi_sphere25m_2x2"]["partition"]
+    partition_checks["config5_one_device"] = paths["config5_one_device"]["partition"]
+    pinfo = partition_kernel.kernel_info()
+    log(f"partition sub-kernels (registers, blocks per SM): {pinfo} | {facts}")
+    pc = partition_checks["sphere25m"]
+    jax_part = "claymore_tpu/core/partition.py"
+    for name, replaces, sub in (
+            ("first_marked", f"{jax_part}:448", "write"),
+            ("oct_mask", f"{jax_part}:401", "mass"),
+            ("remap", f"{jax_part}:401", "rows"),
+            ("finalize_tiles", f"{jax_part}:353", "finalize")):
+        e = {"name": name, "route": "cuda", "source": src + "partition.cu",
+             "replaces": replaces,
+             "tpu_route": "not a TPU kernel: XLA in the JAX package (rebuild's mask, "
+                          "jnp.nonzero(size=, fill_value=), table scatter and row gather; "
+                          "finalize_tiles)",
+             "launches": paths["sphere25m"]["launches"][name],
+             "max_abs_err": max([c["max_abs_err"] for c in partition_checks.values()]
+                                + [c["max_abs_err"] for c in first_marked_checks.values()]),
+             "ms": pc["ms"][name], "plain_ms": pc["plain_ms"][name],
+             "bound_ms": pc["bound_ms"][name], "bound_by": "bytes",
+             "library_ms": pc["library_ms"] if name == "first_marked" else None,
+             **pinfo[sub],
+             "states": {k: {"octs": c["octs"], "overflow": c["overflow"],
+                            "ms": c.get("ms", {}).get(name),
+                            "bound_ms": c.get("bound_ms", {}).get(name)}
+                        for k, c in partition_checks.items()},
+             "launches_paths": {p: paths[p]["partition_launches"][name]
+                                for p in ("dambreak12m", "dambreak_sdf",
+                                          "dambreak12m_incremental")}}
+        for p in ("config5_one_device", "multi_sphere25m_2x2", "multi_dambreak12m_4x1",
+                  "multi_config5_4x2"):
+            e["launches_paths"][p] = paths[p]["launches"][name]
+        if name == "first_marked":
+            e["mesh_migration_shape"] = first_marked_checks
+            e["sub_kernels"] = {k: pinfo[k] for k in ("count", "scan", "write", "fill")}
+        if name == "oct_mask":
+            e["sub_kernels"] = {k: pinfo[k] for k in ("base", "mass", "tiles")}
+        if name == "remap":
+            e["sub_kernels"] = {k: pinfo[k] for k in ("count", "scan", "write_table", "fill",
+                                                      "rows")}
+            e["rebuild+finalize"] = {k: pc[k]["rebuild+finalize"]
+                                     for k in ("ms", "plain_ms", "bound_ms")}
+            e["device_ops"] = paths["prof_rebuild"]["device_ops"]
+        kernels.append(e)
+    paths["partition_checks"] = partition_checks
+    if min(v for e in kernels for v in e.get("launches_paths", {}).values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on one of its paths: {kernels}")
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on its main path: {kernels}")
     # the benchmark entry point's launches, by scene, on K1's and K2's rows

@@ -49,7 +49,7 @@ import torch
 from ..config import SimConfig
 from ..models.boundary import check_colliders
 from ..models.materials import Material
-from ..ops import g2p2g_kernel, grid_kernel, rebucket_kernel
+from ..ops import g2p2g_kernel, grid_kernel, partition_kernel, rebucket_kernel
 from ..utils.timers import device_ms
 from . import grid as grid_ops
 from . import partition as part
@@ -126,12 +126,12 @@ def init_impl(cfg: SimConfig, materials, tile_counts, tile_chunk: int,
         permuted.append(pm)
         tile_keys.append(tk)
         droppeds.append(dr)
-    partition, pool = part.rebuild(cfg, pool, empty_partition(cfg, dev),
-                                   tuple(tile_keys))
+    partition, pool = partition_kernel.rebuild(cfg, pool, empty_partition(cfg, dev),
+                                               tuple(tile_keys))
     models = []
     for mat, pm, tk, dr, v0 in zip(materials, permuted, tile_keys, droppeds,
                                    v0_tuple):
-        pm.tiles = part.finalize_tiles(cfg, partition, tk, dr)
+        pm.tiles = partition_kernel.finalize_tiles(cfg, partition, tk, dr)
         models.append(pm)
         pool = transfer.rasterize_model(
             cfg, mat, partition.table, pm,
@@ -168,7 +168,7 @@ def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
     incremental plan, which moves only the particles that changed home
     block.  ``stale``: keep every particle where it is and rebuild only the
     partition (the multi-device engine's substeps without a rebucket);
-    ``extra_mask`` is ``part.rebuild``'s.  A model whose plan would defer movers (past the mover capacity
+    ``extra_mask`` is ``partition_kernel.rebuild``'s.  A model whose plan would defer movers (past the mover capacity
     or past the free tiles) takes the full sort instead: a deferred mover
     stays in a tile of another block, and once it drifts out of that
     tile's arena it is lost (the JAX package keeps the deferral and loses
@@ -193,10 +193,10 @@ def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
         plans = [rebucket_kernel.sort_permute(cfg, m, m.tiles.block.shape[0]) if d > 0 else plan
                  for m, plan, d in zip(models, plans, deferred)]
         kind = "fallback" if max(deferred) > 0 else "incremental"
-    partition, pool = part.rebuild(cfg, pool, partition, tuple(tk for _, tk, _ in plans),
-                                   extra_mask)
+    partition, pool = partition_kernel.rebuild(cfg, pool, partition,
+                                               tuple(tk for _, tk, _ in plans), extra_mask)
     for pm, tk, dr in plans:
-        pm.tiles = part.finalize_tiles(cfg, partition, tk, dr)
+        pm.tiles = partition_kernel.finalize_tiles(cfg, partition, tk, dr)
     return partition, pool, tuple(pm for pm, _, _ in plans), kind, deferred
 
 
@@ -683,7 +683,7 @@ class MPMEngine:
 
         models = []
         for pm, tk, dr in planned:
-            pm.tiles = part.finalize_tiles(new_cfg, partition, tk, dr)
+            pm.tiles = partition_kernel.finalize_tiles(new_cfg, partition, tk, dr)
             models.append(pm)
         new_state = SimState(
             grid=grid, partition=partition, models=tuple(models), dt=state.dt,

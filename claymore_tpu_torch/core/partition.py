@@ -321,7 +321,10 @@ def incremental_plan(cfg: SimConfig, model, tile_keys: torch.Tensor):
     mover fills, keep their old contents, inactive.
 
     Returns (model, tile_keys i32[T], deferred i32[1]), equal to the JAX
-    package's ``incremental_plan``."""
+    package's ``incremental_plan``.  Its two compactions go through
+    ``ops/partition_kernel.py:first_marked`` (the kernel on the card)."""
+    from ..ops import partition_kernel
+
     s_cap = model.pos.shape[1]
     tile = cfg.particle_tile
     num_tiles = tile_keys.shape[0]
@@ -335,9 +338,9 @@ def incremental_plan(cfg: SimConfig, model, tile_keys: torch.Tensor):
     stay = model.active & (key == tk_slot)
     mover = model.active & ~stay
 
-    midx = _first_marked(mover, m_cap, s_cap)
+    midx, n_movers = partition_kernel.first_marked(mover, m_cap, s_cap)
     got_m = midx < s_cap
-    deferred = mover.sum(dtype=torch.int32) - got_m.sum(dtype=torch.int32)
+    deferred = torch.clamp(n_movers[0] - m_cap, min=0)
     gmid = torch.clamp(midx, max=s_cap - 1)
     mkey = torch.where(got_m, key[gmid], torch.full_like(gmid, n3, dtype=torch.int32))
 
@@ -357,8 +360,7 @@ def incremental_plan(cfg: SimConfig, model, tile_keys: torch.Tensor):
     # may be deferred must not be handed out under them)
     occ = model.active.reshape(num_tiles, tile).sum(dim=1)
     free = occ == 0
-    ftile = _first_marked(free, num_tiles, num_tiles)
-    n_free = free.sum()
+    ftile, n_free = partition_kernel.first_marked(free, num_tiles, num_tiles)
 
     # mover tile j -> tile ftile[j]; past the free tiles: deferred
     mtile = torch.div(mslot, tile, rounding_mode="floor")
@@ -461,19 +463,19 @@ def particle_blocks(cfg: SimConfig, model_block_keys: Tuple[torch.Tensor, ...],
     return _dilate(cfg, pmask.reshape(g, g, g)).reshape(-1)
 
 
-def rebuild(
+def oct_flags(
     cfg: SimConfig,
     pool: torch.Tensor,
     partition: Partition,
     model_block_keys: Tuple[torch.Tensor, ...],
     extra_mask: Optional[torch.Tensor] = None,
-) -> Tuple[Partition, torch.Tensor]:
-    """Recompute the active OCT set, compact it, and remap the grid pool.
+) -> torch.Tensor:
+    """bool[num_oct_keys]: the octs the rebuild keeps.
 
     Active blocks: blocks holding grid mass, union the {0,1}^3-dilated
     particle home blocks, union ``extra_mask`` (bool[G^3], the blocks a
-    neighbour shard sent mass into); coarsened to octs and compacted in
-    ascending oct key order.  Returns (new_partition, remapped_pool)."""
+    neighbour shard sent mass into); coarsened to octs.  The plain twin of
+    ``ops/partition_kernel.py:oct_mask``."""
     g = cfg.grid_size
     n3 = g * g * g
     no = cfg.num_oct_keys
@@ -493,7 +495,19 @@ def rebuild(
 
     # coarsen to octs: z is the low bits of the block key, so consecutive
     # groups of 8 block keys form one oct
-    omask = mask.reshape(no, 8).any(dim=1)
+    return mask.reshape(no, 8).any(dim=1)
+
+
+def remap(cfg: SimConfig, pool: torch.Tensor, partition: Partition,
+          omask: torch.Tensor) -> Tuple[Partition, torch.Tensor]:
+    """The partition of the oct flags ``omask`` (compacted in ascending oct
+    key order, the octs past the capacity counted in ``overflow``) and the
+    pool remapped into it: each new slot takes its oct's old row (an oct
+    new to the partition takes the old null row), every other row is zero.
+    The plain twin of ``ops/partition_kernel.py:remap``."""
+    no = cfg.num_oct_keys
+    nb = cfg.max_active_octs
+    dev = pool.device
 
     total = omask.sum(dtype=torch.int32).reshape(1)
     rank = torch.cumsum(omask.long(), dim=0) - 1
@@ -515,3 +529,18 @@ def rebuild(
     new_pool = torch.cat([new_pool, torch.zeros_like(pool[:1])], dim=0)
 
     return Partition(table=table, keys=keys, count=count, overflow=overflow), new_pool
+
+
+def rebuild(
+    cfg: SimConfig,
+    pool: torch.Tensor,
+    partition: Partition,
+    model_block_keys: Tuple[torch.Tensor, ...],
+    extra_mask: Optional[torch.Tensor] = None,
+) -> Tuple[Partition, torch.Tensor]:
+    """Recompute the active OCT set (``oct_flags``), compact it, and remap
+    the grid pool (``remap``).  Returns (new_partition, remapped_pool).
+    The plain version of ``ops/partition_kernel.py:rebuild``, which the
+    engine calls."""
+    return remap(cfg, pool, partition,
+                 oct_flags(cfg, pool, partition, model_block_keys, extra_mask))

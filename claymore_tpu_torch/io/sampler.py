@@ -25,6 +25,19 @@ def _lattice(xs, ys, zs) -> np.ndarray:
     return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
 
 
+def sample_uniform_box(dx: float, lo_cell, hi_cell) -> np.ndarray:
+    """8 particles per cell at +-0.25 dx offsets inside the cell range
+    [lo_cell, hi_cell) given in cell coordinates: f32[cells * 8, 3], cells
+    x-major, each cell's 8 offsets x-major."""
+    lo = np.asarray(lo_cell, np.int64)
+    hi = np.asarray(hi_cell, np.int64)
+    cx, cy, cz = np.meshgrid(*(np.arange(lo[d], hi[d]) for d in range(3)), indexing="ij")
+    centers = (np.stack([cx, cy, cz], axis=-1).reshape(-1, 3) + 0.5) * dx
+    offs = np.array([[sx, sy, sz] for sx in (-0.25, 0.25) for sy in (-0.25, 0.25)
+                     for sz in (-0.25, 0.25)], np.float32) * dx
+    return (centers[:, None, :] + offs[None]).reshape(-1, 3).astype(np.float32)
+
+
 def sample_uniform_box_world(dx: float, lo, hi, ppc: float = 8.0) -> np.ndarray:
     """Uniformly fill a world-space AABB at ``ppc`` particles per cell."""
     spans = _lattice_spans(dx, lo, hi, ppc)

@@ -79,6 +79,19 @@ SIGNATURES = {
     "cm_rebucket_heads": [_P, _I, _I] + [_P] * 5,
     "cm_rebucket_plan": [_P] * 3 + [_I] * 5 + [_P] * 8,
     "cm_rebucket_place": [_P] * 3 + [_I] * 3 + [_P] * 6,
+    # the partition rebuild (csrc/partition.cu): first_marked (mark, n, size,
+    # fill, out, total, cta_count, cta_off, stream); oct_mask (pool, keys,
+    # count, nb, no, models, tile key pointers, tile counts, extra, g, lo,
+    # span, flags, stream); remap (flags, no, nb, null_oct, pool, old table,
+    # keys, table, count, overflow, new pool, total, cta_count, cta_off,
+    # stream); finalize_tiles (tile keys, n, table, g, no, null_oct,
+    # null_block, block, bcoord, tvalid, stream); info (sub-kernel, out
+    # i32[2]: registers, blocks per SM)
+    "cm_first_marked": [_P, _I, _I, _I] + [_P] * 5,
+    "cm_partition_oct_mask": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_P] * 2,
+    "cm_partition_remap": [_P] + [_I] * 3 + [_P] * 11,
+    "cm_partition_finalize_tiles": [_P, _I, _P] + [_I] * 4 + [_P] * 4,
+    "cm_partition_info": [_I, _P],
 }
 
 

@@ -59,7 +59,7 @@ from ..core import partition as part
 from ..core.types import ParticleModel
 from ..models.boundary import check_colliders
 from ..models.materials import Material
-from ..ops import grid_kernel
+from ..ops import grid_kernel, partition_kernel
 
 
 def mesh_coord(mesh_shape, shard: int) -> tuple:
@@ -290,7 +290,7 @@ class HaloComm:
         of an oct that straddles a window's edge is shipped only inside."""
         cfg = self.cfg
         no, nb, h = cfg.num_oct_keys, cfg.max_active_octs, self.halo_capacity
-        idx = part._first_marked(cond, h, nb)
+        idx, _ = partition_kernel.first_marked(cond, h, nb)
         valid = idx < nb
         gidx = torch.clamp(idx, max=nb - 1)
         k = torch.where(valid, keys[gidx], torch.full_like(keys[gidx], no)).to(torch.int32)
@@ -409,7 +409,7 @@ class HaloComm:
 
     def halo_mass_mask(self, received) -> Optional[torch.Tensor]:
         """bool[G^3]: the blocks a neighbour sent mass into (they must stay
-        active: ``partition.rebuild``'s ``extra_mask``), None if nothing
+        active: ``partition_kernel.rebuild``'s ``extra_mask``), None if nothing
         was received."""
         if not received:
             return None
@@ -455,7 +455,7 @@ class HaloComm:
         s_cap = m.pos.shape[1]
         k = rv.shape[1]
         valid = rv[3] > 0
-        free = part._first_marked(~m.active, k, s_cap)
+        free, _ = partition_kernel.first_marked(~m.active, k, s_cap)
         ok = valid & (free < s_cap)
         lost = (valid & (free >= s_cap)).sum(dtype=torch.int32).reshape(1)
         # valid migrants and free slots are both prefixes, so ``ok`` is one;
@@ -521,12 +521,11 @@ class HaloComm:
                     active = m.active
                     out = []
                     for cond in (active & (hb < lo), active & (hb >= hi)):
-                        idx = part._first_marked(cond, k, s_cap)
+                        idx, crossers = partition_kernel.first_marked(cond, k, s_cap)
                         valid = idx < s_cap
                         # crossers past the capacity are deactivated too,
                         # and counted: they must not go on scattering here
-                        dropped[j] = dropped[j] + (cond.sum(dtype=torch.int32)
-                                                   - valid.sum(dtype=torch.int32)).reshape(1)
+                        dropped[j] = dropped[j] + torch.clamp(crossers - k, min=0)
                         out.append(self._payload(m, torch.clamp(idx, max=s_cap - 1), valid))
                         active = active & ~cond
                     models[j][mi] = dataclasses.replace(m, active=active)

@@ -14,15 +14,22 @@ another under the JAX script's names:
 * ``sort_permute``: the full rebucket as the engine runs it,
   ``ops/rebucket_kernel.py:sort_permute`` (on a card the sort, then the
   CUDA kernels of ``csrc/rebucket.cu``; on the CPU the plain version);
-* ``table_rebuild+remap``: ``core/partition.py:rebuild`` (the oct set, its
-  compaction, the table and the pool rows remapped).
+* ``table_rebuild+remap``: the partition rebuild as the engine runs it,
+  ``ops/partition_kernel.py:rebuild`` (the oct set, its compaction, the
+  table and the pool rows remapped; on a card the kernels of
+  ``csrc/partition.cu``, on the CPU the plain ``core/partition.py:rebuild``).
 
 Each is the best of ``--reps`` runs of ``--iters`` calls back to back (CUDA
 events on a card, the host clock on the CPU).  ``permute`` is
 ``sort_permute`` less ``sort``: what the slot plan and the placement add to
 the sort; ``plan`` and ``place`` time those two stages alone on the sorted
 keys (``tile_plan``, ``place``).  ``sort_gkeys_per_s`` is the keys sorted
-per second.  Prints one JSON line; exits 2 when ``--device cuda`` finds no card.
+per second.  On a card, after the timings, ``device_ops`` counts the
+device operations (``torch.profiler``) of one partition rebuild +
+``finalize_tiles`` and of one ``first_marked`` of the slots' free flags
+(into at most 262,144 indices, a mesh's migration capacity), through the
+kernels and through their plain twins.  Prints one JSON line; exits 2 when
+``--device cuda`` finds no card.
 """
 
 from __future__ import annotations
@@ -49,8 +56,9 @@ def main(argv=None) -> int:
         return 2
     from .. import MPMEngine
     from ..core import partition as part
+    from ..ops import partition_kernel as pk
     from ..ops import rebucket_kernel as rk
-    from ..utils.timers import best_ms, device_label
+    from ..utils.timers import best_ms, device_label, device_ops
     from .prof_k1 import scene
 
     dev = torch.device(args.device)
@@ -66,7 +74,7 @@ def main(argv=None) -> int:
     stages = {
         "sort": lambda: rk.sort_keys(cfg, model),
         "sort_permute": lambda: rk.sort_permute(cfg, model, nt),
-        "table_rebuild+remap": lambda: part.rebuild(cfg, state.grid, state.partition, (tk,)),
+        "table_rebuild+remap": lambda: pk.rebuild(cfg, state.grid, state.partition, (tk,)),
         "plan": lambda: rk.tile_plan(cfg, skey, nt),
         "place": lambda: rk.place(cfg, model, perm, dstart, dlen),
     }
@@ -75,6 +83,16 @@ def main(argv=None) -> int:
     slots = int(model.pos.shape[1])
     out.update(particles=int(pos.shape[0]), slots=slots,
                sort_gkeys_per_s=slots / out["sort"] / 1e6, device=device_label(dev))
+    if dev.type == "cuda":
+        free, k = ~model.active, min(262144, slots)
+        chains = {
+            "rebuild+finalize": lambda m: m[1](cfg, m[0](cfg, state.grid, state.partition,
+                                                         (tk,))[0], tk, model.tiles.dropped),
+            "first_marked": lambda m: m[2](free, k, slots)}
+        ways = {"kernels": (pk.rebuild, pk.finalize_tiles, pk.first_marked),
+                "plain": (part.rebuild, part.finalize_tiles, part._first_marked)}
+        out["device_ops"] = {name: {w: device_ops(lambda: chain(fns)) for w, fns in ways.items()}
+                             for name, chain in chains.items()}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -8,8 +8,9 @@ particle as the kernel source does them, for the work these inputs need.
 
 ``grid_bound`` is the grid kernels' (K2, K2-AC, K2-SDF), ``g2p2g_bound``
 the transfer kernel's (K1), ``dma_bound`` the pool-row probes' (P5, P6),
-``rebucket_bound`` the full rebucket's (``csrc/rebucket.cu``);
-``chip_smoke.py`` and the profiling scripts report them beside the
+``rebucket_bound`` the full rebucket's (``csrc/rebucket.cu``),
+``partition_bound`` and ``first_marked_bound`` the partition rebuild's and
+the compaction's (``csrc/partition.cu``); ``chip_smoke.py`` and the profiling scripts report them beside the
 kernels' times.
 """
 
@@ -147,4 +148,44 @@ def rebucket_bound(cfg, slots: int, channels: int, active: int = None,
     out = bound(sum(stages.values()), 0)
     out["sort"] = bound(16 * slots, 0)
     out["stages"] = {k: bound(v, 0) for k, v in stages.items()}
+    return out
+
+
+def first_marked_bound(n: int, size: int) -> dict:
+    """The compaction's bound (``ops/partition_kernel.py:first_marked``) over
+    ``n`` flags into ``size`` indices: each flag read once (1 B), each index
+    written (8 B) and the count (4 B)."""
+    return bound(n + 8 * size + 4, 0)
+
+
+def partition_bound(cfg, live_rows: int, tiles: int, extra: bool, octs: int) -> dict:
+    """The partition rebuild's bound (``ops/partition_kernel.py``) on one
+    rebuild's inputs: ``live_rows`` rows of the old partition, ``tiles``
+    tile keys over every model, a halo mask or not, ``octs`` octs in the
+    new partition.  ``stages``, each kernel's inputs read once and outputs
+    written once:
+
+    * ``oct_mask``: per live row its key (4 B) and its mass rows 0-3
+      (2 KB), the count, per tile its key (4 B), the halo mask (G^3 B)
+      where given; one flag (1 B) written per oct key;
+    * ``remap``: the flags (1 B an oct key) read, the keys (4 nb), the table
+      (4 (no + 1)), the count and overflow written; per oct of the new
+      partition its old table entry (4 B) and its old row (8 KB) read; the
+      new pool (8 KB a row, nb + 1 rows) written;
+    * ``finalize_tiles``: per tile its key and one table entry read (8 B),
+      its address, coordinates and flag written (17 B).
+
+    ``rebuild`` is ``oct_mask`` + ``remap``, the total adds
+    ``finalize_tiles``; operations are negligible."""
+    no, nb = cfg.num_oct_keys, cfg.max_active_octs
+    row = 16 * 128 * 4
+    stages = {
+        "oct_mask": live_rows * (4 + row // 4) + 4 + 4 * tiles
+        + (cfg.grid_size ** 3 if extra else 0) + no,
+        "remap": no + 4 * nb + 4 * (no + 1) + 8 + octs * (4 + row) + (nb + 1) * row,
+        "finalize_tiles": 25 * tiles,
+    }
+    out = bound(sum(stages.values()), 0)
+    out["stages"] = {k: bound(v, 0) for k, v in stages.items()}
+    out["rebuild"] = bound(stages["oct_mask"] + stages["remap"], 0)
     return out

@@ -4,9 +4,9 @@ Port of ``claymore_tpu/utils/timers.py``.  ``tock`` synchronises the CUDA
 device first when asked to, so the time includes the device work queued
 since ``tick`` (the JAX package blocks on a value instead).  ``device_ms``,
 ``best_ms`` and ``device_label`` time device work and name the device for
-``MPMEngine.profile_stages`` and the profiling scripts; ``profile_trace``
-records a ``torch.profiler`` trace (the JAX package's ``jax.profiler``
-trace).
+``MPMEngine.profile_stages`` and the profiling scripts; ``device_ops``
+counts the device operations of a call; ``profile_trace`` records a
+``torch.profiler`` trace (the JAX package's ``jax.profiler`` trace).
 """
 
 from __future__ import annotations
@@ -68,6 +68,22 @@ def device_label(device) -> str:
     except (OSError, subprocess.TimeoutExpired):
         pass
     return torch.cuda.get_device_name(index)
+
+
+def device_ops(fn):
+    """How many operations (kernels, copies, sets) one call of ``fn()`` runs
+    on the card: the CUDA events ``torch.profiler`` records, None where it
+    records none.  The profiler's tracing stays set up in the process
+    after it, and may slow later launches: count after any timing, or in a
+    process of its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) or None
 
 
 @contextlib.contextmanager

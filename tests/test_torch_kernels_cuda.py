@@ -586,3 +586,134 @@ def test_dma_info_names_every_sub_kernel(card):
         assert set(info) == set(subs)
         for v in info.values():
             assert 0 < v["registers"] <= 255 and v["blocks_per_sm"] >= 1
+
+
+def _partition_inputs(case, seed=0):
+    """One rebuild's inputs on the card, made from a numpy seed: an old
+    partition of random octs, its pool rows random (some without mass in
+    rows 0-3, one of -0.0, one holding a NaN, rows past the count dirty,
+    the null row dirty for ``dirty_null``), tiles of random blocks in runs
+    of one key with sentinels (the grid's corners and faces for ``faces``),
+    a halo mask for ``extra``; span 4 for ``span4``, a capacity the octs
+    overflow for ``overflow``."""
+    import numpy as np
+
+    from claymore_tpu_torch.core.types import Partition
+
+    rng = np.random.default_rng(seed)
+    nb = 24 if case == "overflow" else 2048
+    cfg = ct.SimConfig(domain_bits=7, max_active_blocks=nb,
+                       rebucket_every=4 if case == "span4" else 1)
+    g, no = cfg.grid_size, cfg.num_oct_keys
+    n3 = g ** 3
+    count = 0 if case == "empty" else min(nb // 2, 300)
+    old = np.sort(rng.choice(no, size=count, replace=False)).astype(np.int32)
+    keys = np.full(nb, no, np.int32)
+    keys[:count] = old
+    keys[count:count + 3] = rng.choice(no, size=3)
+    table = np.full(no + 1, cfg.null_oct, np.int32)
+    table[old] = np.arange(count, dtype=np.int32)
+    pool = rng.normal(size=(nb + 1, 16, 128)).astype(np.float32)
+    pool[rng.uniform(size=nb + 1) < 0.3, 0:4] = 0.0
+    if count >= 2:
+        pool[0, 0:4] = -0.0
+        pool[1, 0:4] = 0.0
+        pool[1, 3, 5] = np.nan
+    if case != "dirty_null":
+        pool[nb] = 0.0
+    tiles = []
+    if case != "empty":
+        blocks = rng.integers(0, n3, size=200 if case == "overflow" else 80)
+        if case == "faces":
+            blocks = np.array([(x * g + y) * g + z for x in (0, g // 2, g - 1)
+                               for y in (0, g // 2, g - 1) for z in (0, 7, 8, g - 1)])
+        runs = np.repeat(blocks, rng.integers(1, 4, size=blocks.shape[0]))
+        runs[rng.uniform(size=runs.shape[0]) < 0.1] = n3
+        tiles.append(runs.astype(np.int32))
+        if case == "two_models":
+            tiles.append(np.append(rng.integers(0, n3, size=9), n3).astype(np.int32))
+    dev = torch.device("cuda")
+    extra = None
+    if case == "extra":
+        extra = torch.from_numpy(rng.uniform(size=n3) < 0.01).to(dev)
+    part = Partition(table=torch.from_numpy(table).to(dev), keys=torch.from_numpy(keys).to(dev),
+                     count=torch.tensor([count], dtype=torch.int32, device=dev),
+                     overflow=torch.zeros(1, dtype=torch.int32, device=dev))
+    return (cfg, torch.from_numpy(pool).to(dev), part,
+            tuple(torch.from_numpy(t).to(dev) for t in tiles), extra)
+
+
+@pytest.mark.parametrize("case", ["span2", "span4", "faces", "extra", "overflow",
+                                  "dirty_null", "two_models", "empty"])
+def test_partition_kernels_match_plain(card, case):
+    """The oct-mask, compaction, remap and finalize kernels equal their
+    plain twins bit for bit (``chip_smoke.check_partition_kernel``)."""
+    cfg, pool, part, tiles, extra = _partition_inputs(case)
+    r = card.check_partition_kernel(cfg, pool, part, tiles, case, "test", extra_mask=extra,
+                                    time_it=False)
+    assert r["max_abs_err"] == 0.0
+    assert (r["overflow"] > 0) == (case == "overflow")
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 4096, 16384, 3 * 16384 + 123])
+@pytest.mark.parametrize("case", ["sparse", "all_false", "all_true", "suffix"])
+@pytest.mark.parametrize("size", ["below", "equal", "above"])
+def test_first_marked_kernel_matches_plain(card, n, case, size):
+    """first_marked equals ``partition._first_marked`` bit for bit, and its
+    total the count, where the size lies below, at and above the total, for
+    counts that are and are not whole chunks, and on a mark that does not
+    start on a 16-byte boundary."""
+    import numpy as np
+
+    from claymore_tpu_torch.core import partition
+    from claymore_tpu_torch.ops import partition_kernel as pk
+
+    rng = np.random.default_rng(n)
+    m = {"sparse": rng.uniform(size=n) < 0.05, "all_false": np.zeros(n, bool),
+         "all_true": np.ones(n, bool),
+         "suffix": (rng.uniform(size=n) < 0.02) | (np.arange(n) >= n // 3)}[case]
+    total = int(m.sum())
+    k = {"below": max(total // 2, 1), "equal": max(total, 1), "above": total + 9}[size]
+    base = torch.zeros(n + 3, dtype=torch.bool, device="cuda")
+    base[3:] = torch.from_numpy(m).cuda()
+    for mark in (base[3:].clone(), base[3:]):          # aligned, and 3 bytes off
+        idx, tot = pk.first_marked(mark, k, n + 1)
+        assert torch.equal(idx, partition._first_marked(mark, k, n + 1))
+        assert int(tot[0]) == total and idx.dtype == torch.int64
+
+
+def test_partition_twins_never_see_a_cuda_tensor(card, monkeypatch):
+    """On the card an engine (every substep rebuilding, the incremental
+    plan) and a 2x2 mesh (migration, the halo mask, every shard's rebuild)
+    run through the partition kernels: the plain twins raise if called,
+    and every kernel launches."""
+    from claymore_tpu_torch.core import partition
+    from claymore_tpu_torch.ops import partition_kernel as pk
+
+    def refuse(name):
+        def fn(*args, **kw):
+            raise AssertionError(f"the plain {name} ran on the card")
+        return fn
+
+    for name in ("_first_marked", "oct_flags", "remap", "rebuild", "finalize_tiles",
+                 "particle_blocks"):
+        monkeypatch.setattr(partition, name, refuse(name))
+    for k in pk.launches:
+        pk.launches[k] = 0
+    cfg = ct.SimConfig(domain_bits=6, max_active_blocks=512, default_dt=2e-4,
+                       rebucket_every=1, defrag_every=2)
+    mat = ct.FixedCorotated(volume=cfg.default_volume(), e=1e4, nu=0.3)
+    pos = sample_uniform_box_world(cfg.dx, [0.4, 0.45, 0.4], [0.55, 0.6, 0.55], cfg.ppc)
+    eng = ct.MPMEngine(cfg, [mat], tile_chunk=8, device="cuda")
+    state = eng.run_steps(eng.init_state([pos], [(3.0, -1.0, 2.0)]), 4, 1.0)
+    assert eng.rebuilds == 4
+    assert pk.launches["oct_mask"] == pk.launches["remap"] == pk.launches["finalize_tiles"] == 5
+    assert pk.launches["first_marked"] > 5                 # the incremental plans too
+    d = eng.diagnostics(state)
+    assert d["model0_active"] == len(pos) and d["null_block_mass"] == 0.0
+    before = dict(pk.launches)
+    meng, mst, mpos = _multi((2, 2), "cuda")
+    mst = meng.run_steps(mst, 4, 1.0)
+    md = meng.diagnostics(mst)
+    assert md["model0_active"] == mpos.shape[0] and md["migration_dropped"] == 0
+    assert all(pk.launches[k] > before[k] for k in pk.launches)
