@@ -69,6 +69,16 @@ rebuilt into half the octs they need (overflow); ``first_marked`` also on
 (``check_first_marked``).  Every path counts their launches: each rebuild
 (the init's, each substep's on a mesh) and each compaction of a migration.
 
+The halo kernels (``csrc/halo.cu``: the halo pack of every direction of a
+shard, the halo mass mask, the halo add, the migration pack) are held
+against their plain twins (``parallel/halo.py``) bit for bit
+(``check_halo_kernel``) on the sphere25m 2x2 final state (every shard; and
+with a halo capacity of 64 and a migration capacity of 256 that both
+overflow) and on config 5's 4x2 final state (its fullest shard and an
+empty one); every mesh path with a neighbour counts their launches
+(sphere25m 2x2 runs past its first drift rebuild, so that its shards pack
+their crossers).
+
 It also holds the probes P1-P6 (the kernels of the profiling scripts)
 against their plain versions at the TPU scripts' inputs and drives the
 profiling path: ``prof_laneops``, ``prof_dma`` (each printing its launches),
@@ -111,6 +121,7 @@ SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
 PEAK_BOUND = 80e9         # bytes of device memory a path may peak at: one card
 REBUCKET_KERNELS = ("rebucket_keys", "rebucket_heads", "rebucket_plan", "rebucket_place")
 PARTITION_KERNELS = ("first_marked", "oct_mask", "remap", "finalize_tiles")
+HALO_KERNELS = ("halo_pack", "halo_mask", "halo_add", "migrate_pack")
 
 
 T0 = time.perf_counter()
@@ -690,6 +701,118 @@ def check_first_marked(n: int, size: int, facts: str, reps: int = 10) -> dict:
     return out
 
 
+def check_halo_kernel(comm, pools, partitions, models, label: str, facts: str, shards=None,
+                      targets=None, narrow: int = 0, reps: int = 10, plain_reps: int = 3,
+                      time_it: bool = True) -> dict:
+    """The halo kernels (``ops/halo_kernel.py``) against their plain twins
+    (``parallel/halo.py``) bit for bit, on one mesh state held by ``comm``'s
+    group (every shard's pool, partition and first model): for each shard
+    in ``shards`` (default all) its packs of every direction (as a dense
+    group ships them: keys, mass bits, rows by bits, the overflow); what the
+    exchange (the kernels) delivers to it, through the mass mask and the add
+    (into ``targets[j]``'s (pool, table), by default its own pool and
+    table, on clones); its migration pack along each live axis (``narrow``
+    blocks inside each slab face, so that particles well inside the slab
+    cross: payloads by bits, active, dropped).  Times (CUDA events, median
+    of ``reps``; the twins of ``plain_reps``) on the first shard of
+    ``shards``: each kernel, its twin, and for the add ``index_add_`` of one
+    received direction (the library call), beside ``halo_bound`` /
+    ``migrate_bound``.  Not counted."""
+    from claymore_tpu_torch.ops import halo_kernel as hk
+    from claymore_tpu_torch.parallel import halo
+    from claymore_tpu_torch.utils.bounds import halo_bound, migrate_bound
+
+    cfg, h, m = comm.cfg, comm.halo_capacity, comm.margin
+    no = cfg.num_oct_keys
+    shards = list(range(len(pools))) if shards is None else list(shards)
+    dirs = comm._directions()
+    errs = {}
+
+    def expect(name, a, b):
+        if not _same(a, b):
+            raise AssertionError(f"halo kernel {label}: {name} differs from the plain twin")
+        errs[name] = _bits_err(a, b)
+
+    res = {"label": label, "halo_capacity": h, "migration_capacity": comm.mig_cap,
+           "shards": shards, "overflow": {}, "packed_octs": {}, "dropped": {}, "crossers": {}}
+    received, _ = comm.exchange_halo(pools, partitions)
+    comm.wait_halo()
+    for j in shards:
+        pt, win = partitions[j], comm._windows(comm.shards[j])
+        args = (cfg, pools[j], pt.keys, pt.count, win, [True] * len(dirs), h, m)
+        kp, ko = hk.pack_windows(*args)
+        tp, to = halo.pack_windows(*args)
+        expect(f"pack[{j}].overflow", ko, to)
+        for d, ((km, kr), (tm, tr)) in enumerate(zip(kp, tp)):
+            expect(f"pack[{j}][{d}].meta", km, tm)
+            expect(f"pack[{j}][{d}].rows", kr, tr)
+        res["overflow"][j] = int(ko[0])
+        res["packed_octs"][j] = sum(int((km[0] < no).sum()) for km, _ in kp)
+        del kp, tp
+        rv = received[j]
+        if rv:
+            expect(f"mask[{j}]", hk.mass_mask(cfg, rv), halo.mass_mask(cfg, rv))
+            pool, table = targets[j] if targets is not None else (pools[j], pt.table)
+            expect(f"add[{j}]", hk.add_rows(cfg, pool.clone(), table, rv),
+                   halo.add_rows(cfg, pool.clone(), table, rv))
+        mj = models[j]
+        for a in comm.live_axes:
+            dim = comm.axes[a][1]
+            lo, hi = comm._bounds(comm.shards[j], a)
+            margs = (cfg, mj, dim, lo + narrow, hi - narrow, comm.mig_cap)
+            kl, kr, ka, kd = hk.migrate_pack(*margs)
+            tl, tr, ta, td = halo.migrate_pack(*margs)
+            for name, x, y in (("left", kl, tl), ("right", kr, tr), ("active", ka, ta),
+                               ("dropped", kd, td)):
+                expect(f"migrate[{j}][{a}].{name}", x, y)
+            res["dropped"][f"{j}/{a}"] = int(kd[0])
+            res["crossers"][f"{j}/{a}"] = int(mj.active.sum() - ka.sum())
+            del kl, kr, tl, tr
+    res["max_abs_err"] = max(errs.values())
+    if not time_it:
+        return res
+    j = shards[0]
+    pt, win, rv, mj = partitions[j], comm._windows(comm.shards[j]), received[j], models[j]
+    pool, table = targets[j] if targets is not None else (pools[j], pt.table)
+    packed = [comm._target(comm.shards[j], d) is not None for d in dirs]
+    args = (cfg, pools[j], pt.keys, pt.count, win, packed, h, m)
+    a0 = comm.live_axes[0]
+    lo, hi = comm._bounds(comm.shards[j], a0)
+    margs = (cfg, mj, comm.axes[a0][1], lo + narrow, hi - narrow, comm.mig_cap)
+    add_k, add_t = pool.clone(), pool.clone()
+    slots = torch.where(rv[0][0] < no, table[torch.clamp(rv[0][0], max=no).long()],
+                        cfg.null_oct).long()
+    fns = {"halo_pack": (lambda: hk.pack_windows(*args), lambda: halo.pack_windows(*args)),
+           "halo_mask": (lambda: hk.mass_mask(cfg, rv), lambda: halo.mass_mask(cfg, rv)),
+           "halo_add": (lambda: hk.add_rows(cfg, add_k, table, rv),
+                        lambda: halo.add_rows(cfg, add_t, table, rv)),
+           "migrate_pack": (lambda: hk.migrate_pack(*margs), lambda: halo.migrate_pack(*margs))}
+    ms = {k: cuda_ms(f, reps=reps) for k, (f, _) in fns.items()}
+    plain_ms = {k: cuda_ms(f, reps=plain_reps) for k, (_, f) in fns.items()}
+    library_ms = cuda_ms(lambda: add_t.index_add_(0, slots, rv[0][2]), reps=reps)
+    hits = sum(int(((k < no) & (table[torch.clamp(k, max=no).long()] != cfg.null_oct)).sum())
+               for k, _, _ in rv)
+    plan, _ = halo.window_marks(cfg, pt.keys, pt.count, win, h, m)
+    octs = sum(min(int(c.sum()), h) for c, p in zip(plan, packed) if p)
+    b = halo_bound(cfg, h, sum(packed), octs, len(rv), hits)
+    b["migrate_pack"] = migrate_bound(mj.pos.shape[1], halo.payload_channels(mj), comm.mig_cap)
+    bounds = {k: v["bound_ms"] for k, v in b.items()}
+    del add_k, add_t
+    res.update(timed_shard=j, ms=ms, plain_ms=plain_ms, library_ms={"halo_add": library_ms},
+               bound_ms=bounds, share={k: bounds[k] / ms[k] for k in ms},
+               timed={"packed_windows": sum(packed), "packed_octs": octs,
+                      "received_directions": len(rv), "add_hits": hits,
+                      "slots": mj.pos.shape[1]})
+    log(f"halo kernels vs plain twins, {label}: halo capacity {h}, migration capacity "
+        f"{comm.mig_cap}, shards {shards}: overflow {res['overflow']}, packed octs "
+        f"{res['packed_octs']}, crossers {res['crossers']}, dropped {res['dropped']}: every "
+        f"output equal bit for bit; shard {j} ({res['timed']}), ms (median of {reps}) "
+        + ", ".join(f"{k} {ms[k]:.4f} (plain {plain_ms[k]:.4f}, bound {bounds[k]:.4f}, "
+                    f"{res['share'][k]:.1%})" for k in ms)
+        + f"; index_add_ of one received direction {library_ms:.4f} | {facts}")
+    return res
+
+
 def k1_order_sensitivity(cfg, mat, state, as_is: dict, facts: str) -> dict:
     """K1 on ``state`` in three slot orders: as it is (``as_is``, the result
     of ``check_g2p2g_kernel`` on it), every tile's slots permuted by a
@@ -1234,11 +1357,12 @@ def probe(state, n: int = 4096, model_idx: int = 0) -> np.ndarray:
 
 
 def _launch_dicts():
-    from claymore_tpu_torch.ops import (g2p2g_kernel, grid_kernel, partition_kernel,
-                                        probe_kernels, rebucket_kernel)
+    from claymore_tpu_torch.ops import (g2p2g_kernel, grid_kernel, halo_kernel,
+                                        partition_kernel, probe_kernels, rebucket_kernel)
 
     return (grid_kernel.grid_update.launches, g2p2g_kernel.g2p2g.launches,
-            probe_kernels.launches, rebucket_kernel.launches, partition_kernel.launches)
+            probe_kernels.launches, rebucket_kernel.launches, partition_kernel.launches,
+            halo_kernel.launches)
 
 
 def reset_counts() -> None:
@@ -1874,6 +1998,7 @@ def check_poisson_model(doc: dict, base: Path, facts: str) -> dict:
 # --------------------------------------------------------------------------
 
 MULTI_BOUND = 1e-5      # multi vs one device: mass, momentum, dt (relative), positions
+MULTI25_STEPS = 100     # sphere25m 2x2: past its first drift rebuild (so crossers are packed)
 MIG_CAP = 262144        # scenes/sphere_100m_8dev.json's migration capacity
 
 
@@ -1950,6 +2075,7 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
 
     torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     reset_counts()
     if make is None:
         cfg, mats, parts, v0s, cols = scene(name)
@@ -2011,8 +2137,8 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         for (_, a), (stage, b) in zip(evs[:-1], evs[1:]):
             stages.setdefault(stage, []).append(a.elapsed_time(b))
     stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
-    stage_ms["substep (events)"] = float(np.mean([evs[0][1].elapsed_time(evs[-1][1])
-                                                  for evs in stage_events]))
+    each = [evs[0][1].elapsed_time(evs[-1][1]) for evs in stage_events]
+    stage_ms["substep (events)"] = float(np.mean(each))
     # the init's exchange is not timed (the wrapper went in after it); a
     # mesh of one exchanges nothing
     if exchange_events:
@@ -2040,7 +2166,7 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     k1 = variant_name(mats[0], cfg.arena_span)
     nd = eng.n_dev
     used = {"grid_update": launches["grid_update"], k1: launches[k1],
-            **{k: launches[k] for k in REBUCKET_KERNELS + PARTITION_KERNELS}}
+            **{k: launches[k] for k in REBUCKET_KERNELS + PARTITION_KERNELS + HALO_KERNELS}}
     bytes_ = comm.exchanged_bytes([st.partition for st in state], state[0].models)
     checks = {
         "finite": bool(np.isfinite(d["t"]) and torch.isfinite(pos).all()),
@@ -2063,6 +2189,12 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         "partition_launches": (min(used[k] for k in PARTITION_KERNELS) >= nd
                                and used["oct_mask"] == used["remap"]
                                and used["first_marked"] >= used["remap"]),
+        # a live mesh packs, masks and adds every substep on every shard,
+        # and packs its crossers on each rebuilding substep; a mesh of one
+        # exchanges nothing
+        "halo_launches": (all(used[k] == 0 for k in HALO_KERNELS) if comm.trivial else
+                          min(used[k] for k in HALO_KERNELS[:3]) >= steps * nd
+                          and used["migrate_pack"] >= 1),
         "peak": peak_gib * 2**30 < PEAK_BOUND,
     }
     out = {"mesh": list(mesh), "particles": n, "substeps": steps, "overlap_halo": overlap,
@@ -2071,6 +2203,8 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
                st.models[0].tiles.tvalid.shape[0], math.lcm(cfg.group_tiles, 64))
                for st in state[:1]] + [state[0].models[0].tiles.tvalid.shape[0]],
            "ms_per_substep": wall / steps * 1e3, "ref_ms_per_substep": ref["ms_per_substep"],
+           "first_substep_ms": each[0], "later_substep_ms": float(np.mean(each[1:])),
+           "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0,
            "stage_ms": stage_ms, "init_s": init_s, "peak_gib": peak_gib,
            "launches": used, "rebuilds": eng.rebuilds, "ref_rebuilds": ref["rebuilds"],
            "active_blocks": d["active_blocks"], "halo_capacity": comm.halo_capacity,
@@ -2087,7 +2221,9 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         + f"; rebuilds {eng.rebuilds} (one device {ref['rebuilds']}), blocks per shard "
         f"{d['active_blocks']}, halo capacity {comm.halo_capacity} octs, exchanged bytes "
         f"{bytes_}, particles whose shard changed {moved_shard}, init {init_s:.2f} s, peak "
-        f"{peak_gib:.2f} GiB, launches {used}; vs one device: mass {mass_err:.3e}, momentum "
+        f"{peak_gib:.2f} GiB, allocator retries {out['alloc_retries']}, substep events first "
+        f"{each[0]:.3f} ms, later mean {out['later_substep_ms']:.3f}, launches {used}; vs one "
+        f"device: mass {mass_err:.3e}, momentum "
         f"{mom_err:.3e}, dt {dt_err:.3e}, positions pid<4096 {pos_err:.3e} (all "
         f"{pos_err_all:.3e}), displacement {disp:.3e} | {facts}")
     failed = [c for c, ok in checks.items() if not ok]
@@ -2305,8 +2441,8 @@ def multi_paths(facts: str) -> dict:
     cards (each says so where it cannot run)."""
     out = {}
     # 1-2. sphere25m on a 2x2 mesh, overlap on and off, against MPMEngine
-    ref = single_reference("sphere25m", 40, facts)
-    p1 = multi_run("sphere25m", (2, 2), 40, facts, ref)
+    ref = single_reference("sphere25m", MULTI25_STEPS, facts)
+    p1 = multi_run("sphere25m", (2, 2), MULTI25_STEPS, facts, ref)
     st = p1.pop("state")
     eng = p1.pop("engine")
     k1s = check_g2p2g_kernel(eng.cfg, eng.materials[0], st[0], tile_chunk=64,
@@ -2328,9 +2464,24 @@ def multi_paths(facts: str) -> dict:
         eng.cfg, *rebuild_inputs(eng.cfg, st[0]),
         "shard 0 of the multi sphere25m 2x2 state, its halo mask", facts, extra_mask=extra)
     del received, extra
+    # the halo kernels on the final state, and with capacities it overflows
+    # (a halo capacity of 64 octs; a migration capacity of 256 with each
+    # slab narrowed by 2 blocks a face, so ~12% of its particles cross)
+    from claymore_tpu_torch.parallel import HaloComm
+
+    args = ([s.grid for s in st], [s.partition for s in st], [s.models[0] for s in st])
+    p1["halo"] = check_halo_kernel(eng.comm, *args, "sphere25m 2x2 final state", facts)
+    small = HaloComm(eng.cfg, eng.comm.axes, eng.comm.mesh_shape, eng.comm.margin, 256, 64,
+                     group=eng.comm.group)
+    over = check_halo_kernel(small, *args, "sphere25m 2x2 final state, overflowing "
+                             "capacities", facts, narrow=2)
+    if not (sum(over["overflow"].values()) > 0 and sum(over["dropped"].values()) > 0):
+        raise AssertionError(f"halo check: the small capacities did not overflow: {over}")
+    p1["halo_overflowing"] = over
+    del args, small
     del st, eng
     torch.cuda.empty_cache()
-    p2 = multi_run("sphere25m", (2, 2), 40, facts, ref, overlap=False,
+    p2 = multi_run("sphere25m", (2, 2), MULTI25_STEPS, facts, ref, overlap=False,
                    label=" overlap_halo=False")
     p2.pop("state"), p2.pop("engine")
     diff = float((p1["pos"] - p2["pos"]).abs().max())
@@ -2623,6 +2774,10 @@ def config5_mesh(facts: str, positions, ref: dict, steps: int = C5_STEPS) -> dic
     if sum(1 for c in counts if c == 0) != 4:
         raise AssertionError(f"config 5 4x2: the outer x slabs should be empty: {counts}")
     j = int(np.argmax(counts))
+    out["halo"] = check_halo_kernel(
+        eng.comm, [s.grid for s in st], [s.partition for s in st], [s.models[0] for s in st],
+        "config 5 4x2 final state, the fullest shard and an empty one", facts,
+        shards=[j, counts.index(0)])
     t0 = time.perf_counter()
     k1 = check_g2p2g_kernel(eng.cfg, eng.materials[0], st[j], tile_chunk=64, time_it=False)
     out["k1_shard"] = {"shard": j, "seconds": time.perf_counter() - t0,
@@ -2718,7 +2873,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     import claymore_tpu_torch as ct
-    from claymore_tpu_torch.ops import _build, partition_kernel
+    from claymore_tpu_torch.ops import _build, halo_kernel, partition_kernel
     from claymore_tpu_torch.ops import probe_kernels as pk
     from claymore_tpu_torch.scripts import prof_k1
 
@@ -3349,6 +3504,42 @@ def main() -> int:
             e["device_ops"] = paths["prof_rebuild"]["device_ops"]
         kernels.append(e)
     paths["partition_checks"] = partition_checks
+    # the halo kernels: not TPU kernels (XLA inside shard_map in the JAX
+    # package); times on config 5's 4x2 final state (its fullest shard),
+    # every state's checks beside them, and their launches on every mesh
+    # path with a neighbour (config 5's 4x2 the main one)
+    halo_checks = {"config5_4x2": paths["multi_config5_4x2"]["halo"],
+                   "sphere25m_2x2": paths["multi_sphere25m_2x2"]["halo"],
+                   "sphere25m_2x2_overflowing": paths["multi_sphere25m_2x2"]["halo_overflowing"]}
+    hinfo = halo_kernel.kernel_info()
+    log(f"halo sub-kernels (registers, blocks per SM): {hinfo} | {facts}")
+    hc = halo_checks["config5_4x2"]
+    jax_multi = "claymore_tpu/parallel/multi.py"
+    for name, replaces, sub, what in (
+            ("halo_pack", f"{jax_multi}:220", "rows", "_pack_window and exchange_halo's "
+             "window tests: jnp.nonzero(size=), a row gather, a lane-mask multiply"),
+            ("halo_mask", f"{jax_multi}:307", "mask", "halo_mass_mask: .at[].max"),
+            ("halo_add", f"{jax_multi}:325", "add", "add_halo: .at[].add"),
+            ("migrate_pack", f"{jax_multi}:378", "migrate_count", "migrate's _pack: "
+             "home_block, jnp.nonzero(size=), payload gathers")):
+        e = {"name": name, "route": "cuda", "source": src + "halo.cu", "replaces": replaces,
+             "tpu_route": f"not a TPU kernel: XLA inside shard_map in the JAX package ({what})",
+             "launches": paths["multi_config5_4x2"]["launches"][name],
+             "max_abs_err": max(c["max_abs_err"] for c in halo_checks.values()),
+             "ms": hc["ms"][name], "plain_ms": hc["plain_ms"][name],
+             "bound_ms": hc["bound_ms"][name], "bound_by": "bytes",
+             "library_ms": hc["library_ms"].get(name), **hinfo[sub],
+             "states": {k: {f: c.get(f, {}).get(name) if f in ("ms", "bound_ms") else c[f]
+                            for f in ("ms", "bound_ms", "overflow", "dropped")}
+                        for k, c in halo_checks.items()},
+             "launches_paths": {p: paths[p]["launches"][name]
+                                for p in ("multi_sphere25m_2x2", "multi_sphere25m_2x2_no_overlap",
+                                          "multi_dambreak12m_4x1", "multi_config5_4x2")}}
+        if name == "halo_add":
+            e["states"]["sphere25m_2x2"]["library_ms"] = (
+                halo_checks["sphere25m_2x2"]["library_ms"]["halo_add"])
+        kernels.append(e)
+    paths["halo_checks"] = halo_checks
     if min(v for e in kernels for v in e.get("launches_paths", {}).values()) <= 0:
         raise AssertionError(f"a kernel was not launched on one of its paths: {kernels}")
     if min(k["launches"] for k in kernels) <= 0:

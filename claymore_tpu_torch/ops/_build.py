@@ -92,6 +92,22 @@ SIGNATURES = {
     "cm_partition_remap": [_P] + [_I] * 3 + [_P] * 11,
     "cm_partition_finalize_tiles": [_P, _I, _P] + [_I] * 4 + [_P] * 4,
     "cm_partition_info": [_I, _P],
+    # the halo exchange and migration pack (csrc/halo.cu): count (keys,
+    # count, nb, no, g, margin, spec, windows, h, cta_count, cta_off, total,
+    # overflow, stream); write (pool, keys, count, nb, no, g, margin, spec,
+    # windows, packed directions, their number, h, cta_count, cta_off, total,
+    # idx, meta pointers, row pointers, stream); mask (directions, key
+    # pointers, bit pointers, h, no, g, mask, stream); add (directions, key pointers, row pointers, h,
+    # table, no, null_oct, pool, stream); migrate (pos[dim], active, slots,
+    # dx_inv, block_bits, lo, hi, k, channels, channel pointers, pid, new
+    # active, idx, cta_count, cta_off, total, left, right, dropped, stream);
+    # info (sub-kernel, out i32[2]: registers, blocks per SM)
+    "cm_halo_count": [_P, _P] + [_I] * 4 + [_P, _I, _I] + [_P] * 5,
+    "cm_halo_write": [_P] * 3 + [_I] * 4 + [_P, _I, _P, _I, _I] + [_P] * 7,
+    "cm_halo_mask": [_I, _P, _P, _I, _I, _I, _P, _P],
+    "cm_halo_add": [_I, _P, _P, _I, _P, _I, _I, _P, _P],
+    "cm_migrate_pack": [_P, _P, _I, _F] + [_I] * 5 + [_P] * 11,
+    "cm_halo_info": [_I, _P],
 }
 
 

@@ -29,6 +29,11 @@ shard, so they overlap the interior K1.  ``distributed.DistGroup`` holds one
 shard per process of a ``torch.distributed`` group.  The engine code is the
 same for both: it runs over "the shards this process holds".
 
+The packs, the halo mass mask, the halo add and migration's pack are
+``ops/halo_kernel.py``'s: CUDA kernels on a card (one pack launch pair per
+shard over every direction), the plain twins of ``parallel/halo.py`` on
+the CPU.
+
 Fixed capacities, as in the JAX package: a pack ships ``halo_capacity``
 rows whatever it holds, and octs past it are counted in
 ``SimState.halo_overflow``; migrants past ``migration_capacity``, and
@@ -54,12 +59,11 @@ import torch
 
 from ..config import SimConfig
 from ..core import engine as engine_mod
-from ..core import octpool
-from ..core import partition as part
 from ..core.types import ParticleModel
 from ..models.boundary import check_colliders
 from ..models.materials import Material
-from ..ops import grid_kernel, partition_kernel
+from ..ops import grid_kernel, halo_kernel, partition_kernel
+from . import halo
 
 
 def mesh_coord(mesh_shape, shard: int) -> tuple:
@@ -210,17 +214,6 @@ class HaloComm:
         lo = mesh_coord(self.mesh_shape, shard)[a] * self.slabs[a]
         return lo, lo + self.slabs[a]
 
-    def _spatial_coord(self, keys, a: int):
-        """(lo, hi) block coords that each flat OCT key covers along axis a
-        (octs are single blocks in x and y and 8-block runs in z)."""
-        dim = self.axes[a][1]
-        bx, by, bzo = octpool.oct_coord(self.cfg, torch.clamp(keys, max=self.cfg.num_oct_keys - 1))
-        if dim == 0:
-            return bx, bx + 1
-        if dim == 1:
-            return by, by + 1
-        return bzo * 8, bzo * 8 + 8
-
     def reduce_max(self, xs):
         return self.group.reduce_max(xs)
 
@@ -265,47 +258,24 @@ class HaloComm:
         steps = [(-1, 0, 1) if n > 1 else (0,) for n in self.mesh_shape]
         return [d for d in itertools.product(*steps) if any(d)]
 
-    def _window(self, keys: torch.Tensor, shard: int, d):
-        """(cond, z windows) of direction d: the octs of ``keys`` that meet
-        the [edge - m, edge + m) window of each face d crosses, and the
-        (axis, edge) of the faces along z (whose octs straddle them)."""
-        m = self.margin
-        cond = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
-        win = []
+    def _target(self, shard: int, d) -> Optional[int]:
+        """The shard ``shard`` ships direction d's pack to, or None."""
         for a, step in enumerate(d):
-            if step == 0:
-                continue
-            clo, chi = self._spatial_coord(keys, a)
-            lo, hi = self._bounds(shard, a)
-            edge = hi if step > 0 else lo
-            cond = cond & (chi > edge - m) & (clo < edge + m)
-            if self.axes[a][1] == 2:
-                win.append((a, edge))
-        return cond, win
+            shard = None if shard is None else neighbour(self.mesh_shape, shard, a, step)
+        return shard
 
-    def _pack_window(self, pool, keys: torch.Tensor, cond: torch.Tensor, win):
-        """(meta i32[2, H] = keys and per-block mass bits, rows f32[H, 16,
-        128]) of the first ``halo_capacity`` octs where ``cond`` holds.  Each
-        row's lanes are masked to the blocks inside the z windows, so mass
-        of an oct that straddles a window's edge is shipped only inside."""
-        cfg = self.cfg
-        no, nb, h = cfg.num_oct_keys, cfg.max_active_octs, self.halo_capacity
-        idx, _ = partition_kernel.first_marked(cond, h, nb)
-        valid = idx < nb
-        gidx = torch.clamp(idx, max=nb - 1)
-        k = torch.where(valid, keys[gidx], torch.full_like(keys[gidx], no)).to(torch.int32)
-        mask = valid[:, None].expand(h, 128)
-        if win:
-            lane_bz = torch.arange(128, device=keys.device) >> 4
-            _, _, bzo = octpool.oct_coord(cfg, torch.clamp(k, max=no - 1))
-            bz = bzo[:, None] * 8 + lane_bz[None, :]
-            for _a, edge in win:
-                mask = mask & (bz >= edge - self.margin) & (bz < edge + self.margin)
-        rows = pool[gidx] * mask[:, None, :].to(pool.dtype)
-        has = (rows[:, 0:4].reshape(h, 4, 8, 16) != 0.0).any(dim=3).any(dim=1)
-        bits = (has.to(torch.int32) << torch.arange(8, dtype=torch.int32,
-                                                     device=keys.device)).sum(dim=1)
-        return torch.stack([k, bits.to(torch.int32)]), rows
+    def _windows(self, shard: int):
+        """Per direction (``_directions``), its window of shard ``shard``:
+        ((dim, edge), ...) of each face it crosses (``parallel/halo.py``)."""
+        out = []
+        for d in self._directions():
+            win = []
+            for a, step in enumerate(d):
+                if step:
+                    lo, hi = self._bounds(shard, a)
+                    win.append((self.axes[a][1], hi if step > 0 else lo))
+            out.append(tuple(win))
+        return out
 
     def exchange_halo(self, pools, partitions):
         """Pack each window a shard shares with a neighbour and ship it
@@ -313,50 +283,40 @@ class HaloComm:
         overflow): per shard, a list of (keys, bits, rows) it received, and
         i32[1] of its octs past ``halo_capacity``, over every direction.
 
-        The packs and copies run on each shard's side stream where the group
-        has them; ``wait_halo`` must come before the received rows are read.
-        A shard packs only the windows that reach a neighbour, or, in a group
+        Each shard's packs of every direction are one ``halo_kernel`` call
+        pair: the count (and so the overflow, which the engine reads before
+        waiting for the side streams) on the main stream, the packs on the
+        shard's side stream where the group has one, then the copies there
+        too; ``wait_halo`` must come before the received rows are read.  A
+        shard packs only the windows that reach a neighbour, or, in a group
         that must send every buffer (``dense``), all of them."""
-        n = len(pools)
-        overflow = [torch.zeros((1,), dtype=torch.int32, device=p.device) for p in pools]
-        received = [[] for _ in range(n)]
+        received = [[] for _ in pools]
         if self.trivial:
-            return received, overflow
-        cfg, h = self.cfg, self.halo_capacity
-        # which octs each window holds, and the overflow count, on the main
-        # streams (the engine reads the count before waiting for the side
-        # streams); the side streams start after them
-        windows = []
-        for d in self._directions():
-            per = []
-            for j, (pool, pt) in enumerate(zip(pools, partitions)):
-                shard = self.shards[j]
-                live = ((torch.arange(pt.keys.shape[0], device=pool.device) < pt.count)
-                        & (pt.keys < cfg.num_oct_keys))
-                cond, win = self._window(pt.keys, shard, d)
-                cond = cond & live
-                overflow[j] = overflow[j] + torch.clamp(
-                    cond.sum(dtype=torch.int32) - h, min=0).reshape(1)
-                target = shard
-                for a, step in enumerate(d):
-                    target = None if target is None else neighbour(
-                        self.mesh_shape, target, a, step)
-                per.append((cond, win) if target is not None or self.group.dense else None)
-            windows.append((d, per))
+            return received, [torch.zeros((1,), dtype=torch.int32, device=p.device)
+                              for p in pools]
+        cfg, h, m = self.cfg, self.halo_capacity, self.margin
+        dirs = self._directions()
+        plans, overflow = [], []
+        for j, pt in enumerate(partitions):
+            plan, over = halo_kernel.pack_count(cfg, pt.keys, pt.count,
+                                                self._windows(self.shards[j]), h, m)
+            plans.append(plan)
+            overflow.append(over)
         self.group.begin_side()
-        for d, per in windows:
-            metas, rows = [], []
-            for j, (pool, pt) in enumerate(zip(pools, partitions)):
-                if per[j] is None:
-                    metas.append(None)
-                    rows.append(None)
-                    continue
-                cond, win = per[j]
-                self.group.keep_for_side(cond, j)
-                with self.group.on_side(j):
-                    meta, r = self._pack_window(pool, pt.keys, cond, win)
-                metas.append(meta)
-                rows.append(r)
+        packs = []
+        for j, (pool, pt, plan) in enumerate(zip(pools, partitions, plans)):
+            packed = [self._target(self.shards[j], d) is not None or self.group.dense
+                      for d in dirs]
+            for t in plan.buffers:
+                self.group.keep_for_side(t, j)
+            with self.group.on_side(j):
+                packs.append(halo_kernel.pack_write(cfg, pool, pt.keys, pt.count, plan, packed,
+                                                    h, m))
+        for i, d in enumerate(dirs):
+            metas = [p[i][0] if p[i] is not None else None for p in packs]
+            rows = [p[i][1] if p[i] is not None else None for p in packs]
+            for p in packs:
+                p[i] = None            # each source is freed once it is shipped
             for a, step in enumerate(d):
                 if step:
                     metas = self.group.shift(metas, a, step, side=True)
@@ -378,25 +338,21 @@ class HaloComm:
         row = 2 * 4 + 16 * 128 * 4
         out = {"halo": 0, "halo_trimmed": 0 if partitions is not None else None,
                "migration": 0}
-        for d in self._directions():
+        for i, d in enumerate(self._directions()):
             hops = sum(1 for step in d if step)
             for j, shard in enumerate(self.shards):
-                target = shard
-                for a, step in enumerate(d):
-                    target = None if target is None else neighbour(
-                        self.mesh_shape, target, a, step)
-                if target is None:
+                if self._target(shard, d) is None:
                     continue
                 out["halo"] += hops * self.halo_capacity * row
                 if partitions is not None:
                     pt = partitions[j]
-                    live = (torch.arange(pt.keys.shape[0], device=pt.keys.device)
-                            < pt.count) & (pt.keys < self.cfg.num_oct_keys)
-                    cond, _ = self._window(pt.keys, shard, d)
-                    n = min(int((cond & live).sum()), self.halo_capacity)
+                    (cond,), _ = halo.window_marks(self.cfg, pt.keys, pt.count,
+                                                   [self._windows(shard)[i]],
+                                                   self.halo_capacity, self.margin)
+                    n = min(int(cond.sum()), self.halo_capacity)
                     out["halo_trimmed"] += hops * n * row
         for m in models or ():
-            chans = 5 + sum(1 if v.dim() == 1 else v.shape[0] for v in m.fields.values())
+            chans = halo.payload_channels(m)
             for a in self.live_axes:
                 faces = sum(neighbour(self.mesh_shape, shard, a, step) is not None
                             for shard in self.shards for step in (-1, 1))
@@ -411,43 +367,14 @@ class HaloComm:
         """bool[G^3]: the blocks a neighbour sent mass into (they must stay
         active: ``partition_kernel.rebuild``'s ``extra_mask``), None if nothing
         was received."""
-        if not received:
-            return None
-        n3 = self.cfg.grid_size ** 3
-        dev = received[0][0].device
-        mask = torch.zeros((n3 + 1,), dtype=torch.bool, device=dev)
-        lanes = torch.arange(8, dtype=torch.int32, device=dev)
-        for keys, bits, _rows in received:
-            has = ((bits[:, None] >> lanes[None, :]) & 1) > 0
-            bkeys = octpool.oct_block_keys(self.cfg, keys)
-            idx = torch.where(has & (bkeys < n3), bkeys, torch.full_like(bkeys, n3))
-            mask.index_fill_(0, idx.reshape(-1).long(), True)
-        return mask[:n3]
+        return halo_kernel.mass_mask(self.cfg, received)
 
     def add_halo(self, pool, partition, received):
         """Add the neighbours' rows into my (rebuilt) pool by key; rows of
         octs I do not hold fall into the null row, which ends zero."""
-        if not received:
-            return pool
-        no = self.cfg.num_oct_keys
-        for keys, _bits, rows in received:
-            slots = partition.table[torch.clamp(keys, max=no).long()]
-            slots = torch.where(keys < no, slots, torch.full_like(slots, self.cfg.null_oct))
-            pool.index_add_(0, slots.long(), rows)
-        pool[self.cfg.null_oct] = 0.0
-        return pool
+        return halo_kernel.add_rows(self.cfg, pool, partition.table, received)
 
     # -- particle migration -------------------------------------------
-    def _payload(self, m: ParticleModel, gidx: torch.Tensor, valid: torch.Tensor):
-        """f32[C, K]: pos, valid, pid (its int32 bits) and the fields of the
-        slots ``gidx``, one buffer per shift."""
-        k = gidx.shape[0]
-        rows = [m.pos[:, gidx], valid.to(torch.float32)[None],
-                m.pid[gidx].view(torch.float32)[None]]
-        for _name, v in sorted(m.fields.items()):
-            rows.append(v[..., gidx].reshape(-1, k))
-        return torch.cat(rows)
-
     def _place(self, m: ParticleModel, rv: torch.Tensor):
         """Write the valid migrants of payload ``rv`` into the first free
         slots of ``m`` (in place) and mark them active; returns the count of
@@ -508,29 +435,19 @@ class HaloComm:
                     if not enable[j]:
                         zero = None
                         if self.group.dense:
-                            zero = self._payload(m, torch.zeros((k,), dtype=torch.long,
-                                                                device=m.pos.device),
-                                                 torch.zeros((k,), dtype=torch.bool,
-                                                             device=m.pos.device))
+                            zero = torch.zeros((halo.payload_channels(m), k),
+                                               dtype=torch.float32, device=m.pos.device)
                         lefts.append(zero)
                         rights.append(zero)
                         continue
-                    s_cap = m.pos.shape[1]
-                    lo, hi = self._bounds(shard, a)
-                    hb = part.home_block(cfg, m.pos[dim:dim + 1])[0]
-                    active = m.active
-                    out = []
-                    for cond in (active & (hb < lo), active & (hb >= hi)):
-                        idx, crossers = partition_kernel.first_marked(cond, k, s_cap)
-                        valid = idx < s_cap
-                        # crossers past the capacity are deactivated too,
-                        # and counted: they must not go on scattering here
-                        dropped[j] = dropped[j] + torch.clamp(crossers - k, min=0)
-                        out.append(self._payload(m, torch.clamp(idx, max=s_cap - 1), valid))
-                        active = active & ~cond
+                    # crossers past the capacity are deactivated too, and
+                    # counted: they must not go on scattering here
+                    left, right, active, drop = halo_kernel.migrate_pack(
+                        cfg, m, dim, *self._bounds(shard, a), k)
+                    dropped[j] = dropped[j] + drop
                     models[j][mi] = dataclasses.replace(m, active=active)
-                    lefts.append(out[0])
-                    rights.append(out[1])
+                    lefts.append(left)
+                    rights.append(right)
                 arrivals = zip(self.group.shift(lefts, a, -1), self.group.shift(rights, a, +1))
                 for j, rvs in enumerate(arrivals):
                     for rv in rvs:

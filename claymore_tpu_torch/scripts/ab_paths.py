@@ -2,7 +2,7 @@
 
     python -m claymore_tpu_torch.scripts.ab_paths DIR_A DIR_B [--pairs 3]
         [--path dambreak_sdf:4] [--path dambreak12m:4] [--path sphere25m:1:4]
-        [--path multi:sphere25m:2x2] [--path multi:config5:4x2] ...
+        [--path multi:sphere25m:2x2] [--path multi:config5:4x2] [--path ops:cube:2x2] ...
 
 Each ``DIR`` is a checkout of this repository (``git archive`` of a
 commit unpacked into a ``.gitignore``d directory).  Runs alternate A B B A
@@ -20,7 +20,13 @@ where ``substep_impl`` calls ``on_stage``.  Prints one ``AB {...}`` JSON
 line per run: the checkout, and per path ms/substep, the rebuilds by kind
 (full, incremental, fallen back to the full sort) with their mean ms, and
 the failed checks; per mesh ms/substep, the stage means, the peak and the
-loss counters.  Needs a card.
+loss counters.  Every ``ops:scene:mesh`` counts the device operations
+(``torch.profiler``, ``utils.timers.device_ops``) of one ``exchange_halo``
+with its ``wait_halo``, every shard's ``halo_mass_mask`` and ``add_halo``,
+and one ``migrate`` with every shard rebuilding, on the mesh's state after
+one substep, through the checkout's own ``HaloComm``; the profiler slows
+what runs after it in the process, so give ``ops:`` paths last.  Needs a
+card.
 """
 
 from __future__ import annotations
@@ -86,8 +92,38 @@ def multi(name, mesh, steps):
             "halo_overflow": d["halo_overflow"], "block_overflow": d["block_overflow"]}
 
 
+def ops(name, mesh):
+    import numpy as np
+    import claymore_tpu_torch as ct
+    from claymore_tpu_torch.utils.timers import device_ops
+    cfg, mats, parts, v0s, cols = cs.scene(name)
+    eng = ct.MultiChipEngine(cfg, mats, mesh_shape=mesh, device="cuda", tile_chunk=64,
+                             migration_capacity=cs.MIG_CAP, colliders=cols)
+    state = eng.substep(eng.init_state(parts, v0s), np.float32(1e9))
+    comm = eng.comm
+    got = {}
+    def exchange():
+        got["received"], _ = comm.exchange_halo([s.grid for s in state],
+                                                [s.partition for s in state])
+        comm.wait_halo()
+    out = {"exchange_halo": device_ops(exchange)}
+    rv = got["received"]
+    out["halo_mass_mask"] = device_ops(lambda: [comm.halo_mass_mask(r) for r in rv])
+    pools = [s.grid.clone() for s in state]
+    out["add_halo"] = device_ops(lambda: [comm.add_halo(p, s.partition, r)
+                                          for p, s, r in zip(pools, state, rv)])
+    models = [list(s.models) for s in state]
+    out["migrate"] = device_ops(lambda: comm.migrate(models, [True] * len(state)))
+    out["received_directions"] = [len(r) for r in rv]
+    return out
+
+
 out = {}
 for spec in sys.argv[1:]:
+    if spec.startswith("ops:"):
+        _, name, mesh = spec.split(":")
+        out[spec] = ops(name, tuple(int(x) for x in mesh.split("x")))
+        continue
     if spec.startswith("multi:"):
         _, name, mesh = spec.split(":")
         out[spec] = multi(name, tuple(int(x) for x in mesh.split("x")),
@@ -109,7 +145,8 @@ def main(argv=None) -> int:
     ap.add_argument("dirs", nargs=2, help="the two checkouts, A and B")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--path", action="append", dest="paths",
-                    help="scene:defrag_every[:rebucket_every] or multi:scene:mesh "
+                    help="scene:defrag_every[:rebucket_every], multi:scene:mesh or "
+                         "ops:scene:mesh "
                          "(default dambreak12m:4, dambreak_sdf:4, dambreak_sdf:1)")
     args = ap.parse_args(argv)
     paths = args.paths or ["dambreak12m:4", "dambreak_sdf:4", "dambreak_sdf:1"]

@@ -10,7 +10,9 @@ particle as the kernel source does them, for the work these inputs need.
 the transfer kernel's (K1), ``dma_bound`` the pool-row probes' (P5, P6),
 ``rebucket_bound`` the full rebucket's (``csrc/rebucket.cu``),
 ``partition_bound`` and ``first_marked_bound`` the partition rebuild's and
-the compaction's (``csrc/partition.cu``); ``chip_smoke.py`` and the profiling scripts report them beside the
+the compaction's (``csrc/partition.cu``), ``halo_bound`` and
+``migrate_bound`` the mesh's halo and migration packs' (``csrc/halo.cu``);
+``chip_smoke.py`` and the profiling scripts report them beside the
 kernels' times.
 """
 
@@ -189,3 +191,36 @@ def partition_bound(cfg, live_rows: int, tiles: int, extra: bool, octs: int) -> 
     out["stages"] = {k: bound(v, 0) for k, v in stages.items()}
     out["rebuild"] = bound(stages["oct_mask"] + stages["remap"], 0)
     return out
+
+
+def halo_bound(cfg, h: int, packed: int, packed_octs: int, received: int, hits: int) -> dict:
+    """The halo kernels' bounds (``ops/halo_kernel.py``), each stage's
+    inputs read once and outputs written once:
+
+    * ``halo_pack``, one shard over ``packed`` windows: every pool-row key
+      (4 B, nb of them) and the count, the ``packed_octs`` rows it packs
+      (8 KB each) read; ``h`` rows (8 KB) and their key and bits (8 B) a
+      window written;
+    * ``halo_mask`` over ``received`` directions of ``h`` rows: their keys
+      and bits (8 B a row) read, the mask (G^3 + 1 B) written;
+    * ``halo_add``: the received keys (4 B a row) read, and for the
+      ``hits`` rows whose oct the pool holds, the row's table entry (4 B),
+      the received row and the pool row read and the pool row written (8 KB
+      each); the null row written.
+
+    Operations (one add a float of the hits) are negligible."""
+    row = 16 * 128 * 4
+    stages = {
+        "halo_pack": 4 * cfg.max_active_octs + 4 + packed_octs * row + packed * h * (row + 8),
+        "halo_mask": received * h * 8 + cfg.grid_size ** 3 + 1,
+        "halo_add": received * h * 4 + hits * (4 + 3 * row) + row,
+    }
+    return {k: bound(v, 0) for k, v in stages.items()}
+
+
+def migrate_bound(slots: int, channels: int, k: int) -> dict:
+    """The migration pack's bound (``ops/halo_kernel.py:migrate_pack``) on
+    one shard and axis: per slot its position along the axis (4 B) and its
+    active flag (1 B) read and its new flag (1 B) written; both payloads
+    (``channels`` x ``k`` words each) written."""
+    return bound(6 * slots + 2 * channels * k * 4, 0)

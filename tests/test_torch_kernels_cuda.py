@@ -717,3 +717,74 @@ def test_partition_twins_never_see_a_cuda_tensor(card, monkeypatch):
     md = meng.diagnostics(mst)
     assert md["model0_active"] == mpos.shape[0] and md["migration_dropped"] == 0
     assert all(pk.launches[k] > before[k] for k in pk.launches)
+
+
+def _halo_on_card(case, mesh):
+    """``tests/torch_port_helpers.py:halo_case``'s inputs on the card (NaN
+    in a few mass lanes): the comm of a mesh whose shards all live on
+    ``cuda``, every shard's pool, partition, model and add target."""
+    import numpy as np
+
+    from claymore_tpu_torch.core.types import ParticleModel, Partition
+    from claymore_tpu_torch.parallel.multi import HaloComm, LocalGroup
+    from torch_port_helpers import halo_case       # tests/ is on the path pytest sets
+
+    c = halo_case(case, mesh, nan=True)
+    cfg = ct.SimConfig(**c["cfg_kw"])
+    n = len(c["pool"])
+    comm = HaloComm(cfg, (("x", 0), ("z", 2))[:len(mesh)], mesh, c["margin"], c["k"], c["h"],
+                    group=LocalGroup(mesh, ["cuda"] * n))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    pools = [t(p) for p in c["pool"]]
+    parts = [Partition(table=t(c["table2"][j]), keys=t(c["keys"][j]),
+                       count=torch.tensor([c["count"][j]], dtype=torch.int32, device="cuda"),
+                       overflow=torch.zeros(1, dtype=torch.int32, device="cuda"))
+             for j in range(n)]
+    models = [ParticleModel(pos=t(c["pos"][j]), fields={"F": t(c["F"][j])},
+                            active=t(c["active"][j]), pid=t(c["pid"][j]), tiles=None)
+              for j in range(n)]
+    targets = [(t(c["pool2"][j]), t(c["table2"][j])) for j in range(n)]
+    return comm, pools, parts, models, targets
+
+
+@pytest.mark.parametrize("case", ["plain", "overflow", "empty_shard", "sparse", "mig_overflow"])
+@pytest.mark.parametrize("mesh", [(2,), (2, 2), (4, 2)])
+def test_halo_kernels_match_plain(card, case, mesh):
+    """The halo pack, mass mask, add and migration pack kernels equal their
+    plain twins bit for bit (``chip_smoke.check_halo_kernel``) on seeded
+    meshes: NaN and -0.0 in the mass lanes, overflowing halo and migration
+    capacities, an empty shard, windows with no octs."""
+    comm, pools, parts, models, targets = _halo_on_card(case, mesh)
+    r = card.check_halo_kernel(comm, pools, parts, models, f"{case} {mesh}", "test",
+                               targets=targets, time_it=False)
+    assert r["max_abs_err"] == 0.0
+    assert (sum(r["overflow"].values()) > 0) == (case == "overflow")
+    assert (sum(r["dropped"].values()) > 0) == (case == "mig_overflow")
+    assert sum(r["crossers"].values()) > 0
+
+
+def test_halo_twins_never_see_a_cuda_tensor(card, monkeypatch):
+    """A 2x2 mesh on the card rebuilding every substep runs its exchange,
+    mass mask, add and migration through the halo kernels: the plain twins
+    raise if called, and every kernel launches once per shard (and live
+    axis) a substep."""
+    from claymore_tpu_torch.ops import halo_kernel as hk
+    from claymore_tpu_torch.parallel import halo
+
+    def refuse(name):
+        def fn(*args, **kw):
+            raise AssertionError(f"the plain {name} ran on the card")
+        return fn
+
+    for name in ("window_marks", "pack_marked", "pack_windows", "mass_mask", "add_rows",
+                 "migrate_pack"):
+        monkeypatch.setattr(halo, name, refuse(name))
+    eng, st, pos = _multi((2, 2), "cuda")
+    for k in hk.launches:
+        hk.launches[k] = 0
+    st = eng.run_steps(st, 4, 1.0)
+    d = eng.diagnostics(st)
+    assert d["model0_active"] == pos.shape[0] and d["migration_dropped"] == 0
+    assert d["halo_overflow"] == 0
+    assert hk.launches == {"halo_pack": 16, "halo_mask": 16, "halo_add": 16,
+                           "migrate_pack": 32}

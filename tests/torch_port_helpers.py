@@ -95,3 +95,72 @@ def pid_matched(model_a, model_b, field):
         return to_np(m.pos if field == "pos" else m.fields[field])
 
     return get(model_a)[..., sa], get(model_b)[..., sb]
+
+
+HALO_CASES = ("plain", "overflow", "empty_shard", "sparse", "mig_overflow")
+
+
+def halo_case(case: str, mesh_shape, nan: bool = False, slots: int = 2500):
+    """Seeded numpy inputs of the halo and migration packs on a mesh of
+    ``mesh_shape`` at domain_bits 6 (16 blocks an axis, 512 oct keys, 160
+    pool rows a shard): a dict with ``cfg_kw``, ``h`` (halo capacity), ``k``
+    (migration capacity), ``margin`` and per shard ``pool`` f32[161, 16,
+    128], ``keys`` i32[160], ``count``; ``pool2`` and ``table2`` (a receiver's
+    rebuilt pool and its table of 100 octs); ``pos`` f32[3, slots] (the
+    shard's slab widened by 6 cells a side, so some particles cross),
+    ``active``, ``pid``, ``F`` f32[9, slots].
+
+    Pool rows: normal (negative momentum), each block's mass lanes (channels
+    0-3) zeroed or set to -0.0 with probability 0.4 (a -0.0 block has no
+    mass), rows past the count and the null row dirty; ``nan`` puts NaN in
+    a few mass lanes.  Cases: ``overflow`` (a halo capacity of 6, below most
+    windows' octs), ``empty_shard`` (shard 0 holds no oct and no particle),
+    ``sparse`` (4 octs a shard: most windows hold none), ``mig_overflow``
+    (a migration capacity of 16, below the crossers)."""
+    rng = np.random.default_rng(0)
+    n = int(np.prod(mesh_shape))
+    nb, no = 160, 512
+    out = {"cfg_kw": dict(domain_bits=6, max_active_blocks=nb), "margin": 1,
+           "h": 6 if case == "overflow" else 128, "k": 16 if case == "mig_overflow" else 4096,
+           "pool": [], "keys": [], "count": [], "pool2": [], "table2": [], "pos": [],
+           "active": [], "pid": [], "F": []}
+    for j in range(n):
+        count = 0 if case == "empty_shard" and j == 0 else 4 if case == "sparse" else 120
+        keys = np.full(nb, no, np.int32)
+        keys[:count] = np.sort(rng.choice(no, size=count, replace=False))
+        keys[count:count + 3] = rng.choice(no, size=3)        # past the count: not live
+        pool = rng.normal(size=(nb + 1, 16, 128)).astype(np.float32)
+        blocks = pool[:, 0:4].reshape(nb + 1, 4, 8, 16)
+        u = rng.uniform(size=(nb + 1, 8))
+        blocks[np.broadcast_to((u < 0.2)[:, None, :, None], blocks.shape)] = 0.0
+        blocks[np.broadcast_to(((u >= 0.2) & (u < 0.4))[:, None, :, None],
+                               blocks.shape)] = -0.0
+        pool[:, 0:4] = blocks.reshape(nb + 1, 4, 128)
+        if nan:
+            pool[rng.integers(0, nb + 1, size=5), rng.integers(0, 4, size=5),
+                 rng.integers(0, 128, size=5)] = np.nan
+        held = np.sort(rng.choice(no, size=100, replace=False))
+        table2 = np.full(no + 1, nb, np.int32)
+        table2[held] = np.arange(100, dtype=np.int32)
+        pool2 = rng.normal(size=(nb + 1, 16, 128)).astype(np.float32)
+        pool2[rng.uniform(size=nb + 1) < 0.3, 0:4] = -0.0
+        out["pool"].append(pool)
+        out["keys"].append(keys)
+        out["count"].append(count)
+        out["pool2"].append(pool2)
+        out["table2"].append(table2)
+        # particles: the shard's slab along each decomposed axis (x, then z)
+        # widened by 6 cells (1.5 blocks) a side
+        coord = np.unravel_index(j, mesh_shape)
+        lo, hi = np.zeros(3), np.ones(3)
+        for a, (dim, ext) in enumerate(zip((0, 2), mesh_shape)):
+            lo[dim] = max(coord[a] / ext - 6 / 64, 0.02)
+            hi[dim] = min((coord[a] + 1) / ext + 6 / 64, 0.98)
+        lo, hi = np.maximum(lo, 0.02), np.minimum(hi, 0.98)
+        pos = rng.uniform(lo[:, None], hi[:, None], size=(3, slots)).astype(np.float32)
+        active = rng.uniform(size=slots) < (0.0 if case == "empty_shard" and j == 0 else 0.7)
+        out["pos"].append(pos)
+        out["active"].append(active)
+        out["pid"].append((np.arange(slots) + j * slots).astype(np.int32))
+        out["F"].append(rng.normal(size=(9, slots)).astype(np.float32))
+    return out
