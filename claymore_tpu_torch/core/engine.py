@@ -31,6 +31,9 @@ pointers.  The host synchronises with the device at exactly these points:
   occupancy counters once per frame, and ``regrow`` (at most once per
   frame) unites the oct keys and sizes the tiles on the host.
 
+Under ``torch.profiler`` the substep marks its stages, a rebuild's steps
+and each of these host reads with ``claymore.*`` ranges
+(``utils/timers.py:span``; ``claymore.sync.<site>`` spans a read alone).
 ``profile_stages`` times the stages of a substep; ``update_material``
 returns an engine with new material parameters.  Capturing substeps into
 CUDA graphs would remove the per-launch host cost; that is later work.
@@ -50,7 +53,7 @@ from ..config import SimConfig
 from ..models.boundary import check_colliders
 from ..models.materials import Material
 from ..ops import g2p2g_kernel, grid_kernel, partition_kernel, rebucket_kernel
-from ..utils.timers import device_ms
+from ..utils.timers import device_ms, span
 from . import grid as grid_ops
 from . import partition as part
 from . import transfer
@@ -157,7 +160,9 @@ def full_rebuild(cfg: SimConfig, step) -> bool:
     package)."""
     if cfg.defrag_every <= 1:
         return True
-    return ((int(step) + 1) // max(cfg.rebucket_every, 1)) % cfg.defrag_every == 0
+    with span("claymore.sync.defrag"):
+        step = int(step)
+    return ((step + 1) // max(cfg.rebucket_every, 1)) % cfg.defrag_every == 0
 
 
 def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
@@ -179,24 +184,30 @@ def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
     took the full sort), ``deferred`` the movers each model's plan would
     have deferred (empty for "full" and "stale")."""
     if stale:
-        plans = [(dataclasses.replace(m), part.tile_block_keys(cfg, m.tiles), m.tiles.dropped)
-                 for m in models]
+        with span("claymore.rebuild.incremental"):
+            plans = [(dataclasses.replace(m), part.tile_block_keys(cfg, m.tiles),
+                      m.tiles.dropped) for m in models]
         kind, deferred = "stale", []
     elif full:
         plans = [rebucket_kernel.sort_permute(cfg, m, m.tiles.block.shape[0], region_fn)
                  for m in models]
         kind, deferred = "full", []
     else:
-        plans = [part.incremental_plan(cfg, m, part.tile_block_keys(cfg, m.tiles))
-                 for m in models]
-        deferred = [int(d) for d in torch.cat([dr for _, _, dr in plans]).tolist()]
+        with span("claymore.rebuild.incremental"):
+            plans = [part.incremental_plan(cfg, m, part.tile_block_keys(cfg, m.tiles))
+                     for m in models]
+            counts = torch.cat([dr for _, _, dr in plans])
+        with span("claymore.sync.deferred"):
+            deferred = [int(d) for d in counts.tolist()]
         plans = [rebucket_kernel.sort_permute(cfg, m, m.tiles.block.shape[0]) if d > 0 else plan
                  for m, plan, d in zip(models, plans, deferred)]
         kind = "fallback" if max(deferred) > 0 else "incremental"
-    partition, pool = partition_kernel.rebuild(cfg, pool, partition,
-                                               tuple(tk for _, tk, _ in plans), extra_mask)
-    for pm, tk, dr in plans:
-        pm.tiles = partition_kernel.finalize_tiles(cfg, partition, tk, dr)
+    with span("claymore.rebuild.partition"):
+        partition, pool = partition_kernel.rebuild(cfg, pool, partition,
+                                                   tuple(tk for _, tk, _ in plans), extra_mask)
+    with span("claymore.rebuild.tiles"):
+        for pm, tk, dr in plans:
+            pm.tiles = partition_kernel.finalize_tiles(cfg, partition, tk, dr)
     return partition, pool, tuple(pm for pm, _, _ in plans), kind, deferred
 
 
@@ -284,33 +295,37 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
        keep their tiles; ``comm.add_halo`` then adds the neighbours' rows
        into the new pool.
 
-    ``on_stage(name)``, when given, is called after each stage's work has
-    been queued for every shard (``chip_smoke.py`` records CUDA events
-    there)."""
-    stage = on_stage or (lambda name: None)
+    Each stage runs inside a ``claymore.*`` range (``utils/timers.py:span``)
+    while ``torch.profiler`` records.  ``on_stage(name)``, when given, is
+    called as each stage's range closes, its work queued for every shard
+    (``chip_smoke.py`` records CUDA events there): "K2", "reduce_max", "K1"
+    (or "K1 boundary", "exchange issued", "K1 interior" under the split;
+    "exchange issued" after "K1" under a live comm without it), "decision",
+    "migrate", "mask", "rebuild", "add_halo"; the comm's stages only under
+    a live comm."""
     n = len(states)
     collider_tables = collider_tables or (None,) * n
     sdf_pointers = sdf_pointers or (None,) * n
     comm_live = comm is not None and not comm.trivial
     n3 = cfg.grid_size ** 3
-    grid_out = [grid_kernel.grid_update(cfg, s.grid, s.partition, s.dt, colliders, s.t,
-                                        collider_tables[j], sdf_pointers[j])
-                for j, s in enumerate(states)]
-    pool_vs = [pv for pv, _ in grid_out]
-    max_vel_sqr = [mv for _, mv in grid_out]
-    del grid_out
-    stage("K2")
+    with span("claymore.k2", on_stage, "K2"):
+        grid_out = [grid_kernel.grid_update(cfg, s.grid, s.partition, s.dt, colliders, s.t,
+                                            collider_tables[j], sdf_pointers[j])
+                    for j, s in enumerate(states)]
+        pool_vs = [pv for pv, _ in grid_out]
+        max_vel_sqr = [mv for _, mv in grid_out]
+        del grid_out
     if comm_live:
-        max_vel_sqr = comm.reduce_max(max_vel_sqr)
-        stage("reduce_max")
-    t_after = [s.t + s.dt for s in states]
-    next_dt = [grid_ops.compute_dt(cfg, mv, ta, fe)
-               for mv, ta, fe in zip(max_vel_sqr, t_after, frame_end)]
+        with span("claymore.reduce_max", on_stage, "reduce_max"):
+            max_vel_sqr = comm.reduce_max(max_vel_sqr)
+    with span("claymore.dt"):
+        t_after = [s.t + s.dt for s in states]
+        next_dt = [grid_ops.compute_dt(cfg, mv, ta, fe)
+                   for mv, ta, fe in zip(max_vel_sqr, t_after, frame_end)]
 
     split = comm_live and comm.overlap and cfg.defrag_every == 1
     halo_overflow = [s.halo_overflow for s in states]
     mig_dropped = [s.mig_dropped for s in states]
-    next_pools = [torch.zeros_like(s.grid) for s in states]
     margins = [None] * n
     models = [[None] * len(materials) for _ in states]
 
@@ -325,93 +340,102 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
 
     bts = [[m.tiles.tvalid.shape[0] for m in s.models] for s in states]
     if split:
-        mult = math.lcm(cfg.group_tiles, tile_chunk)
-        for j, s in enumerate(states):
-            for mi, model in enumerate(s.models):
-                tcount = bts[j][mi]
-                bt = bts[j][mi] = comm.boundary_tile_cap(tcount, mult)
-                if bt < tcount:
-                    # boundary tiles past the prefix would ship incomplete
-                    # window rows: count them
-                    tk = part.flatten_key(cfg, model.tiles.bcoord[:, bt:])
-                    bad = model.tiles.tvalid[bt:] & comm.is_boundary_key(
-                        torch.clamp(tk, max=n3 - 1), comm.shards[j])
-                    halo_overflow[j] = halo_overflow[j] + bad.sum(dtype=torch.int32).reshape(1)
-                transfer(j, mi, (0, bt))
-        stage("K1 boundary")
+        with span("claymore.k1.boundary", on_stage, "K1 boundary"):
+            next_pools = [torch.zeros_like(s.grid) for s in states]
+            mult = math.lcm(cfg.group_tiles, tile_chunk)
+            for j, s in enumerate(states):
+                for mi, model in enumerate(s.models):
+                    tcount = bts[j][mi]
+                    bt = bts[j][mi] = comm.boundary_tile_cap(tcount, mult)
+                    if bt < tcount:
+                        # boundary tiles past the prefix would ship incomplete
+                        # window rows: count them
+                        tk = part.flatten_key(cfg, model.tiles.bcoord[:, bt:])
+                        bad = model.tiles.tvalid[bt:] & comm.is_boundary_key(
+                            torch.clamp(tk, max=n3 - 1), comm.shards[j])
+                        halo_overflow[j] = halo_overflow[j] + bad.sum(dtype=torch.int32).reshape(1)
+                    transfer(j, mi, (0, bt))
     else:
-        for j in range(n):
-            for mi in range(len(materials)):
-                transfer(j, mi)
-        stage("K1")
+        with span("claymore.k1", on_stage, "K1"):
+            next_pools = [torch.zeros_like(s.grid) for s in states]
+            for j in range(n):
+                for mi in range(len(materials)):
+                    transfer(j, mi)
     if comm_live:
-        received, overflow = comm.exchange_halo(next_pools, [s.partition for s in states])
-        halo_overflow = [h + o for h, o in zip(halo_overflow, overflow)]
-        stage("exchange issued")
+        with span("claymore.exchange", on_stage, "exchange issued"):
+            received, overflow = comm.exchange_halo(next_pools, [s.partition for s in states])
+            halo_overflow = [h + o for h, o in zip(halo_overflow, overflow)]
     if split:
-        for j, s in enumerate(states):
-            for mi, model in enumerate(s.models):
-                transfer(j, mi, (bts[j][mi], model.tiles.tvalid.shape[0]))
-        stage("K1 interior")
+        with span("claymore.k1.interior", on_stage, "K1 interior"):
+            for j, s in enumerate(states):
+                for mi, model in enumerate(s.models):
+                    transfer(j, mi, (bts[j][mi], model.tiles.tvalid.shape[0]))
     del pool_vs
 
-    if cfg.rebucket_auto:
-        # rebuild when the next advection could push some particle past its
-        # tile's arena bound (margin on the advected positions, stale tiles)
-        flags = [m <= ndt * torch.sqrt(mv) * cfg.dx_inv * cfg.rebucket_safety + 1e-3
-                 for m, ndt, mv in zip(margins, next_dt, max_vel_sqr)]
-        do_rebuild = comm.read_flags(flags) if comm_live else [bool(f) for f in flags]
-    elif cfg.rebucket_every == 1:
-        do_rebuild = [True] * n
-    else:
-        do_rebuild = [(int(states[0].step) + 1) % cfg.rebucket_every == 0] * n
-    stage("decision")
+    with span("claymore.decision", on_stage, "decision"):
+        if cfg.rebucket_auto:
+            # rebuild when the next advection could push some particle past its
+            # tile's arena bound (margin on the advected positions, stale tiles)
+            flags = [m <= ndt * torch.sqrt(mv) * cfg.dx_inv * cfg.rebucket_safety + 1e-3
+                     for m, ndt, mv in zip(margins, next_dt, max_vel_sqr)]
+            if comm_live:
+                do_rebuild = comm.read_flags(flags)
+            else:
+                with span("claymore.sync.decision"):
+                    do_rebuild = [bool(f) for f in flags]
+        elif cfg.rebucket_every == 1:
+            do_rebuild = [True] * n
+        else:
+            with span("claymore.sync.cadence"):
+                step = int(states[0].step)
+            do_rebuild = [(step + 1) % cfg.rebucket_every == 0] * n
     extra = [None] * n
     if comm_live:
-        models, drop, arrived = comm.migrate(models, do_rebuild)
-        mig_dropped = [md + d for md, d in zip(mig_dropped, drop)]
-        if not all(do_rebuild) and (comm.group.dense or any(do_rebuild)):
-            # a shard that received migrants rebuilds, so they are sorted
-            # into tiles of their own blocks (the JAX package leaves them in
-            # free slots of other tiles, whose next transfer drops them)
-            do_rebuild = [d or a for d, a in zip(do_rebuild, comm.read_flags(arrived))]
-        stage("migrate")
-        comm.wait_halo()
-        extra = [comm.halo_mass_mask(r) for r in received]
-        stage("mask")
+        with span("claymore.migrate", on_stage, "migrate"):
+            models, drop, arrived = comm.migrate(models, do_rebuild)
+            mig_dropped = [md + d for md, d in zip(mig_dropped, drop)]
+            if not all(do_rebuild) and (comm.group.dense or any(do_rebuild)):
+                # a shard that received migrants rebuilds, so they are sorted
+                # into tiles of their own blocks (the JAX package leaves them in
+                # free slots of other tiles, whose next transfer drops them)
+                do_rebuild = [d or a for d, a in
+                              zip(do_rebuild, comm.read_flags(arrived, "arrived"))]
+        with span("claymore.mask", on_stage, "mask"):
+            comm.wait_halo()
+            extra = [comm.halo_mass_mask(r) for r in received]
 
-    full = any(do_rebuild) and full_rebuild(cfg, states[0].step)
-    rebuilt, planned = [], []
-    for j, s in enumerate(states):
-        partition, pool, new_models = s.partition, next_pools[j], tuple(models[j])
-        if do_rebuild[j] or comm_live:
-            # under a live comm the partition must hold this substep's halo
-            # blocks (add_halo drops rows of blocks it lacks): only the
-            # particle sort waits for the decision
-            region = (functools.partial(comm.is_boundary_key, shard=comm.shards[j])
-                      if split else None)
-            partition, pool, new_models, kind, deferred = rebucket(
-                cfg, pool, partition, new_models, full=full, region_fn=region,
-                extra_mask=extra[j], stale=not do_rebuild[j])
-        rebuilt.append((kind, deferred) if do_rebuild[j] else None)
-        planned.append((partition, pool, new_models))
-        # drop this shard's pre-rebuild particles and pool before the next
-        # shard sorts: on a mesh held in one process the peak then holds one
-        # shard's copies, not every shard's
-        models[j] = next_pools[j] = None
-    stage("rebuild")
-    out = []
-    for j, (s, (partition, pool, new_models)) in enumerate(zip(states, planned)):
-        if comm_live:
-            pool = comm.add_halo(pool, partition, received[j])
-            received[j] = None
-        out.append(SimState(
-            grid=pool, partition=partition, models=new_models, dt=next_dt[j],
-            max_vel=torch.sqrt(max_vel_sqr[j]), t=t_after[j], step=s.step + 1,
-            mig_dropped=mig_dropped[j], halo_overflow=halo_overflow[j]))
+    with span("claymore.rebuild", on_stage, "rebuild"):
+        full = any(do_rebuild) and full_rebuild(cfg, states[0].step)
+        rebuilt, planned = [], []
+        for j, s in enumerate(states):
+            partition, pool, new_models = s.partition, next_pools[j], tuple(models[j])
+            if do_rebuild[j] or comm_live:
+                # under a live comm the partition must hold this substep's halo
+                # blocks (add_halo drops rows of blocks it lacks): only the
+                # particle sort waits for the decision
+                region = (functools.partial(comm.is_boundary_key, shard=comm.shards[j])
+                          if split else None)
+                partition, pool, new_models, kind, deferred = rebucket(
+                    cfg, pool, partition, new_models, full=full, region_fn=region,
+                    extra_mask=extra[j], stale=not do_rebuild[j])
+            rebuilt.append((kind, deferred) if do_rebuild[j] else None)
+            planned.append((partition, pool, new_models))
+            # drop this shard's pre-rebuild particles and pool before the next
+            # shard sorts: on a mesh held in one process the peak then holds one
+            # shard's copies, not every shard's
+            models[j] = next_pools[j] = None
     if comm_live:
-        stage("add_halo")
-    return tuple(out), tuple(rebuilt)
+        with span("claymore.add_halo", on_stage, "add_halo"):
+            for j, (partition, pool, new_models) in enumerate(planned):
+                planned[j] = (partition, comm.add_halo(pool, partition, received[j]),
+                              new_models)
+                received[j] = None
+    out = tuple(SimState(
+        grid=pool, partition=partition, models=new_models, dt=next_dt[j],
+        max_vel=torch.sqrt(max_vel_sqr[j]), t=t_after[j], step=s.step + 1,
+        mig_dropped=mig_dropped[j], halo_overflow=halo_overflow[j])
+        for j, (s, (partition, pool, new_models)) in enumerate(zip(states, planned)))
+    return out, tuple(rebuilt)
 
 
 def health_check(states, strict: bool = True) -> None:
@@ -462,10 +486,11 @@ class MPMEngine:
     Colliders are ``models/boundary.py``'s (analytic and SDF grid), resolved
     in list order; on a CUDA device their packed table and the SDF node
     tables are uploaded here, once, and a list longer than the grid kernel
-    takes (``grid_kernel.max_colliders``) raises.  ``rebuilds`` counts the
-    substeps that rebucketed, ``fallbacks`` those of them whose incremental
-    plan deferred movers and so ran the full sort, and ``last_rebuild`` is
-    the latest rebuild's (kind, deferred) from ``rebucket``.
+    takes (``grid_kernel.max_colliders``) raises.  ``substeps`` counts the
+    substeps run, ``rebuilds`` those that rebucketed, ``fallbacks`` those of
+    them whose incremental plan deferred movers and so ran the full sort,
+    and ``last_rebuild`` is the latest rebuild's (kind, deferred) from
+    ``rebucket``: host counts, no device read.
     """
 
     def __init__(self, cfg: SimConfig, materials: Sequence[Material],
@@ -487,6 +512,7 @@ class MPMEngine:
             grid_kernel.sdf_table_pointers(self.colliders, self.device)
             if on_card else None)
         self.tile_chunk = tile_chunk
+        self.substeps = 0
         self.rebuilds = 0
         self.fallbacks = 0
         self.last_rebuild = None
@@ -539,10 +565,17 @@ class MPMEngine:
     def _frame_end(self, frame_end) -> torch.Tensor:
         return torch.as_tensor(frame_end, dtype=torch.float32).to(self.device)
 
-    def substep(self, state: SimState, frame_end) -> SimState:
-        (state,), (rebuilt,) = substep_impl(
-            self.cfg, self.materials, self.colliders, self.tile_chunk, (state,),
-            (self._frame_end(frame_end),), (self._collider_table,), (self._sdf_pointers,))
+    def substep(self, state: SimState, frame_end, on_stage=None) -> SimState:
+        """One substep (``substep_impl``, inside a ``claymore.substep``
+        range under ``torch.profiler``); ``on_stage(name)``, when given, is
+        called as each stage's work has been queued ("K2", "K1",
+        "decision", "rebuild")."""
+        with span("claymore.substep"):
+            (state,), (rebuilt,) = substep_impl(
+                self.cfg, self.materials, self.colliders, self.tile_chunk, (state,),
+                (self._frame_end(frame_end),), (self._collider_table,), (self._sdf_pointers,),
+                on_stage=on_stage)
+        self.substeps += 1
         if rebuilt is not None:
             self.rebuilds += 1
             self.fallbacks += rebuilt[0] == "fallback"
@@ -560,11 +593,13 @@ class MPMEngine:
         the first dt is clamped to the frame end."""
         fe = self._frame_end(frame_end)
         eps = 1e-9
-        step0 = int(state.step)
         state = dataclasses.replace(
             state, dt=torch.minimum(state.dt, torch.clamp(fe - state.t, min=0.0)))
-        while (bool(state.t < fe - eps)
-               and int(state.step) - step0 < self.cfg.max_substeps_per_frame):
+        for _ in range(self.cfg.max_substeps_per_frame):
+            with span("claymore.sync.loop"):
+                going = bool(state.t < fe - eps)
+            if not going:
+                break
             state = self.substep(state, fe)
         return state
 

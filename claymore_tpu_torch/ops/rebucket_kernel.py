@@ -11,7 +11,9 @@ Python).  The JAX package runs the whole stage in XLA
 (``claymore_tpu/core/partition.py:83``): no TPU kernel is replaced.
 
 On CUDA tensors each stage launches its kernels or raises; on CPU tensors
-it runs its plain twin in ``core/partition.py``.  There is no fallback from
+it runs its plain twin in ``core/partition.py``.  Under ``torch.profiler``
+``sort_permute``'s three stages run inside ``claymore.rebuild.sort``,
+``.plan`` and ``.place`` ranges.  There is no fallback from
 a kernel to its plain twin.  Each stage counts its launches in
 ``launches`` (one a call, however many CUDA kernels the stage runs).
 """
@@ -24,6 +26,7 @@ import torch
 
 from ..config import SimConfig
 from ..core import partition
+from ..utils.timers import span
 from .grid_kernel import _expect
 
 MAX_CHANNELS = 16        # csrc/rebucket.cu: kMaxChannels
@@ -34,14 +37,15 @@ _SEG_CTAS = 512          # csrc/rebucket.cu: kSegCtas
 def sort_permute(cfg: SimConfig, model, num_tiles: int, region_fn=None):
     """``core/partition.py:sort_permute`` (same arguments, same result bit
     for bit): on a CUDA model the keys are sorted by torch and every other
-    stage runs as kernels; on a CPU model the plain version runs."""
-    if not model.pos.is_cuda:
-        return partition.sort_permute(cfg, model, num_tiles, region_fn)
+    stage runs as kernels; on a CPU model each stage's plain twin runs."""
     if model.pos.shape[1] != num_tiles * cfg.particle_tile:
         raise ValueError(f"slot capacity {model.pos.shape[1]} != {num_tiles} tiles")
-    skey, perm, region = sort_keys(cfg, model, region_fn)
-    dstart, dlen, tile_keys, dropped = tile_plan(cfg, skey, num_tiles, region)
-    return place(cfg, model, perm, dstart, dlen), tile_keys, dropped
+    with span("claymore.rebuild.sort"):
+        skey, perm, region = sort_keys(cfg, model, region_fn)
+    with span("claymore.rebuild.plan"):
+        dstart, dlen, tile_keys, dropped = tile_plan(cfg, skey, num_tiles, region)
+    with span("claymore.rebuild.place"):
+        return place(cfg, model, perm, dstart, dlen), tile_keys, dropped
 
 
 def sort_keys(cfg: SimConfig, model, region_fn=None):

@@ -63,6 +63,7 @@ from ..core.types import ParticleModel
 from ..models.boundary import check_colliders
 from ..models.materials import Material
 from ..ops import grid_kernel, halo_kernel, partition_kernel
+from ..utils.timers import span
 from . import halo
 
 
@@ -217,8 +218,11 @@ class HaloComm:
     def reduce_max(self, xs):
         return self.group.reduce_max(xs)
 
-    def read_flags(self, flags) -> List[bool]:
-        return self.group.read_flags(flags)
+    def read_flags(self, flags, site: str = "flags") -> List[bool]:
+        """Every shard's 0-d bool flag on the host (the group's one read),
+        inside a ``claymore.sync.<site>`` range."""
+        with span("claymore.sync." + site):
+            return self.group.read_flags(flags)
 
     # -- boundary/interior transfer split -------------------------------
     def is_boundary_key(self, keys: torch.Tensor, shard: int) -> torch.Tensor:
@@ -484,7 +488,8 @@ class MultiChipEngine:
     tuple of per-shard ``SimState``s (the shards this process holds), each
     on its shard's device.  ``halo_margin`` must cover the transfer arena's
     scatter reach; the remaining arguments are the JAX package's.
-    ``rebuilds`` counts the substeps on which some shard rebucketed."""
+    ``substeps`` counts the substeps run and ``rebuilds`` those on which
+    some shard rebucketed (host counts)."""
 
     def __init__(self, cfg: SimConfig, materials: Sequence[Material],
                  n_devices: Optional[int] = None, mesh_shape: Optional[Sequence[int]] = None,
@@ -551,6 +556,7 @@ class MultiChipEngine:
             grid_kernel.sdf_table_pointers(self.colliders, d) if c else None
             for d, c in zip(self.devices, on_card))
         self._num_tiles: List[int] = []
+        self.substeps = 0
         self.rebuilds = 0
 
     # -- init ----------------------------------------------------------
@@ -627,11 +633,14 @@ class MultiChipEngine:
                      for d in self.devices)
 
     def substep(self, state, frame_end, on_stage=None):
-        """One substep of every shard (``core/engine.py:substep_impl``)."""
-        fe = frame_end if isinstance(frame_end, tuple) else self._frame_end(frame_end)
-        state, rebuilt = engine_mod.substep_impl(
-            self.cfg, self.materials, self.colliders, self.tile_chunk, state, fe,
-            self._collider_tables, self._sdf_pointers, comm=self.comm, on_stage=on_stage)
+        """One substep of every shard (``core/engine.py:substep_impl``,
+        inside a ``claymore.substep`` range under ``torch.profiler``)."""
+        with span("claymore.substep"):
+            fe = frame_end if isinstance(frame_end, tuple) else self._frame_end(frame_end)
+            state, rebuilt = engine_mod.substep_impl(
+                self.cfg, self.materials, self.colliders, self.tile_chunk, state, fe,
+                self._collider_tables, self._sdf_pointers, comm=self.comm, on_stage=on_stage)
+        self.substeps += 1
         self.rebuilds += any(r is not None for r in rebuilt)
         return state
 
@@ -646,11 +655,13 @@ class MultiChipEngine:
         the first dt is clamped to the frame end."""
         fe = self._frame_end(frame_end)
         eps = 1e-9
-        step0 = int(state[0].step)
         state = tuple(dataclasses.replace(s, dt=torch.minimum(s.dt, torch.clamp(f - s.t, min=0.0)))
                       for s, f in zip(state, fe))
-        while (bool(state[0].t < fe[0] - eps)
-               and int(state[0].step) - step0 < self.cfg.max_substeps_per_frame):
+        for _ in range(self.cfg.max_substeps_per_frame):
+            with span("claymore.sync.loop"):
+                going = bool(state[0].t < fe[0] - eps)
+            if not going:
+                break
             state = self.substep(state, fe)
         return state
 
