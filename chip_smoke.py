@@ -249,7 +249,11 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     minimum of the two.  At span 4 it also reads the kernel's count of wide
     tiles (transferred in more than one P2G pass), which must equal
     ``prof_k1.wide_tiles`` of the kernel's output (``wide_tiles``,
-    ``live_tiles``)."""
+    ``live_tiles``).  The kernel streams each tile's occupied prefix
+    (``g2p2g_kernel.occupied_slots`` of the input): its count of streamed
+    slots must equal their sum over the range (``streamed_slots`` of
+    ``slots``), and every output slot past a prefix must read inactive, pid
+    S."""
     from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
     from claymore_tpu_torch.scripts import prof_k1
@@ -280,9 +284,20 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     span4 = cfg.arena_span == 4
     if span4:
         g2p2g_kernel.wide_tile_counter(DEVICE).zero_()
+    g2p2g_kernel.streamed_slot_counter(DEVICE).zero_()
     mk, pk, margin = kernel(torch.zeros_like(state.grid))
+    streamed = int(g2p2g_kernel.streamed_slot_counter(DEVICE)[0])
     mt, pt = plain(torch.zeros_like(state.grid))
     torch.cuda.synchronize()
+    prefix = g2p2g_kernel.occupied_slots(cfg, model)
+    if streamed != int(prefix.sum()):
+        raise AssertionError(f"g2p2g kernel: {streamed} slots streamed, the occupied "
+                             f"prefixes hold {int(prefix.sum())}")
+    past = (torch.arange(cfg.particle_tile, device=DEVICE)[None, :] >= prefix[:, None]).reshape(-1)
+    s_cap = model.pos.shape[1]
+    if bool(mk.active[past].any()) or bool((mk.pid[past] != s_cap).any()):
+        raise AssertionError("g2p2g kernel: a slot past its tile's occupied prefix is "
+                             "active or keeps its pid")
     wide = {}
     if span4:
         # dx_inv is a power of two, so the kernel's stencil bases are
@@ -342,7 +357,7 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         raise AssertionError("g2p2g kernel: particles did not move")
     out = {"max_abs_err": grid_err, "grid_max": grid_max, "pos_err": pos_err,
            "field_err": field_err, "flipped": flipped, "active": n_act,
-           "margin": float(margin), **wide}
+           "margin": float(margin), "streamed_slots": streamed, "slots": s_cap, **wide}
     if time_it:
         # into one pool that keeps adding up: its contents do not change the
         # work, and a zeroing pass would add 0.5 GB of stores to the time
@@ -397,7 +412,8 @@ def check_incremental_plan(cfg, model) -> dict:
              ("pid", m2.pid, c2.pid), ("tile_keys", tk2, ctk2), ("deferred", d2, cd2)]
     pairs += [(k, m2.fields[k], c2.fields[k]) for k in model.fields]
     for name, a, b in pairs:
-        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+        # by bits: the slots it leaves inactive keep what they held, NaN too
+        if not _same(a.cpu(), b):
             raise AssertionError(f"incremental_plan on the card differs from the CPU in {name}")
     key = part.flatten_key(cfg, part.home_block(cfg, model.pos))
     movers = int((model.active & (key != tk.repeat_interleave(cfg.particle_tile))).sum())
@@ -1739,7 +1755,8 @@ def log_k1(label: str, k1: dict, facts: str) -> None:
         f"(particles over 1e-5 x scale: {k1['flipped']} of {k1['active']}), "
         f"kernel {k1['ms']:.4f} ms, plain "
         + (f"{k1['plain_ms']:.4f} ms" if "plain_ms" in k1 else "not timed") + ", margin "
-        f"{k1['margin']!r} == arena_margin, {k1['registers']} registers, "
+        f"{k1['margin']!r} == arena_margin, streamed {k1['streamed_slots']} of "
+        f"{k1['slots']} slots, {k1['registers']} registers, "
         f"{k1['blocks_per_sm']} blocks/SM"
         + (f", wide tiles {k1['wide_tiles']} of {k1['live_tiles']}" if "wide_tiles" in k1
            else "") + f" | {facts}")
@@ -3072,7 +3089,7 @@ def main() -> int:
     before = (state.grid.clone(), state.models[0].pos.clone())
     prof = eng.profile_stages(state, iters=8, reps=2)
     sb = stage_breakdown(cfg25, [mat25], state)
-    if not (torch.equal(before[0], state.grid) and torch.equal(before[1], state.models[0].pos)
+    if not (torch.equal(before[0], state.grid) and _same(before[1], state.models[0].pos)
             and all(np.isfinite(v) for v in prof.values())):
         raise AssertionError(f"profile_stages: {prof}, or it changed its input state")
     log("sphere25m profile_stages (ms per call, best of 2 x 8): "

@@ -200,17 +200,23 @@ def g2p2g_model(
         # not scatter either
         w2, m2, in_range = _bspline_onehot(cfg, new_pos, origin)
         ok = valid & in_range_pre & in_range
-        (wx2, wy2, wz2), (mx2, my2, mz2) = w2, m2
+        # a slot that does not scatter adds exact zeros, selected and not
+        # multiplied away: an inactive slot's state may hold anything, NaN too
+        okc = ok[:, None, :]                              # [ct, 1, tile]
+        wx2, wy2, wz2 = (torch.where(okc, x, 0.0) for x in w2)
+        mx2, my2, mz2 = (torch.where(okc, x, 0.0) for x in m2)
 
-        okf = ok[:, None, :].to(pos.dtype)                # [ct, 1, tile]
         velm = vel * mass
-        s0 = torch.cat(
+        s0 = torch.where(okc, torch.cat(
             [torch.full((ct, 1, tile), mass, dtype=pos.dtype, device=pos.device), velm],
-            dim=1) * okf
+            dim=1), 0.0)
         zero = torch.zeros((ct, 1, tile), dtype=pos.dtype, device=pos.device)
-        s1 = torch.cat([zero, q[0][:, None], q[3][:, None], q[6][:, None]], dim=1) * okf
-        s2 = torch.cat([zero, q[1][:, None], q[4][:, None], q[7][:, None]], dim=1) * okf
-        s3 = torch.cat([zero, q[2][:, None], q[5][:, None], q[8][:, None]], dim=1) * okf
+        s1 = torch.where(okc, torch.cat([zero, q[0][:, None], q[3][:, None], q[6][:, None]],
+                                        dim=1), 0.0)
+        s2 = torch.where(okc, torch.cat([zero, q[1][:, None], q[4][:, None], q[7][:, None]],
+                                        dim=1), 0.0)
+        s3 = torch.where(okc, torch.cat([zero, q[2][:, None], q[5][:, None], q[8][:, None]],
+                                        dim=1), 0.0)
 
         ux = torch.cat([wx2, mx2, wx2, wx2], dim=2)       # [ct, 8, 4*tile]
         uy = torch.cat([wy2, wy2, my2, wy2], dim=2)

@@ -47,8 +47,30 @@
 //    an mbarrier) into a 2-stage ring: tile i+1 streams in while tile i
 //    computes.  The 8 neighbour blocks' velocity rows of tile i+1 come in
 //    with 16-byte cp.async behind them.  Outputs are written back in place
-//    into the stage and leave as 16-byte vector stores.  Dead tiles and
-//    inactive slots take the same pipe and pass through.
+//    into the stage and leave as 16-byte vector stores.
+//  * Only each tile's occupied prefix takes that pipe: slots [0, L) with L
+//    one past its last active slot rounded up to 16 (0 for a tile that is
+//    not valid).  The capacity the rebucket sizes (exact_tiles' slack, each
+//    oct padded to group_tiles) holds many dead tiles and overflow tiles of
+//    a few particles: on jittered inputs 36% (sphere25m) and 18%
+//    (dambreak12m) of the slots are active.  The placement fills a tile from
+//    slot 0 and a slot only goes inactive between rebuilds, so L is tight; it
+//    is read from the tile's own active column, so it holds for any layout.
+//    A block reads the valid flags and active columns of its next kTileList
+//    candidate tiles at once (a lane a tile from the column's end, then a
+//    warp a column for the tiles that end early) and lists the occupied ones
+//    with their L: the ring loads only listed tiles, so a run of dead tiles
+//    costs no stage and never leaves a live tile's load un-overlapped.  With
+//    dead tiles nearly free a block's time is its live tiles', so the
+//    blocks' candidates rotate through the tile index's residues mod 8
+//    (``candidate``).  Every slot loop runs over [0, L); the stage past L
+//    holds an earlier tile's bytes and is never read.  Position and fields
+//    are written back over [0, L) only: past it they stay as the caller's
+//    output held them (inactive slots' state is undefined after the
+//    transfer).  Active and pid are written for every slot, 0 and S past L
+//    and over every tile the list skips (5 bytes a slot).  A device counter
+//    (ops/g2p2g_kernel.py:streamed_slot_counter) sums the L of every
+//    streamed tile, one atomic a block; the substep never reads it.
 //  * Phase 1, one slot per thread: G2P, the material, advection, the range
 //    checks and the margin; the particle's m v and Q go to shared memory.
 //  * P2G with ~7x fewer atomics: the block counting-sorts its particles by
@@ -78,10 +100,11 @@
 //    one atomicMax per block on an order-reversing integer image; the last
 //    block decodes it into the 0-d output.
 // Measured on an H100 at 700 W (scripts/prof_k1.py and ablations of this
-// file, sphere25m, FixedCorotated): 5.1-5.4 ms in any slot order; with
-// every tile dead 1.7-1.8 ms (the stream alone, 1.3x its 1.31 ms bytes
-// bound); without the P2G phase 2.9 ms.  So the per-base P2G (~2.2 ms, its
-// atomics ~0.45 of it) and the stream are what is left.  The register
+// file, the sphere25m lattice state, FixedCorotated): 5.1-5.4 ms in any slot
+// order; with every tile dead 1.7-1.8 ms (the stream alone, 1.3x its 1.31
+// ms bytes bound, before dead tiles left the ring); without the P2G phase
+// 2.9 ms.  So the per-base P2G (~2.2 ms, its atomics ~0.45 of it) and the
+// stream are what is left.  The register
 // budget is 128 for FC, Sand and NACC at 2 blocks (16 warps) per SM and 80
 // for JFluid at 3 (JFluid at 2 blocks and 128 registers ran 1.2x slower),
 // with no spills; shared memory (~72-110 KB a block at tile 512) allows no
@@ -156,6 +179,8 @@ constexpr int kRowFloats = 16 * 128;
 constexpr int kMaxParams = 16;
 constexpr int kMinTile = 32, kMaxTile = 1024;
 constexpr int kP2G = 12;                      // m v (3) and Q (9) per particle
+constexpr int kTileList = kThreads;           // candidate tiles a block lists at once
+constexpr int kSlotRound = 16;                // an occupied prefix is whole 16-slot runs
 
 // the transfer arena of span kSpan blocks a side.  The shared-memory arenas
 // (velocities for the G2P, (m, mv) for the P2G) are 8 cells in x and y: at
@@ -207,6 +232,7 @@ struct Params {
   unsigned int* margin_key;     // u32[2]: key, finished blocks; zeroed by the wrapper
   float* margin_out;            // f32[]
   unsigned int* wide_tiles;     // u32[1]: span 4, tiles whose P2G took several passes
+  unsigned long long* streamed; // u64[1]: slots of the occupied prefixes streamed
   int num_tiles, tile_lo, tile_hi, tile, g, gzo, num_oct_keys, null_oct;
   float dx, dx_inv, d_inv, mass;
   float mp[kMaxParams];         // the material's constants (ops/g2p2g_kernel.py)
@@ -677,9 +703,16 @@ struct Stage {
 __host__ __device__ constexpr int round_up(int x, int a) { return (x + a - 1) / a * a; }
 
 struct Layout {                 // byte offsets into the dynamic shared memory
-  int bars, nb, misc, wsum, wext, hist, blist, perm, sbin, srank, varena, oarena, p2g, stage,
-      stage_stride, total;
+  int bars, nb, misc, ctl, wsum, wext, tlist, hist, blist, perm, sbin, srank, varena, oarena,
+      p2g, stage, stage_stride, total;
 };
+
+// the tile ring's control words in shared memory (ints): per ring slot b
+// its tile and occupied prefix (0: no tile), per take parity b the list
+// position, the listed count, the first candidate of the list and of the
+// next one, and the streamed slots (u64, 8-byte aligned)
+enum Ctl { kRingTile = 0, kRingLen = 1, kPos = 4, kCount = 6, kBase = 7, kCand = 8,
+           kStreamed = 10, kCtlWords = 12 };
 
 template <class M, class A>
 __host__ __device__ inline Layout layout(int n) {
@@ -688,10 +721,12 @@ __host__ __device__ inline Layout layout(int n) {
   s.bars = o;   o += 16;                      // two mbarriers
   s.nb = o;     o += 2 * A::kNb * 4;          // neighbour block addresses per stage
   s.misc = o;   o += 16;                      // margin key, count of occupied bins
+  s.ctl = o;    o += kCtlWords * 4;           // the tile ring's control words
   s.wsum = o;   o += 2 * kWarps * 4;          // per warp: bins and occupied bins
   s.wext = o;                                 // span 4, per warp: the extents of the
   if (A::kWindow) o += kWarps * 16 + 112;     // bases; the velocity window's origin;
                                               // the tile's passes; two pass windows
+  s.tlist = o;  o += kTileList * 2;           // the listed tiles: candidate, prefix
   s.hist = o;   o += round_up(A::kBins, 4) * 4;  // bin counts, then bin starts
   s.blist = o;  o += round_up(2 * A::kBases, 16);  // the occupied bins
   s.perm = o;   o += round_up(2 * n, 16);     // sorted position -> slot
@@ -714,15 +749,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                :: "r"(s_addr(dst)), "l"(src) : "memory");
 }
 
-// the ring stage of tile t: every particle column by one bulk copy each
+// the ring stage of tile t: slots [0, len) of every particle column by one
+// bulk copy each, at the column's place in the stage (len a multiple of 16,
+// so every copy is whole 16-byte units)
 template <class M>
-__device__ __forceinline__ void load_stage(const Params& p, int t, int n, size_t S,
+__device__ __forceinline__ void load_stage(const Params& p, int t, int n, int len, size_t S,
                                            unsigned char* stage, uint64_t* bar) {
   using L = Stage<M>;
-  const uint32_t col = (uint32_t)n * 4;
+  const uint32_t col = (uint32_t)len * 4;
   const size_t s0 = (size_t)t * n;
   float* w = reinterpret_cast<float*>(stage);
-  mbar_expect_tx(bar, (uint32_t)L::bytes(n));
+  mbar_expect_tx(bar, (uint32_t)L::bytes(len));
 #pragma unroll
   for (int c = 0; c < 3; ++c) bulk_load(w + c * n, p.pos + c * S + s0, col, bar);
   if constexpr (M::kF) {
@@ -732,7 +769,102 @@ __device__ __forceinline__ void load_stage(const Params& p, int t, int n, size_t
   }
   if constexpr (M::kAux) bulk_load(w + L::kAuxo * n, p.aux + s0, col, bar);
   bulk_load(w + L::kPid * n, p.pid + s0, col, bar);
-  bulk_load(stage + L::kWords * 4 * n, p.active + s0, (uint32_t)n, bar);
+  bulk_load(stage + L::kWords * 4 * n, p.active + s0, (uint32_t)len, bar);
+}
+
+__device__ __forceinline__ bool nonzero(uint4 v) { return (v.x | v.y | v.z | v.w) != 0u; }
+
+// the occupied prefix of this lane's candidate tile c, in 16-slot runs: 0
+// past the range or for a tile that is not valid, else one past the last
+// 16-slot run of its active column holding an active slot.  Each lane reads
+// the last two runs of its own tile's column, where a full tile ends; then
+// the warp reads the rest of the column of each tile still open (an
+// overflow tile's few particles, or none), a run a lane, and takes its last
+// nonzero run by ballot.  Few registers: JFluid's budget has no room for
+// more loads in flight.  The whole warp calls it
+__device__ __forceinline__ int occupied_runs(const Params& p, int c, int n, int lane) {
+  const int runs = n / kSlotRound;
+  const bool valid = c < p.tile_hi && p.tvalid[c];
+  int out = 0;
+  if (valid) {
+    const uint4* col = reinterpret_cast<const uint4*>(p.active + (size_t)c * n);
+    const uint4 a = __ldg(col + runs - 1), b = __ldg(col + runs - 2);
+    out = nonzero(a) ? runs : nonzero(b) ? runs - 1 : 0;
+  }
+  unsigned open = __ballot_sync(0xffffffffu, valid && out == 0);
+  while (open) {
+    const int j = __ffs(open) - 1;
+    open &= open - 1u;
+    const uint4* col = reinterpret_cast<const uint4*>(
+        p.active + (size_t)__shfl_sync(0xffffffffu, c, j) * n);
+    int last = 0;
+    for (int r = 0; r < runs - 2; r += 32) {
+      const int k = r + lane;
+      const unsigned nz = __ballot_sync(0xffffffffu, k < runs - 2 && nonzero(__ldg(col + k)));
+      if (nz) last = r + 32 - __clz(nz);
+    }
+    if (lane == j) out = last;
+  }
+  return out;
+}
+
+// a tile that streams nothing: every slot inactive, pid S, by one warp
+__device__ __forceinline__ void clear_tile(const Params& p, int t, int n, int lane) {
+  const size_t s0 = (size_t)t * n;
+  const int none = p.num_tiles * n;
+  uint4* a = reinterpret_cast<uint4*>(p.active_out + s0);
+  int4* d = reinterpret_cast<int4*>(p.pid_out + s0);
+  for (int i = lane; i < n / 16; i += 32) a[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = lane; i < n / 4; i += 32) d[i] = make_int4(none, none, none, none);
+}
+
+// the tile of the block's candidate i: row i of gridDim.x tiles from
+// tile_lo, at column (blockIdx.x + i) mod gridDim.x.  Each row is shared
+// out among the blocks, and a block's columns rotate through every residue:
+// at a fixed column the tile index would keep one residue mod 8, and each
+// oct's tiles are padded to 8 with its dead tiles last, so some blocks
+// would walk mostly dead tiles and others mostly live ones (sphere25m's
+// jittered state: 412 live tiles on the busiest block against 284 on
+// average, 306 rotated)
+__device__ __forceinline__ int candidate(const Params& p, int i) {
+  return p.tile_lo + i * (int)gridDim.x + (int)((blockIdx.x + i) % gridDim.x);
+}
+
+// the block's next kTileList candidates, from the control word kCand
+// (thread k reads candidate kCand + k): the occupied ones go to ``tlist``
+// in order as (k << 8 | runs), the others in the range are cleared; the
+// list's count, its first candidate, the next list's and list position b
+// (0) go to the control words.  Every thread calls it; it synchronises
+// before it writes the list and after
+__device__ __forceinline__ void list_tiles(const Params& p, int n, unsigned short* tlist,
+                                           volatile int* ctl, int b, int* wsum, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int first = ctl[kCand];
+  const int c = candidate(p, first + tid);
+  const int runs = occupied_runs(p, c, n, lane);
+  const unsigned has = __ballot_sync(0xffffffffu, runs > 0);
+  unsigned dead = __ballot_sync(0xffffffffu, c < p.tile_hi && runs == 0);
+  if (lane == 0) wsum[warp] = __popc(has);
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    off += k < warp ? wsum[k] : 0;
+    total += wsum[k];
+  }
+  if (runs) tlist[off + __popc(has & ((1u << lane) - 1u))] = (unsigned short)((tid << 8) | runs);
+  if (tid == 0) {
+    ctl[kCount] = total;
+    ctl[kBase] = first;
+    ctl[kCand] = first + kTileList;
+    ctl[kPos + b] = 0;
+  }
+  while (dead) {
+    const int j = __ffs(dead) - 1;
+    dead &= dead - 1u;
+    clear_tile(p, __shfl_sync(0xffffffffu, c, j), n, lane);
+  }
+  __syncthreads();
 }
 
 // block address of neighbour ``k`` = (bx, by, bz) of tile t's arena (the null
@@ -815,15 +947,15 @@ constexpr uint32_t kNoExtent = 0x0F0F0Fu;     // the min of no base: 15 > 13 an 
 
 // span 4: the extent (per-byte min, max) of the arena-relative pre-advection
 // stencil bases, clamped into the arena as the G2P clamps them, of this
-// thread's active slots of tile t's stage
+// thread's active slots of tile t's stage (its occupied prefix ``len``)
 template <class A>
-__device__ __forceinline__ void pre_extent(const Params& p, int t, int n, const float* sw,
-                                           const unsigned char* sact, int tid,
-                                           uint32_t& lo, uint32_t& hi) {
+__device__ __forceinline__ void pre_extent(const Params& p, int t, int n, int len,
+                                           const float* sw, const unsigned char* sact,
+                                           int tid, uint32_t& lo, uint32_t& hi) {
   int org[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) org[a] = (p.bcoord[a * p.num_tiles + t] + A::kLo) * 4;
-  for (int q = tid; q < n; q += kThreads) {
+  for (int q = tid; q < len; q += kThreads) {
     if (!sact[q]) continue;
     uint32_t v = 0;
 #pragma unroll
@@ -1120,6 +1252,11 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
   uint32_t* blk_key = reinterpret_cast<uint32_t*>(smem + lay.misc);
   int* hist = reinterpret_cast<int*>(smem + lay.hist);
   int* n_occ = reinterpret_cast<int*>(smem + lay.misc) + 1;
+  // read where used, not held in registers across the transfer
+  volatile int* ctl = reinterpret_cast<volatile int*>(smem + lay.ctl);
+  unsigned long long* streamed =
+      reinterpret_cast<unsigned long long*>(smem + lay.ctl) + kStreamed / 2;
+  unsigned short* tlist = reinterpret_cast<unsigned short*>(smem + lay.tlist);
   int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
   uint4* wext = reinterpret_cast<uint4*>(smem + lay.wext);
   int* vorg = reinterpret_cast<int*>(smem + lay.wext + kWarps * 16);
@@ -1138,13 +1275,15 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t S = (size_t)p.num_tiles * n;
   const int n4 = n >> 2;
-  const int n4_shift = __ffs(n4) - 1;
 
   if (tid == 0) {
     mbar_init(&bar[0], 1);
     mbar_init(&bar[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     *blk_key = 0u;
+    ctl[kPos] = ctl[kCount] = 0;
+    ctl[kCand] = 0;
+    *streamed = 0ull;
   }
   for (int i = tid; i < 4 * Ar::kChan; i += kThreads) oarena[i] = 0.0f;
   for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
@@ -1161,21 +1300,21 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
   const float next_dt = *p.next_dt_ptr;
   uint32_t kmax = 0u;
 
-  // span 4, where ``stage_next``: the velocity window of live tile tn, whose
-  // stage (ring stage s) has landed.  The block's extent of its
-  // pre-advection bases places the window (origin min(lo, 8) in x and y, z
-  // rounded down to whole float4s), whose copies are then issued; an empty
-  // tile stages nothing.  Also reduces this thread's extent of the current
-  // tile's post-advection bases (post_lo, post_hi) to the block's, in
-  // ``post``.  Its barrier also orders the copies after every thread's G2P
-  // from the window they overwrite
-  auto window_extents = [&](bool stage_next, int tn, int s, uint32_t post_lo,
+  // span 4, where ``stage_next``: the velocity window of tile tn (occupied
+  // prefix ``tn_len``), whose stage (ring stage s) has landed.  The block's
+  // extent of its pre-advection bases places the window (origin min(lo, 8)
+  // in x and y, z rounded down to whole float4s), whose copies are then
+  // issued; a tile with no active slot stages nothing.  Also reduces this
+  // thread's extent of the current tile's post-advection bases (post_lo,
+  // post_hi) to the block's, in ``post``.  Its barrier also orders the
+  // copies after every thread's G2P from the window they overwrite
+  auto window_extents = [&](bool stage_next, int tn, int tn_len, int s, uint32_t post_lo,
                             uint32_t post_hi, uint32_t post[2]) {
     uint32_t lo = kNoExtent, hi = 0u;
     if (stage_next) {
       unsigned char* st = smem + lay.stage + s * lay.stage_stride;
-      pre_extent<Ar>(p, tn, n, reinterpret_cast<const float*>(st), st + L::kWords * 4 * n,
-                     tid, lo, hi);
+      pre_extent<Ar>(p, tn, n, tn_len, reinterpret_cast<const float*>(st),
+                     st + L::kWords * 4 * n, tid, lo, hi);
     }
     lo = warp_min3(lo);
     hi = warp_max3(hi);
@@ -1205,23 +1344,53 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
     }
   };
 
-  // prologue: the first tile's stage, neighbours and velocities; the blocks
-  // walk the tiles of [tile_lo, tile_hi) only
-  int t = p.tile_lo + blockIdx.x;
-  if (tid == 0) load_stage<M>(p, t, n, S, smem + lay.stage, &bar[0]);
-  for (int k = tid; k < kNb; k += kThreads) nb[k] = neighbour<Ar>(p, t, k);
-  __syncthreads();
-  if constexpr (!Ar::kWindow) {
-    if (p.tvalid[t]) stage_velocity<Ar>(p, nb, varenas, tid);
-  } else {
-    const bool live0 = p.tvalid[t];
-    if (live0) mbar_wait(&bar[0], 0);
-    uint32_t unused[2];
-    window_extents(live0, t, 0, kNoExtent, 0u, unused);
+  // the block's next tile with an occupied prefix, in the order of its
+  // candidates (``candidate``), into ring slot b (prefix 0: none left).
+  // Candidates are listed kTileList at a time; the list position is kept
+  // per take parity (b), so that thread 0 writes one while the others read
+  // the other.  Every thread calls it alike after a barrier; it ends with
+  // one
+  auto take = [&](int b) {
+    while (ctl[kPos + b] == ctl[kCount]
+           && ctl[kCand] * (int)gridDim.x < p.tile_hi - p.tile_lo)
+      list_tiles(p, n, tlist, ctl, b, wsum, tid);
+    if (tid == 0) {
+      const int pos = ctl[kPos + b];
+      int tile = 0, len = 0;
+      if (pos < ctl[kCount]) {
+        const int e = tlist[pos];
+        tile = candidate(p, ctl[kBase] + (e >> 8));
+        len = (e & 255) * kSlotRound;
+        *streamed += len;
+      }
+      ctl[kPos + (b ^ 1)] = pos + (len > 0);
+      ctl[kRingTile + 2 * b] = tile;
+      ctl[kRingLen + 2 * b] = len;
+    }
+    __syncthreads();
+  };
+
+  // prologue: the first tile's stage, neighbours and velocities, and which
+  // tile follows it
+  take(0);
+  if (ctl[kRingLen] > 0) {
+    const int t0 = ctl[kRingTile];
+    if (tid == 0) load_stage<M>(p, t0, n, ctl[kRingLen], S, smem + lay.stage, &bar[0]);
+    for (int k = tid; k < kNb; k += kThreads) nb[k] = neighbour<Ar>(p, t0, k);
+  }
+  take(1);
+  if (ctl[kRingLen] > 0) {
+    if constexpr (!Ar::kWindow) {
+      stage_velocity<Ar>(p, nb, varenas, tid);
+    } else {
+      mbar_wait(&bar[0], 0);
+      uint32_t unused[2];
+      window_extents(true, ctl[kRingTile], ctl[kRingLen], 0, kNoExtent, 0u, unused);
+    }
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 
-  for (int it = 0; t < p.tile_hi; ++it, t += gridDim.x) {
+  for (int it = 0; ctl[kRingLen + 2 * (it & 1)] > 0; ++it) {
     const int s = it & 1;
     unsigned char* st = smem + lay.stage + s * lay.stage_stride;
     float* sw = reinterpret_cast<float*>(st);
@@ -1229,43 +1398,44 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
     const int* spid = reinterpret_cast<const int*>(sw + L::kPid * n);
     const float* varena = varenas + (Ar::kWindow ? 0 : s * 3 * Ar::kChan);
     const int* nbs = nb + s * kNb;
+    // this tile (t, its prefix) and the next (none where its prefix is 0),
+    // read from the ring where used
+    volatile int* cur = ctl + 2 * s;
+    volatile int* nxt = ctl + 2 * (s ^ 1);
 
     // the next tile streams into the other stage while this one computes;
     // the end-of-iteration barrier freed that stage and its neighbour list
-    const int tn = t + gridDim.x;
-    const bool next = tn < p.tile_hi;
-    if (next) {
+    if (nxt[kRingLen] > 0) {
+      const int tn = nxt[kRingTile];
       if (tid == 0)
-        load_stage<M>(p, tn, n, S, smem + lay.stage + (s ^ 1) * lay.stage_stride,
-                      &bar[s ^ 1]);
+        load_stage<M>(p, tn, n, nxt[kRingLen], S,
+                      smem + lay.stage + (s ^ 1) * lay.stage_stride, &bar[s ^ 1]);
       for (int k = tid; k < kNb; k += kThreads) nb[(s ^ 1) * kNb + k] = neighbour<Ar>(p, tn, k);
     }
     mbar_wait(&bar[s], (it >> 1) & 1);
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();                      // this tile's velocities, next's neighbours
     if constexpr (!Ar::kWindow) {
-      if (next && p.tvalid[tn])
+      if (nxt[kRingLen] > 0)
         stage_velocity<Ar>(p, nb + (s ^ 1) * kNb, varenas + (s ^ 1) * 3 * Ar::kChan, tid);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
 
-    const bool live = p.tvalid[t];
+    const int t = cur[kRingTile];
     const int org[3] = {(p.bcoord[t] + Ar::kLo) * 4,
                         (p.bcoord[p.num_tiles + t] + Ar::kLo) * 4,
                         (p.bcoord[2 * p.num_tiles + t] + Ar::kLo) * 4};
-    if (live) {
-      // the transfer, one slot per thread in slot order; each particle's
-      // post-advection stencil base is its P2G bin (kBases: no P2G; span 4:
-      // the packed base, kNoBase).  Bins and ranks wait in shared memory:
-      // held in registers across the transfer they would spill at JFluid's
-      // 80-register budget
+    // the transfer, one slot per thread in slot order; each particle's
+    // post-advection stencil base is its P2G bin (kBases: no P2G; span 4:
+    // the packed base, kNoBase).  Bins and ranks wait in shared memory:
+    // held in registers across the transfer they would spill at JFluid's
+    // 80-register budget
 #pragma unroll 1
-      for (int q = tid; q < n; q += kThreads)
-        sbin[q] = (unsigned short)(sact[q] ? transfer_particle<M, Ar>(
-                                                 p, n, q, sw, sact, varena, nbs, vorg, pg, org,
-                                                 dt, next_dt, kmax)
-                                           : (Ar::kWindow ? kNoBase : Ar::kBases));
-    }
+    for (int q = tid; q < cur[kRingLen]; q += kThreads)
+      sbin[q] = (unsigned short)(sact[q] ? transfer_particle<M, Ar>(
+                                               p, n, q, sw, sact, varena, nbs, vorg, pg, org,
+                                               dt, next_dt, kmax)
+                                         : (Ar::kWindow ? kNoBase : Ar::kBases));
 
     // span 4: this tile's extent of post-advection bases (its P2G windows)
     // and the next tile's velocity window, whose copies land while this tile
@@ -1273,24 +1443,22 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
     // thread that wrote it reads it here
     if constexpr (Ar::kWindow) {
       uint32_t plo = kNoExtent, phi = 0u;
-      if (live) {
-        for (int q = tid; q < n; q += kThreads) {
-          const int pb = sbin[q];
-          if (pb == kNoBase) continue;
-          const uint32_t v = (uint32_t)(pb >> 8) | ((uint32_t)((pb >> 4) & 15) << 8)
-                             | ((uint32_t)(pb & 15) << 16);
-          plo = __vminu4(plo, v);
-          phi = __vmaxu4(phi, v);
-        }
+      for (int q = tid; q < cur[kRingLen]; q += kThreads) {
+        const int pb = sbin[q];
+        if (pb == kNoBase) continue;
+        const uint32_t v = (uint32_t)(pb >> 8) | ((uint32_t)((pb >> 4) & 15) << 8)
+                           | ((uint32_t)(pb & 15) << 16);
+        plo = __vminu4(plo, v);
+        phi = __vmaxu4(phi, v);
       }
-      const bool stage_next = next && p.tvalid[tn];
-      if (stage_next) mbar_wait(&bar[s ^ 1], ((it + 1) >> 1) & 1);
+      const bool next = nxt[kRingLen] > 0;
+      if (next) mbar_wait(&bar[s ^ 1], ((it + 1) >> 1) & 1);
       uint32_t post[2];
-      window_extents(stage_next, tn, s ^ 1, plo, phi, post);
+      window_extents(next, nxt[kRingTile], nxt[kRingLen], s ^ 1, plo, phi, post);
       asm volatile("cp.async.commit_group;" ::: "memory");
       if (tid == 0) {
         int passes = 0;
-        if (live && (post[0] & 255u) <= (post[1] & 255u)) {
+        if ((post[0] & 255u) <= (post[1] & 255u)) {
           passes = 1;
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
@@ -1304,120 +1472,125 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
       }
     }
 
-    if (live) {
-      // the P2G: one pass over the window of each 6-base range of the
-      // tile's extent (span 2, and at span 4 nearly every tile: one)
-      for (int pass = 0;; ++pass) {
-        // span 4: pass (px, py, pz) takes the bases of [lo + 6 p, lo + 6 p
-        // + 5] an axis; its window origin o = min(lo + 6 p, 8) keeps it in
-        // the arena, z of the (m, mv) arena rounded down to whole float4s
-        int* pw = pwin + 8 * (pass & 1);
-        if constexpr (Ar::kWindow) {
-          if (tid == 0 && pass < ptile[6]) {
-            const int* np = ptile + 3;
-            pw[3] = pass / (np[1] * np[2]);
-            pw[4] = (pass / np[2]) % np[1];
-            pw[5] = pass % np[2];
+    // the P2G: one pass over the window of each 6-base range of the tile's
+    // extent (span 2, and at span 4 nearly every tile: one)
+    for (int pass = 0;; ++pass) {
+      // span 4: pass (px, py, pz) takes the bases of [lo + 6 p, lo + 6 p
+      // + 5] an axis; its window origin o = min(lo + 6 p, 8) keeps it in
+      // the arena, z of the (m, mv) arena rounded down to whole float4s
+      int* pw = pwin + 8 * (pass & 1);
+      if constexpr (Ar::kWindow) {
+        if (tid == 0 && pass < ptile[6]) {
+          const int* np = ptile + 3;
+          pw[3] = pass / (np[1] * np[2]);
+          pw[4] = (pass / np[2]) % np[1];
+          pw[5] = pass % np[2];
 #pragma unroll
-            for (int a = 0; a < 3; ++a) pw[a] = min(ptile[a] + Ar::kW * pw[3 + a], 8);
-            pw[6] = min(pw[2] & ~3, 4);
-          }
-          __syncthreads();
-          if (pass >= ptile[6]) break;
-        } else {
-          if (pass > 0) break;
-        }
-        // counting sort of the slots by bin.  Lanes with one bin add to its
-        // count once; the loop is uniform over a warp since n is a multiple
-        // of 32
-        for (int q = tid; q < n; q += kThreads) {
-          const int b = Ar::kWindow ? window_bin(sbin[q], ptile, pw + 3, pw) : sbin[q];
-          const unsigned peers = __match_any_sync(0xffffffffu, b);
-          const int leader = __ffs(peers) - 1;
-          int first = 0;
-          if (lane == leader) first = atomicAdd(&hist[b], __popc(peers));
-          srank[q] = (unsigned short)(__shfl_sync(0xffffffffu, first, leader)
-                                      + __popc(peers & ((1u << lane) - 1u)));
+          for (int a = 0; a < 3; ++a) pw[a] = min(ptile[a] + Ar::kW * pw[3 + a], 8);
+          pw[6] = min(pw[2] & ~3, 4);
         }
         __syncthreads();
-        scan_bins<Ar>(hist, blist, n_occ, wsum, tid);
-        __syncthreads();
-        for (int q = tid; q < n; q += kThreads) {
-          const int b = Ar::kWindow ? window_bin(sbin[q], ptile, pw + 3, pw) : sbin[q];
-          if (b < Ar::kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
-        }
-        __syncthreads();
-
-        // the P2G, one thread per (occupied base, channel): a base's 4
-        // channels sit on adjacent lanes, so a warp's adds hit 32 distinct
-        // words (distinct banks but where two bases lie a row apart)
-        const int n_items = 4 * *n_occ;
-        for (int it = tid; it < n_items; it += kThreads) {
-          const int b = blist[it >> 2];
-          p2g_base<Ar>(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg,
-                       Ar::kWindow ? oarena + (pw[2] - pw[6]) : oarena, org);
-        }
-        __syncthreads();
-
-        // flush the (m, mv) arena into the next pool, zeroing it for the
-        // next pass; skip zero float4s and the null oct
-        if constexpr (!Ar::kWindow) {
-          for (int i = tid; i < 4 * 16 * kNb; i += kThreads) {
-            float4* a = reinterpret_cast<float4*>(oarena + arena_off4<Ar>(i));
-            const float4 val = *a;
-            *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
-            const int br = nbs[(i >> 4) & (kNb - 1)];
-            if ((br >> 3) == p.null_oct) continue;
-            atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4<Ar>(i, br, 0)), val);
-          }
-        } else {
-          // a thread per (channel, x, y) row of the window, its 3 float4s
-          // of z; window cell (x, y, z) is arena cell (o + x, o + y, az + z)
-          const int ch = tid >> 6, x = (tid >> 3) & 7, y = tid & 7;
-          const int cx = pw[0] + x, cy = pw[1] + y, az = pw[6];
-#pragma unroll
-          for (int zg = 0; zg < 3; ++zg) {
-            float4* a = reinterpret_cast<float4*>(oarena + ch * Ar::kChan + x * Ar::kXS
-                                                  + y * Ar::kYS + 4 * zg);
-            const float4 val = *a;
-            *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
-            const int br = window_block(nbs, cx, cy, az + 4 * zg);
-            if ((br >> 3) == p.null_oct) continue;
-            atomicAdd(reinterpret_cast<float4*>(
-                          p.next_pool + ((size_t)(br >> 3) * 16 + ch * 4 + (cx & 3)) * 128
-                          + (br & 7) * 16 + (cy & 3) * 4),
-                      val);
-          }
-        }
-        for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
+        if (pass >= ptile[6]) break;
+      } else {
+        if (pass > 0) break;
       }
+      // counting sort of the slots by bin.  Lanes with one bin add to its
+      // count once; the loop runs over whole warps, slots past the prefix in
+      // the no-stencil bin
+      const int len = cur[kRingLen];
+      for (int q = tid; q < round_up(len, 32); q += kThreads) {
+        const int b = q >= len ? Ar::kBases
+                      : Ar::kWindow ? window_bin(sbin[q], ptile, pw + 3, pw) : sbin[q];
+        const unsigned peers = __match_any_sync(0xffffffffu, b);
+        const int leader = __ffs(peers) - 1;
+        int first = 0;
+        if (lane == leader) first = atomicAdd(&hist[b], __popc(peers));
+        srank[q] = (unsigned short)(__shfl_sync(0xffffffffu, first, leader)
+                                    + __popc(peers & ((1u << lane) - 1u)));
+      }
+      __syncthreads();
+      scan_bins<Ar>(hist, blist, n_occ, wsum, tid);
+      __syncthreads();
+      for (int q = tid; q < len; q += kThreads) {
+        const int b = Ar::kWindow ? window_bin(sbin[q], ptile, pw + 3, pw) : sbin[q];
+        if (b < Ar::kBases) perm[hist[b] + srank[q]] = (unsigned short)q;
+      }
+      __syncthreads();
+
+      // the P2G, one thread per (occupied base, channel): a base's 4
+      // channels sit on adjacent lanes, so a warp's adds hit 32 distinct
+      // words (distinct banks but where two bases lie a row apart)
+      const int n_items = 4 * *n_occ;
+      for (int it = tid; it < n_items; it += kThreads) {
+        const int b = blist[it >> 2];
+        p2g_base<Ar>(p, n, b, it & 3, hist[b], hist[b + 1] - hist[b], perm, sw, pg,
+                     Ar::kWindow ? oarena + (pw[2] - pw[6]) : oarena, org);
+      }
+      __syncthreads();
+
+      // flush the (m, mv) arena into the next pool, zeroing it for the
+      // next pass; skip zero float4s and the null oct
+      if constexpr (!Ar::kWindow) {
+        for (int i = tid; i < 4 * 16 * kNb; i += kThreads) {
+          float4* a = reinterpret_cast<float4*>(oarena + arena_off4<Ar>(i));
+          const float4 val = *a;
+          *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
+          const int br = nbs[(i >> 4) & (kNb - 1)];
+          if ((br >> 3) == p.null_oct) continue;
+          atomicAdd(reinterpret_cast<float4*>(p.next_pool + pool_off4<Ar>(i, br, 0)), val);
+        }
+      } else {
+        // a thread per (channel, x, y) row of the window, its 3 float4s
+        // of z; window cell (x, y, z) is arena cell (o + x, o + y, az + z)
+        const int ch = tid >> 6, x = (tid >> 3) & 7, y = tid & 7;
+        const int cx = pw[0] + x, cy = pw[1] + y, az = pw[6];
+#pragma unroll
+        for (int zg = 0; zg < 3; ++zg) {
+          float4* a = reinterpret_cast<float4*>(oarena + ch * Ar::kChan + x * Ar::kXS
+                                                + y * Ar::kYS + 4 * zg);
+          const float4 val = *a;
+          *a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
+          const int br = window_block(nbs, cx, cy, az + 4 * zg);
+          if ((br >> 3) == p.null_oct) continue;
+          atomicAdd(reinterpret_cast<float4*>(
+                        p.next_pool + ((size_t)(br >> 3) * 16 + ch * 4 + (cx & 3)) * 128
+                        + (br & 7) * 16 + (cy & 3) * 4),
+                    val);
+        }
+      }
+      for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
     }
 
-    // the tile's state leaves in 16-byte stores: pos, F, aux as they now
-    // stand in the stage; active as the transfer set it (0 for a dead
-    // tile); pid where active, S elsewhere
-    const size_t s0 = (size_t)t * n;
-    for (int i = tid; i < L::kPid * n4; i += kThreads) {
-      const int c = i >> n4_shift, j = i & (n4 - 1);
+    // the tile's state leaves in 16-byte stores: pos, F, aux of the prefix
+    // as they now stand in the stage; active as the transfer set it and pid
+    // where active over the prefix, 0 and S past it
+    const size_t s0 = (size_t)cur[kRingTile] * n;
+    const int len4 = cur[kRingLen] >> 2;
+    for (int i = tid; i < L::kPid * len4; i += kThreads) {
+      const int c = i / len4, j = i - c * len4;
       float* dst = c < 3 ? p.pos_out + c * S
                  : (M::kF && c < L::kAuxo) ? p.F_out + (c - L::kFo) * S : p.aux_out;
       reinterpret_cast<float4*>(dst + s0)[j] = reinterpret_cast<const float4*>(sw + c * n)[j];
     }
     for (int j = tid; j < n4; j += kThreads) {
-      const uchar4 a = live ? reinterpret_cast<const uchar4*>(sact)[j] : make_uchar4(0, 0, 0, 0);
-      const int4 pv = reinterpret_cast<const int4*>(spid)[j];
+      const bool in = j < len4;
+      const uchar4 a = in ? reinterpret_cast<const uchar4*>(sact)[j] : make_uchar4(0, 0, 0, 0);
+      const int4 pv = in ? reinterpret_cast<const int4*>(spid)[j] : make_int4(0, 0, 0, 0);
       const int none = (int)S;
       reinterpret_cast<uchar4*>(p.active_out + s0)[j] = a;
       reinterpret_cast<int4*>(p.pid_out + s0)[j] =
           make_int4(a.x ? pv.x : none, a.y ? pv.y : none, a.z ? pv.z : none,
                     a.w ? pv.w : none);
     }
-    // the stage is refilled by the async proxy next: order these accesses first
+    // the stage is refilled by the async proxy next: order these accesses
+    // first; then the tile after the next into this tile's ring slot
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
+    take(s);
   }
+  if (tid == 0 && *streamed) atomicAdd(p.streamed, *streamed);
 
   // the drift margin: one atomicMax per block; the last block decodes
   const uint32_t wk = __reduce_max_sync(0xffffffffu, kmax);
@@ -1459,8 +1632,9 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
            const float* dt, const float* next_dt, float* pos_out,
            float* F_out, float* aux_out, unsigned char* active_out,
            int* pid_out, float* next_pool, unsigned int* margin_key,
-           float* margin_out, unsigned int* wide_tiles, int num_tiles, int tile_lo,
-           int tile_hi, int tile, int g, int gzo, int num_oct_keys, int null_oct,
+           float* margin_out, unsigned int* wide_tiles, unsigned long long* streamed,
+           int num_tiles, int tile_lo, int tile_hi, int tile, int g, int gzo,
+           int num_oct_keys, int null_oct,
            float dx, float dx_inv, float d_inv, float mass, const float* mp, int num_mp,
            void* stream) {
   if (num_tiles <= 0 || tile_lo < 0 || tile_hi <= tile_lo || tile_hi > num_tiles
@@ -1469,7 +1643,7 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
     return (int)cudaErrorInvalidValue;
   if ((M::kF && (F == nullptr || F_out == nullptr)) ||
       (M::kAux && (aux == nullptr || aux_out == nullptr)) ||
-      (A::kWindow && wide_tiles == nullptr))
+      (A::kWindow && wide_tiles == nullptr) || streamed == nullptr)
     return (int)cudaErrorInvalidValue;
   int per_sm = 0, bytes = 0, dev = 0, sms = 0;
   cudaError_t err = occupancy<M, A>(tile, &per_sm, &bytes);
@@ -1480,8 +1654,8 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Params p{pool_v, table, bcoord, tvalid, pos, F, aux, active, pid, dt,
            next_dt, pos_out, F_out, aux_out, active_out, pid_out, next_pool,
-           margin_key, margin_out, wide_tiles, num_tiles, tile_lo, tile_hi, tile, g, gzo,
-           num_oct_keys, null_oct, dx, dx_inv, d_inv, mass, {}};
+           margin_key, margin_out, wide_tiles, streamed, num_tiles, tile_lo, tile_hi, tile,
+           g, gzo, num_oct_keys, null_oct, dx, dx_inv, d_inv, mass, {}};
   for (int i = 0; i < num_mp; ++i) p.mp[i] = mp[i];
   const int range = tile_hi - tile_lo;
   const int blocks = range < sms * per_sm ? range : sms * per_sm;
@@ -1510,7 +1684,9 @@ int info_span(int span, int tile, int* out) {
 // one C entry per material, all with the same arguments; F/aux and their
 // outputs are null where the material has no such field; ``span`` is the
 // arena span, 2 or 4; only the tiles of [tile_lo, tile_hi) are transferred
-// and only their slots of the outputs written
+// and only their slots of the outputs written (position and fields over
+// each tile's occupied prefix); ``streamed`` (u64[1]) gains the slots of
+// the occupied prefixes
 #define CM_G2P2G_ENTRY(NAME, MAT)                                              \
   extern "C" int NAME(                                                         \
       const float* pool_v, const int* table, const int* bcoord,                \
@@ -1519,24 +1695,25 @@ int info_span(int span, int tile, int* out) {
       const float* dt, const float* next_dt, float* pos_out, float* F_out,     \
       float* aux_out, unsigned char* active_out, int* pid_out,                 \
       float* next_pool, unsigned int* margin_key, float* margin_out,           \
-      unsigned int* wide_tiles, int num_tiles, int tile_lo, int tile_hi,       \
-      int tile, int span, int g, int gzo, int num_oct_keys, int null_oct,      \
+      unsigned int* wide_tiles, unsigned long long* streamed, int num_tiles,   \
+      int tile_lo, int tile_hi, int tile, int span, int g, int gzo,            \
+      int num_oct_keys, int null_oct,                                          \
       float dx, float dx_inv, float d_inv, float mass, const float* mp,        \
       int num_mp, void* stream) {                                              \
     if (span == 2)                                                             \
       return launch<MAT, Span2>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
-                                margin_key, margin_out, wide_tiles, num_tiles, \
-                                tile_lo, tile_hi, tile, g,                     \
+                                margin_key, margin_out, wide_tiles, streamed,  \
+                                num_tiles, tile_lo, tile_hi, tile, g,          \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     if (span == 4)                                                             \
       return launch<MAT, Span4>(pool_v, table, bcoord, tvalid, pos, F, aux,    \
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
-                                margin_key, margin_out, wide_tiles, num_tiles, \
-                                tile_lo, tile_hi, tile, g,                     \
+                                margin_key, margin_out, wide_tiles, streamed,  \
+                                num_tiles, tile_lo, tile_hi, tile, g,          \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     return (int)cudaErrorInvalidValue;                                         \

@@ -37,6 +37,7 @@ _LAYOUT = {
 }
 MIN_TILE, MAX_TILE = 32, 1024     # the kernel's range of particle_tile
 _WIDE = {}                        # device -> wide_tile_counter
+_STREAMED = {}                    # device -> streamed_slot_counter
 
 
 def kernel_params(material: Material) -> List[float]:
@@ -81,7 +82,10 @@ def g2p2g(
     back in new tensors, or in ``out``'s (a model shaped like ``model``),
     written in place (``tile_chunk`` only shapes the plain version).
     Returns (model, next_pool, margin): ``margin`` is the 0-d drift margin
-    of the new model, ``arena_margin(cfg, model)``.
+    of the new model, ``arena_margin(cfg, model)``.  The new model's
+    inactive slots hold undefined positions and fields: the kernel writes
+    them only over each tile's occupied prefix (``occupied_slots``), so a
+    reader of the state selects by ``active``.
 
     ``tile_range`` (lo, hi): transfer the tiles of [lo, hi) only, writing
     only their slots; ``margin`` is then that of those tiles (+inf for an
@@ -192,8 +196,8 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
         ptr(fields_out, f_name), ptr(fields_out, aux_name),
         active_out.data_ptr(), pid_out.data_ptr(), next_pool.data_ptr(),
         margin_key.data_ptr(), margin.data_ptr(), wide_tile_counter(dev).data_ptr(),
-        num_tiles, lo, hi, cfg.particle_tile, cfg.arena_span, cfg.grid_size,
-        cfg.grid_size_zo,
+        streamed_slot_counter(dev).data_ptr(), num_tiles, lo, hi, cfg.particle_tile,
+        cfg.arena_span, cfg.grid_size, cfg.grid_size_zo,
         cfg.num_oct_keys, cfg.null_oct,
         cfg.dx, cfg.dx_inv, cfg.d_inv, material.mass, mp_arr, len(mp),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -204,18 +208,45 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
     return new_model, next_pool, margin
 
 
+def _counter(store: dict, device, dtype) -> torch.Tensor:
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in store:
+        store[dev] = torch.zeros((1,), dtype=dtype, device=dev)
+    return store[dev]
+
+
 def wide_tile_counter(device) -> torch.Tensor:
     """The device counter (i32[1] on ``device``) of the tiles K1's span-4
     variant has transferred in more than one P2G pass (their post-advection
     stencil bases span more than the 6 of one window on some axis), summed
     over every launch on the device.  The substep never reads it; a
     profiling script zeroes it (``zero_()``) and reads it after its run."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    if dev not in _WIDE:
-        _WIDE[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return _WIDE[dev]
+    return _counter(_WIDE, device, torch.int32)
+
+
+def streamed_slot_counter(device) -> torch.Tensor:
+    """The device counter (i64[1] on ``device``) of the particle slots K1
+    has streamed, summed over every launch on the device: each transferred
+    tile's occupied prefix, one past its last active slot rounded up to 16
+    (``occupied_slots``); a tile that is not valid or holds no active slot
+    streams none.  Its share of the slots is how much of the particle state
+    the transfer moves.  The substep never reads it; a profiling script
+    zeroes it (``zero_()``) and reads it after its run."""
+    return _counter(_STREAMED, device, torch.int64)
+
+
+def occupied_slots(cfg: SimConfig, model: ParticleModel) -> torch.Tensor:
+    """i64[T]: each tile's occupied prefix as K1 streams it, one past its
+    last active slot rounded up to 16 slots, 0 for a tile that is not valid
+    or holds no active slot.  Past it K1 leaves the output's position and
+    fields as they were and writes every slot inactive, pid S."""
+    tiles = model.tiles.tvalid.shape[0]
+    act = model.active.reshape(tiles, cfg.particle_tile) & model.tiles.tvalid[:, None]
+    idx = torch.arange(1, cfg.particle_tile + 1, device=act.device)
+    last = torch.where(act, idx, 0).amax(dim=1)
+    return (last + 15) // 16 * 16
 
 
 def kernel_info(material: Material, tile: int, span: int = 2) -> dict:

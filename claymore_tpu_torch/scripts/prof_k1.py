@@ -1,11 +1,16 @@
 """K1 by material and slot order, the particle-stream floor, the drift
 check, the drift-only substep and the lane-window probes P2/P3, on one card.
 
-    python -m claymore_tpu_torch.scripts.prof_k1 [--substeps 64] [--reps 10]
+    python -m claymore_tpu_torch.scripts.prof_k1 [--substeps 64] [--reps 10] [--cells]
     PYTHONPATH=<another checkout> python3 claymore_tpu_torch/scripts/prof_k1.py
 
 CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
 
+* K1 on the benchmark's sphere25m and dambreak12m states, built as its
+  cells build theirs (jittered lattice, capacity from ``exact_tiles`` at
+  the cell's slack), at set-up and after 20 substeps, with their live,
+  dead and overflow tiles and the share of the slots K1 streams (under
+  ``cells``; with ``--cells`` nothing else);
 * K1-FC on ``bench.py``'s sphere25m (25,088,753 particles) after one
   substep and after ``--substeps``, with every tile's slots as they are,
   permuted by a seeded permutation, and sorted by G2P stencil base
@@ -145,6 +150,37 @@ def spread_tiles(cfg, state, every: int = 4, seed: int = SEED, model_idx: int = 
     return dataclasses.replace(state, models=tuple(models))
 
 
+def carve_tiles(cfg, state, seed: int = SEED, model_idx: int = 0):
+    """``state`` with uneven occupied prefixes for K1 (tiles, partition and
+    grid kept; the choice is numpy-seeded, so the CPU and the card get the
+    same state): of the live tiles in order, every third keeps only its
+    first 1..34 slots (an overflow tile's few particles), the one after it
+    keeps a seeded half of its slots (holes inside its prefix) and every
+    17th keeps none (a valid tile with no active slot).  Every inactive
+    slot, the dead tiles' too, holds NaN in its position and fields, and id
+    S."""
+    m = state.models[model_idx]
+    t, n = m.tiles.tvalid.shape[0], cfg.particle_tile
+    live = np.nonzero(m.tiles.tvalid.cpu().numpy())[0]
+    rng = np.random.default_rng(seed)
+    keep = np.ones((t, n), dtype=bool)
+    short = live[0::3]
+    keep[short] = np.arange(n)[None, :] < rng.integers(1, 35, size=(len(short), 1))
+    holes = live[1::3]
+    keep[holes] = rng.random((len(holes), n)) < 0.5
+    keep[live[::17]] = False
+    act = m.active & torch.from_numpy(keep.reshape(-1)).to(m.active.device)
+
+    def nan(x):
+        return torch.where(act, x, torch.full_like(x, float("nan")))
+
+    models = list(state.models)
+    models[model_idx] = dataclasses.replace(
+        m, pos=nan(m.pos), fields={k: nan(v) for k, v in m.fields.items()}, active=act,
+        pid=torch.where(act, m.pid, torch.full_like(m.pid, t * n)))
+    return dataclasses.replace(state, models=tuple(models))
+
+
 def stir(state, scale: float = 0.5, seed: int = SEED):
     """``state`` with seeded noise added to the grid velocity (momentum
     noise times mass)."""
@@ -243,6 +279,106 @@ def engine(name: str, steps: int, stirred: bool = False, **cfg_kw):
     return eng, cfg, mats, stir(state) if stirred else state
 
 
+# the benchmark's cells: bench.py's scene and the tile slack of its
+# configuration (mpmbench/configs/<name>.json)
+CELL_SLACK = {"sphere25m": 1.25, "dambreak12m": 2.5}
+
+
+def jittered_engine(name: str, seed: int = SEED):
+    """(engine, cfg, material, state) of ``bench.py``'s scene ``name`` built
+    as the benchmark's cells build theirs (``mpmbench/scene.py``): the
+    source's lattice with every point moved by a seeded uniform offset
+    inside its own lattice spacing, and the tile capacity from
+    ``exact_tiles`` of those points at the cell's ``CELL_SLACK``."""
+    import claymore_tpu_torch as ct
+
+    cfg, mat, pos, v0 = scene(name)
+    h = cfg.dx / cfg.ppc ** (1.0 / 3.0)
+    rng = np.random.default_rng(seed)
+    pos = (pos + (rng.random(pos.shape, dtype=np.float32) - 0.5) * np.float32(h)).astype(
+        np.float32)
+    cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=CELL_SLACK[name]))
+    eng = ct.MPMEngine(cfg, [mat], (), tile_chunk=64, device="cuda")
+    return eng, cfg, mat, eng.init_state([pos], [v0])
+
+
+def tile_counts(cfg, model) -> dict:
+    """Slots, active particles and tiles of ``model`` as K1 streams them:
+    live tiles (valid, an active slot), dead tiles (the rest), overflow
+    tiles (live, the second or later tile of their block), and the share
+    of the slots in the tiles' occupied prefixes (one past the last active
+    slot rounded up to 16: ``g2p2g_kernel.occupied_slots``, counted here
+    too so that the script runs against a checkout older than it)."""
+    t, n = model.tiles.tvalid.shape[0], cfg.particle_tile
+    act = model.active.reshape(t, n) & model.tiles.tvalid[:, None]
+    live = act.any(dim=1)
+    block = model.tiles.block
+    second = torch.zeros_like(live)
+    second[1:] = live[1:] & live[:-1] & (block[1:] == block[:-1])
+    idx = torch.arange(1, n + 1, device=act.device)
+    prefix = (torch.where(act, idx, 0).amax(dim=1) + 15) // 16 * 16
+    return {"slots": t * n, "active": int(act.sum()), "tiles": t, "live_tiles": int(live.sum()),
+            "dead_tiles": int((~live).sum()), "overflow_tiles": int(second.sum()),
+            "active_share": int(act.sum()) / (t * n),
+            "occupied_share": int(prefix.sum()) / (t * n)}
+
+
+def block_loads(live: torch.Tensor, blocks: int) -> dict:
+    """Live tiles a block of K1's persistent grid of ``blocks`` walks when
+    block b takes tiles b, b + blocks, ...: max and mean over the blocks, and
+    the same for a walk whose k-th tile of block b is k blocks + (b + k) mod
+    blocks (every residue of the tile index mod 8, where each oct's tiles
+    are padded to 8, seen alike)."""
+    t = live.shape[0]
+    rows = -(-t // blocks)
+    x = torch.cat([live.int(), live.new_zeros(rows * blocks - t, dtype=torch.int32)])
+    x = x.reshape(rows, blocks)
+    per = x.sum(dim=0).float()
+    k = torch.arange(rows, device=x.device)[:, None]
+    b = torch.arange(blocks, device=x.device)[None, :]
+    rot = torch.zeros(blocks, dtype=torch.float32, device=x.device).index_add_(
+        0, ((b - k) % blocks).reshape(-1), x.reshape(-1).float())
+    return {"blocks": blocks, "max": float(per.max()), "mean": float(per.mean()),
+            "rotated_max": float(rot.max())}
+
+
+def cell_states(reps: int, substeps: int = 20) -> dict:
+    """K1 on the benchmark's two configurations built as its cells build
+    them (``jittered_engine``), at set-up and after ``substeps`` drift
+    substeps: ms, the tile counts, and the kernel's own count of streamed
+    slots as a share of the slots where the package has
+    ``streamed_slot_counter`` (null on an older checkout)."""
+    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
+
+    counter = getattr(g2p2g_kernel, "streamed_slot_counter", None)
+    fe = torch.tensor(1e9, device="cuda")
+    out = {}
+    for name in CELL_SLACK:
+        eng, cfg, mat, state = jittered_engine(name)
+        res = {}
+        for label, steps in (("init", 0), (f"after_{substeps}", substeps)):
+            state = eng.run_steps(state, steps, fe)
+            row = tile_counts(cfg, state.models[0])
+            m = state.models[0]
+            live = (m.active.reshape(row["tiles"], -1) & m.tiles.tvalid[:, None]).any(dim=1)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            row["block_live"] = block_loads(live, sms * g2p2g_kernel.kernel_info(
+                mat, cfg.particle_tile, cfg.arena_span)["blocks_per_sm"])
+            row["ms"] = k1_ms(cfg, mat, state, reps)
+            row["streamed_share"] = None
+            if counter is not None:
+                pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
+                counter("cuda").zero_()
+                g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, state.models[0],
+                                   state.dt, state.dt, torch.zeros_like(state.grid), 64)
+                row["streamed_share"] = int(counter("cuda")[0]) / row["slots"]
+            res[label] = row
+        out[name] = res
+        del eng, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def span4_states(reps: int) -> dict:
     """K1's span-4 variant on ``chip_smoke.py``'s span-4 states and on the
     same with every 4th live tile spread over its arena: ms and wide tiles."""
@@ -288,6 +424,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--substeps", type=int, default=64)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--cells", action="store_true",
+                    help="only K1 on the benchmark's cells' states (cell_states)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_k1: no CUDA device is available", file=sys.stderr)
@@ -298,6 +436,11 @@ def main(argv=None) -> int:
     res = {"package": os.path.dirname(os.path.abspath(claymore_tpu_torch.__file__)),
            "device": device_label("cuda")}
     t0 = time.perf_counter()
+    res["cells"] = cell_states(args.reps)
+    if args.cells:
+        res["wall_s"] = time.perf_counter() - t0
+        print("PROFK1", json.dumps(res), flush=True)
+        return 0
     eng, cfg, mats, state = engine("sphere25m", 1)
     mat = mats[0]
     fe = torch.tensor(1e9, device="cuda")

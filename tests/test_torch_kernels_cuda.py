@@ -14,7 +14,7 @@ import torch
 
 import claymore_tpu_torch as ct
 from claymore_tpu_torch.io.sampler import sample_uniform_box_world
-from claymore_tpu_torch.scripts.prof_k1 import permute_tiles, spread_tiles, stir
+from claymore_tpu_torch.scripts.prof_k1 import carve_tiles, permute_tiles, spread_tiles, stir
 from claymore_tpu_torch.scripts.bench import sdf_dome
 
 pytestmark = pytest.mark.cuda
@@ -283,6 +283,27 @@ def test_g2p2g_kernel_tile_range_matches_plain(card, name, span):
     for bt in (8, 8 * (nt // 16), nt - 8):
         card.check_g2p2g_kernel(cfg, mat, stir(state), tile_chunk=8, time_it=False,
                                 tile_split=bt)
+
+
+@pytest.mark.parametrize("span", [2, 4])
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid", "sand", "nacc"])
+def test_g2p2g_kernel_streams_occupied_prefixes(card, name, span):
+    """K1 on a state with dead tiles (the capacity's slack), overflow tiles
+    of 1-34 particles, tiles with holes and valid tiles with no active
+    slot, every inactive slot NaN (``carve_tiles``): it matches the plain
+    version, streams the sum of the input's occupied prefixes and leaves
+    every slot past them inactive with pid S (``check_g2p2g_kernel``), on
+    the whole range and on the two ranges of the multi-device split."""
+    eng, state, _ = _span4_engine(name, every=4 if span == 4 else 1)
+    cfg, mat = eng.cfg, eng.materials[0]
+    assert cfg.arena_span == span
+    carved = carve_tiles(cfg, stir(state))
+    nt = state.models[0].tiles.tvalid.shape[0]
+    assert int((~state.models[0].tiles.tvalid).sum()) > 0
+    for split in (None, 8 * (nt // 16)):
+        r = card.check_g2p2g_kernel(cfg, mat, carved, tile_chunk=8, time_it=False,
+                                    tile_split=split)
+        assert 0 < r["streamed_slots"] < r["slots"]
 
 
 def _multi(mesh, device, overlap=True, **kw):
