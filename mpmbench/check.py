@@ -8,7 +8,13 @@ loss counters.  ``K`` is the first substep count at or past the cell's
 ``check.substeps`` that also lies ``check.past_first_rebuild`` substeps
 past the episode's first rebuild, so that the compared stretch holds a
 rebucket (or the episode's end, where none came).  The capture is a few
-device copies queued between two substeps: no synchronise.
+device copies queued between two substeps: no synchronise.  A mesh's
+capture files every shard's live particles into the same buffers (on
+card 0): ``seen`` counts an id's live slots over every shard, the mass
+sums each shard's own blocks (``owned``, so no halo copy counts twice),
+and the loss counters take in the migration's and the halo's.  It also
+counts the ids held by another shard than at set-up (``moved``, not
+compared).
 
 ``compare`` holds two sets of outputs (``outputs`` of a capture, or of the
 reference) against each other and against the configuration's guarantees
@@ -31,7 +37,8 @@ class Capture:
     """Buffers for the program's outputs at the compared substep, made in
     set-up (so the window allocates nothing for them)."""
 
-    def __init__(self, config: dict, counts, check: dict, device):
+    def __init__(self, config: dict, counts, check: dict, device, owned=None):
+        self.owned = owned
         self.counts = list(counts)
         self.min_substeps = int(check["substeps"])
         self.past = int(check["past_first_rebuild"])
@@ -48,6 +55,24 @@ class Capture:
         self.dropped = torch.zeros((), dtype=torch.int64, device=device)
         self.overflow = torch.zeros((), dtype=torch.int64, device=device)
         self.substeps = None
+        self.home = self.holder = None
+
+    def mark_home(self, states) -> None:
+        """Note which shard of a mesh's initial ``states`` holds each id."""
+        self.home = self._holders(states)
+        self.holder = [torch.full_like(h, -1) for h in self.home]
+
+    def _holders(self, states, out=None):
+        """Per model, the shard holding each id (-1: none), int8 [N + 1]."""
+        dev = self.mass.device
+        out = out or [torch.full((n + 1,), -1, dtype=torch.int8, device=dev)
+                      for n in self.counts]
+        for j, st in enumerate(states):
+            for i, (m, n) in enumerate(zip(st.models, self.counts)):
+                ok = m.active & (m.pid >= 0) & (m.pid < n)
+                idx = torch.where(ok, m.pid.long(), n).to(dev)
+                out[i].index_fill_(0, idx, j)
+        return out
 
     def due(self, done: int, first_rebuild) -> bool:
         """Whether to take the capture after ``done`` substeps of an episode
@@ -58,23 +83,36 @@ class Capture:
         return first_rebuild is not None and done >= first_rebuild + self.past
 
     def take(self, state, done: int) -> None:
-        """File ``state``'s particles by id; queue-only."""
-        stray = torch.zeros((), dtype=torch.int64, device=self.mass.device)
-        for i, (m, n) in enumerate(zip(state.models, self.counts)):
-            ok = m.active & (m.pid >= 0) & (m.pid < n)
-            stray = stray + (m.active & ~ok).sum()
-            idx = torch.where(ok, m.pid.long(), n)
-            self.pos[i].index_copy_(1, idx, m.pos)
-            name, width = self.widths[i]
-            fld = m.fields[name].reshape(width, -1)
-            self.field[i].index_copy_(1, idx, fld)
-            self.seen[i].zero_()
-            self.seen[i].index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+        """File ``state``'s particles by id (every shard's, for a mesh's
+        tuple of shard states); queue-only."""
+        states = state if isinstance(state, tuple) else (state,)
+        dev = self.mass.device
+        stray = torch.zeros((), dtype=torch.int64, device=dev)
+        for seen in self.seen:
+            seen.zero_()
+        for st in states:
+            for i, (m, n) in enumerate(zip(st.models, self.counts)):
+                ok = m.active & (m.pid >= 0) & (m.pid < n)
+                stray = stray + (m.active & ~ok).sum().to(dev)
+                idx = torch.where(ok, m.pid.long(), n).to(dev)
+                self.pos[i].index_copy_(1, idx, m.pos.to(dev))
+                name, width = self.widths[i]
+                self.field[i].index_copy_(1, idx, m.fields[name].reshape(width, -1).to(dev))
+                self.seen[i].index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
         self.stray.copy_(stray)
-        self.mass.copy_(state.grid[:-1, 0:4].sum(dtype=torch.float64))
-        self.dt.copy_(state.dt)
-        self.dropped.copy_(sum(m.tiles.dropped.sum() for m in state.models))
-        self.overflow.copy_(state.partition.overflow.sum())
+        self.dt.copy_(states[0].dt)
+        dropped = sum(m.tiles.dropped.sum().to(dev) for st in states for m in st.models)
+        overflow = sum(st.partition.overflow.sum().to(dev) for st in states)
+        if self.owned is None:
+            self.mass.copy_(state.grid[:-1, 0:4].sum(dtype=torch.float64))
+        else:
+            self.mass.copy_(sum(self.owned(states, j)[:, 0:4].sum(dtype=torch.float64).to(dev)
+                                for j in range(len(states))))
+            dropped = dropped + sum(st.mig_dropped.sum().to(dev) for st in states)
+            overflow = overflow + sum(st.halo_overflow.sum().to(dev) for st in states)
+            self._holders(states, [h.fill_(-1) for h in self.holder])
+        self.dropped.copy_(dropped)
+        self.overflow.copy_(overflow)
         self.substeps = done
 
     def outputs(self) -> dict:
@@ -87,6 +125,9 @@ class Capture:
             "missing": missing + int(self.stray),
             "dropped": int(self.dropped), "overflow": int(self.overflow),
             "substeps": self.substeps,
+            **({"moved": sum(int(((h[:n] != -1) & (h[:n] != g[:n])).sum())
+                             for h, g, n in zip(self.holder, self.home, self.counts))}
+               if self.home is not None else {}),
         }
 
 

@@ -1,7 +1,7 @@
 """Readings for the check's limits, at a cell's own size (run on a card).
 
     python3 mpmbench/control.py --workload <cell> [--program-seeds 1,2,...]
-        [--control-seeds 7,8,9] [--faults unchanged,half,altered]
+        [--control-seeds 7,8,9] [--faults unchanged,half,altered,...]
         [--fault-seeds 11,12,13] [--seconds 1] [--out FILE]
 
 * program seeds: whole runs of the cell (a short window), each the
@@ -14,7 +14,11 @@
   (``--substeps``, or what the cell's first program run compared); the
   least over three seeds or more is an upper reading;
 * faults (``faults.py``): whole runs with the timed path broken
-  underneath, on the fault seeds.
+  underneath, on the fault seeds (a mesh's also ``halo_dropped`` and
+  ``migrants_lost``).
+
+A mesh cell's program runs also give ``moved``, the particles held by
+another shard than at set-up when compared.
 
 Each reading is one JSON line on standard output (and appended to
 ``--out``).  The benchmark's own runs never run this.
@@ -86,6 +90,7 @@ def main(argv=None) -> int:
               "checks": {k: v for k, (v, _) in r["checks"].items()},
               "failed": r["failed"], "attempted": r["attempted"],
               "compared_substeps": r["compared_substeps"], "rebuilds": r["rebuilds"],
+              "moved": r.get("moved"),
               "substeps": r["substeps"], "setup_s": r["setup_s"],
               "seconds": time.time() - t0})
         if kind == "program" and substeps is None:

@@ -18,6 +18,14 @@ Set-up: the inputs (``scene.make_inputs``), the program's ``SimConfig``,
 materials, ``exact_tiles`` and ``init_state``, the pre-strain written into
 the initial state by id, the snapshot, the capture's buffers, and one
 whole warm-up episode (every shape the window runs, a rebuild included).
+
+A configuration with a ``mesh`` runs the program's mesh,
+``MultiChipEngine`` over ``LocalGroup``, one shard a card (``cuda:0`` to
+``cuda:<cards - 1>``; on the CPU every shard on ``cpu``): its state is a
+tuple of shard states, the synchronises cover every card, the CUDA events
+are recorded on every card's stream (a substep's span is the longest of
+its cards' spans), the peak is the fullest card's, and the capture files
+every shard's particles into buffers on card 0.
 """
 
 from __future__ import annotations
@@ -61,6 +69,26 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def shards(state) -> tuple:
+    """The shard states of a state: a mesh's tuple, or one state."""
+    return state if isinstance(state, tuple) else (state,)
+
+
+def cards(cell: dict, device) -> list:
+    """The devices a cell's run uses: ``device`` alone, or for a mesh one
+    card a shard from ``cuda:0`` (every shard on ``device`` off the cards).
+    Refuses a cell whose ``chips`` differs from its mesh's ``cards``."""
+    dev = torch.device(device)
+    mesh = cell["configuration"].get("mesh")
+    n = int(mesh["cards"]) if mesh else 1
+    if int(cell["chips"]) != n:
+        raise ValueError(f"{cell['name']}: chips {cell['chips']}, its configuration runs "
+                         f"on {n} card(s)")
+    if not mesh:
+        return [dev]
+    return [torch.device("cuda", i) for i in range(n)] if dev.type == "cuda" else [dev] * n
+
+
 def launch_counts() -> dict:
     """The program's launch counters (kernel wrapper calls), where it has
     them."""
@@ -80,11 +108,14 @@ def launch_counts() -> dict:
     return out
 
 
-def build_program(program, config: dict, traffic: dict, inputs, device):
+def build_program(program, config: dict, traffic: dict, inputs, device, devices=None):
     """(engine, initial state) through the program's public API, as a user
     builds a scene: ``SimConfig``, the materials, ``exact_tiles``,
     ``MPMEngine`` and ``init_state``; then the inputs' deformation field
-    written into the state by id."""
+    written into the state by id.  With a ``mesh`` in the configuration,
+    ``MultiChipEngine`` over ``devices`` (one a shard), which sizes its
+    tiles itself (``exact_tiles`` with ``tile_slack`` as its capacity
+    factor), and the field written into every shard."""
     sim = dict(config["sim"])
     sim["gravity"] = tuple(sim["gravity"])
     sim.update(rebucket_auto=bool(traffic["rebucket_auto"]),
@@ -93,21 +124,35 @@ def build_program(program, config: dict, traffic: dict, inputs, device):
     parts = [x["pos"].cpu().numpy() for x in inputs]
     for x in inputs:
         x["pos"] = None
-    cfg = dataclasses.replace(cfg, max_tiles=program.exact_tiles(
-        cfg, parts, slack=float(config["tile_slack"])))
+    mesh = config.get("mesh")
+    if mesh is None:
+        cfg = dataclasses.replace(cfg, max_tiles=program.exact_tiles(
+            cfg, parts, slack=float(config["tile_slack"])))
     mats = [getattr(program, m["material"])(volume=cfg.default_volume(), **m["params"])
             for m in config["models"]]
-    eng = program.MPMEngine(cfg, mats, (), tile_chunk=int(config["tile_chunk"]),
-                            device=device)
+    if mesh is None:
+        eng = program.MPMEngine(cfg, mats, (), tile_chunk=int(config["tile_chunk"]),
+                                device=device)
+    else:
+        eng = program.MultiChipEngine(
+            cfg, mats, mesh_shape=tuple(mesh["shape"]), device=list(devices),
+            halo_capacity=int(mesh["halo_capacity"]),
+            migration_capacity=int(mesh["migration_capacity"]),
+            tile_chunk=int(config["tile_chunk"]),
+            particle_capacity_factor=float(config["tile_slack"]))
     state = eng.init_state(parts, [x["v0"] for x in inputs])
     del parts
-    for m, x in zip(state.models, inputs):
-        name, width = scene.FIELDS[x["material"]]
-        fld = m.fields[name]
-        idx = torch.clamp(torch.where(m.active, m.pid.long(), 0), 0, x["field"].shape[0] - 1)
-        val = x["field"][idx]
-        val = val.t().reshape(fld.shape) if width > 1 else val
-        fld.copy_(torch.where(m.active, val, fld))
+    for shard in shards(state):
+        for m, x in zip(shard.models, inputs):
+            name, width = scene.FIELDS[x["material"]]
+            fld = m.fields[name]
+            src = x["field"].device
+            idx = torch.clamp(torch.where(m.active, m.pid.long(), 0), 0,
+                              x["field"].shape[0] - 1).to(src)
+            val = x["field"][idx].to(fld.device)
+            val = val.t().reshape(fld.shape) if width > 1 else val
+            fld.copy_(torch.where(m.active, val, fld))
+    for x in inputs:
         x["field"] = None
     return eng, state
 
@@ -116,18 +161,20 @@ class Episodes:
     """The snapshot and the episode loop."""
 
     def __init__(self, engine, snapshot, frame_end, episode_substeps: int, device,
-                 capture=None):
+                 capture=None, devices=None):
         self.engine = engine
         self.snapshot = snapshot
         self.frame_end = frame_end
         self.n = episode_substeps
         self.device = device
+        self.devices = list(devices) if devices else [device]
         self.capture = capture
         self.state = None
         cuda = device.type == "cuda"
-        self.events = [(torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True)) for _ in range(self.n)] \
-            if cuda else None
+        # one (start, end) pair a card for every substep
+        self.events = [[(torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True)) for _ in self.devices]
+                       for _ in range(self.n)] if cuda else None
 
     def run(self, limit_s=None, elapsed: float = 0.0, capture: bool = False, label=None):
         """One episode: (seconds, spans ms, rebuilt flags).  Stops early at
@@ -136,8 +183,9 @@ class Episodes:
         eng, dev = self.engine, self.device
         self.state = None
         state = clone(self.snapshot)
-        sync(dev)
-        stream = torch.cuda.current_stream(dev) if self.events else None
+        for d in self.devices:
+            sync(d)
+        streams = [torch.cuda.current_stream(d) for d in self.devices] if self.events else None
         host_marks = []
         rebuilt = []
         first_rebuild = None
@@ -149,7 +197,8 @@ class Episodes:
         for k in range(self.n):
             r0 = eng.rebuilds
             if self.events:
-                self.events[k][0].record(stream)
+                for (start, _), stream in zip(self.events[k], streams):
+                    start.record(stream)
             else:
                 host_marks.append(time.perf_counter())
             if label:
@@ -158,7 +207,8 @@ class Episodes:
             else:
                 state = eng.substep(state, self.frame_end)
             if self.events:
-                self.events[k][1].record(stream)
+                for (_, end), stream in zip(self.events[k], streams):
+                    end.record(stream)
             else:
                 host_marks.append(time.perf_counter())
             rebuilt.append(eng.rebuilds != r0)
@@ -170,13 +220,14 @@ class Episodes:
             if (limit_s is not None and not pending
                     and elapsed + time.perf_counter() - t0 >= limit_s):
                 break
-        sync(dev)
+        for d in self.devices:
+            sync(d)
         t = time.perf_counter() - t0
         if rng is not None:
             rng.__exit__(None, None, None)
         done = len(rebuilt)
         if self.events:
-            spans = [self.events[k][0].elapsed_time(self.events[k][1]) for k in range(done)]
+            spans = [max(a.elapsed_time(b) for a, b in self.events[k]) for k in range(done)]
         else:
             spans = [(host_marks[2 * k + 1] - host_marks[2 * k]) * 1e3 for k in range(done)]
         self.state = state
@@ -215,7 +266,10 @@ def window_stats(win: dict, particles: int) -> dict:
 
 
 def state_sizes(state, config: dict, cfg) -> dict:
-    """Counts of a state the frozen bounds take (``counts.py``)."""
+    """Counts of a state the frozen bounds take (``counts.py``); of a mesh,
+    its fullest shard's (the most live particles)."""
+    if isinstance(state, tuple):
+        state = max(state, key=lambda s: sum(int(m.active.sum()) for m in s.models))
     rows = state.grid.shape[0]
     massive = int((state.grid[:, 0:4] > 0).sum())
     models = []
@@ -247,28 +301,40 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
     t_start = time.time() if t_start is None else t_start
     dev = torch.device(device)
     config, traffic = cell["configuration"], cell["traffic"]
+    devs = cards(cell, dev)
+    mesh = "mesh" in config
     program = import_program()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
 
     # ---- set-up
     inputs = scene.make_inputs(config, seed, dev)
     counts = [x["pos"].shape[0] for x in inputs]
     particles = sum(counts)
-    eng, snapshot = build_program(program, config, traffic, inputs, dev)
+    eng, snapshot = build_program(program, config, traffic, inputs, dev, devs)
     del inputs
     if fault is not None:
         from . import faults
         faults.install(eng, fault, config, counts)
     frame_end = torch.tensor(float(traffic["frame_end"]), dtype=torch.float32, device=dev)
-    capture = check.Capture(config, counts, cell["check"], dev)
-    eps = Episodes(eng, snapshot, frame_end, int(traffic["episode_substeps"]), dev, capture)
+    if mesh:
+        frame_end = tuple(frame_end.to(d) for d in eng.devices)
+    capture = check.Capture(config, counts, cell["check"], dev,
+                            owned=eng.owned_rows if mesh else None)
+    if mesh:
+        capture.mark_home(snapshot)
+    eps = Episodes(eng, snapshot, frame_end, int(traffic["episode_substeps"]), dev, capture,
+                   devs)
     del snapshot
-    eps.run(capture=True)                                   # warm-up
+    _, _, warm = eps.run(capture=True)                      # warm-up
     capture.substeps = None
-    sync(dev)
+    for d in devs:
+        sync(d)
     setup_s = time.time() - t_start
+    log(f"warm-up episode: {sum(warm)} rebuilds in {len(warm)} substeps, the first on substep "
+        f"{warm.index(True) + 1 if any(warm) else None}")
 
     # ---- the window
     win = eps.window(seconds)
@@ -277,21 +343,33 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
     log(f"window: {stats['episodes']} episodes, {stats['substeps']} substeps, "
         f"{stats['rebuilds']} rebuilds, {stats['window_s']:.6f} s; rebuilds per episode "
         f"{stats['rebuilds_per_episode']}; compared after substep {capture.substeps}")
+    log("episodes (seconds, substeps, summed spans ms): " + "; ".join(
+        f"{e['seconds']:.4f} {len(e['spans'])} {sum(e['spans']):.1f}" for e in win["episodes"]))
     log(f"launches {launch_counts()}")
 
     rec = None
     if trace:
+        t_trace = time.time()
         rec = traced.trace_episodes(eps, int(traffic["trace_episodes"]), dev)
         rec["sizes"] = state_sizes(eps.snapshot, config, eng.cfg)
-    closing = eps.state
-    stats["dropped_end"] = int(sum(int(m.tiles.dropped.sum()) for m in closing.models))
-    stats["overflow_end"] = int(closing.partition.overflow.sum())
+        log(f"traced: {traffic['trace_episodes']} episode(s) and the reduction in "
+            f"{time.time() - t_trace:.1f} s")
+    closing = shards(eps.state)
+    stats["dropped_end"] = int(sum(int(m.tiles.dropped.sum()) for s in closing
+                                   for m in s.models))
+    stats["overflow_end"] = int(sum(int(s.partition.overflow.sum()) for s in closing))
+    if mesh:
+        stats["dropped_end"] += int(sum(int(s.mig_dropped.sum()) for s in closing))
+        stats["overflow_end"] += int(sum(int(s.halo_overflow.sum()) for s in closing))
     closing = None
-    stats["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                           else None)
+    stats["peak_bytes"] = (max(torch.cuda.max_memory_allocated(d) for d in devs)
+                           if dev.type == "cuda" else None)
 
     # ---- the check: the program's state freed, then the reference
     got = capture.outputs()
+    if mesh:
+        stats["moved"] = got["moved"]
+        log(f"particles held by another shard than at set-up when compared: {got['moved']}")
     got["dropped"] = max(got["dropped"], stats["dropped_end"])
     got["overflow"] = max(got["overflow"], stats["overflow_end"])
     cfg = eng.cfg

@@ -146,7 +146,8 @@ def main(argv=None) -> int:
     run = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), dev,
                            t_start=T_START, log=lambda s: print(s, flush=True))
     limit = power_limit_w()
-    print(f"device: {torch.cuda.get_device_name(dev)}, power limit {limit} W; "
+    print(f"device: {int(cell['chips'])} x {torch.cuda.get_device_name(dev)}, power limit "
+          f"{limit} W; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     if args.trace:
         rec = run["trace"]
@@ -157,8 +158,8 @@ def main(argv=None) -> int:
     if bad:
         print(f"mpmbench: modules of JAX or the JAX package are loaded: {bad}", file=sys.stderr)
         return 3
-    device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1,
-                   "memory_peak_bytes": run["peak_bytes"]}
+    device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+                   "count": int(cell["chips"]), "memory_peak_bytes": run["peak_bytes"]}
     line = result_line(run, args.workload, bench, bool(args.trace), device_info)
     for k, c in line["checks"].items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

@@ -112,7 +112,54 @@ def test_metric_reader_loads(kind, entry):
         assert mod.UNIT == entry["unit"]
 
 
+UNLISTED = sorted({p.stem for p in (ROOT / "mpmbench" / "metrics").glob("*.py")}
+                  - {m["name"] for m in BENCH["per_layer"]} - {"__init__"})
+
+
+@pytest.mark.parametrize("name", UNLISTED)
+def test_unlisted_reader_loads(name):
+    """A per-layer reader that no ``BENCHMARK.json`` entry names yet (the
+    mesh's, kept for a later cell) loads, and its metric would be a valid
+    entry: a name, a unit, a layer on one line, an end-to-end metric it
+    moves."""
+    mod = run.load_reader("metrics", name)
+    assert callable(mod.read) and NAME.match(name) and UNIT.match(mod.UNIT)
+    assert line_ok(mod.LAYER)
+    assert mod.MOVES in {m["name"] for m in BENCH["end_to_end"]}
+
+
 def test_paths_hold_only_the_benchmark():
     files = [p for p in (ROOT / "mpmbench").rglob("*") if p.is_file()
              and "__pycache__" not in p.parts]
     assert all(re.match(r"^[A-Za-z0-9_./-]+$", str(p.relative_to(ROOT))) for p in files)
+
+
+CELL_FILES = sorted(p.stem for p in (ROOT / "mpmbench" / "workloads").glob("*.json"))
+
+
+@pytest.mark.parametrize("name", CELL_FILES)
+def test_mesh_matches_chips(name):
+    """A configuration's ``mesh`` spreads its shards over the cell's cards,
+    one a card; a configuration without one runs on one card (every cell
+    file, in ``BENCHMARK.json`` or not)."""
+    cell = scene.load_cell(name)
+    mesh = cell["configuration"].get("mesh")
+    if mesh is None:
+        assert cell["chips"] == 1
+        return
+    assert set(mesh) == {"shape", "cards", "halo_capacity", "migration_capacity"}
+    assert len(mesh["shape"]) == 2 and mesh["shape"][0] * mesh["shape"][1] == mesh["cards"]
+    assert mesh["cards"] == cell["chips"]
+    assert mesh["halo_capacity"] > 0 and mesh["migration_capacity"] > 0
+    assert {"halo_overflow", "mig_dropped"} <= set(cell["configuration"]["guarantees"])
+
+
+def test_four_card_cells_within_the_allowance():
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_every_mpps_metric_lists_its_cells():
+    for m in BENCH["per_layer"]:
+        if m["moves"] == "mpps":
+            assert m.get("workloads"), m["name"]

@@ -48,7 +48,9 @@ def test_forbidden_names_are_whole():
 
 
 @pytest.mark.parametrize("argv", [["--workload", "sphere25m.fall", "--seed", "4294967296",
-                                   "--seconds", "1", "--trace", "0"]])
+                                   "--seconds", "1", "--trace", "0"],
+                                  ["--workload", "sphere100m.4card", "--seed", "4294967297",
+                                   "--seconds", "1", "--trace", "1"]])
 def test_cli_without_a_card_prints_no_result(argv):
     out = subprocess.run([sys.executable, "mpmbench/run.py", *argv], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

@@ -12,9 +12,9 @@ from mpmbench import check, run, traced
 CPU, CUDA = DeviceType.CPU, DeviceType.CUDA
 
 
-def ev(name, start, end, device=CUDA):
+def ev(name, start, end, device=CUDA, card=0):
     return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start, end=end),
-                           device_type=device)
+                           device_type=device, device_index=card)
 
 
 def timeline():
@@ -44,6 +44,66 @@ def test_reduce():
     assert gaps["aten::item"] == pytest.approx(5e-6)
     assert gaps["mpmbench.substep"] == pytest.approx(25e-6)
     assert gaps["harness"] == pytest.approx(10e-6)
+
+
+def mesh_timeline():
+    # two cards, one episode 0..100 us: card 0 runs K1 at 10..50 and a halo
+    # pack at 50..60, card 1 K1 at 10..30 and a peer copy at 70..75
+    return [
+        ev(traced.EPISODE, 0, 100, CPU), ev("mpmbench.substep", 5, 95, CPU),
+        ev("aten::item", 30, 70, CPU),
+        ev("g2p2g_kernel<A>", 10, 50, card=0), ev("void halo::halo_rows_kernel(int)", 50, 60),
+        ev("g2p2g_kernel<A>", 10, 30, card=1), ev("Memcpy PtoP (Device -> Device)", 70, 75,
+                                                  card=1),
+    ]
+
+
+def test_reduce_keeps_each_card():
+    rec = traced.reduce(mesh_timeline(), [(1e-4, [0.1, 0.1], [False, True])], cards=[0, 1])
+    assert rec["cards"] == [0, 1] and rec["op_cards"] == [0, 0, 1, 1]
+    assert [tuple(op) for op in rec["device_ops"]][0] == ("g2p2g_kernel<A>", 10.0, 50.0)
+    assert rec["card_busy_us"] == [50, 25] and rec["busy_us"] == 55
+    ops = dict(rec["breakdown"]["device_ops"])
+    assert ops["g2p2g_kernel<A>@cuda:0"] == pytest.approx(40e-6)
+    assert ops["g2p2g_kernel<A>@cuda:1"] == pytest.approx(20e-6)
+    gaps = dict(rec["breakdown"]["idle_gaps"])
+    # card 1 idles 30..70 under the read; both 0..10 and past their last
+    # operation under the substep call
+    assert gaps["aten::item@cuda:1"] == pytest.approx(40e-6)
+    assert gaps["mpmbench.substep@cuda:0"] == pytest.approx(50e-6)
+    assert gaps["mpmbench.substep@cuda:1"] == pytest.approx(35e-6)
+    got = {m: run.load_reader("metrics", m).read(rec)
+           for m in ("exchange_ms", "mesh_idle_share")}
+    # per substep: card 0 10 us of halo, card 1 5 us of copy
+    assert got["exchange_ms"] == pytest.approx(0.005)
+    assert got["mesh_idle_share"] == pytest.approx(75.0)
+
+
+MESH_READERS = ("exchange_ms", "mesh_idle_share", "k1_card_ms", "rebucket_card_ms",
+                "card_rebuild_ms_p95")
+
+
+def test_card_readers():
+    """K1 and the rebucket on the card where each is largest; the p95 of
+    the window's rebuilding spans (each the longest of its cards')."""
+    events = mesh_timeline() + [ev("void rebucket::place_kernel(int)", 60, 68, card=0),
+                                ev("cub::DeviceRadixSortOnesweepKernel", 76, 90, card=1)]
+    rec = traced.reduce(events, [(1e-4, [0.1, 0.1], [True, True])], cards=[0, 1])
+    rec["window"] = {"rebuild_ms": [float(i) for i in range(1, 101)]}
+    got = {m: run.load_reader("metrics", m).read(rec)
+           for m in ("k1_card_ms", "rebucket_card_ms", "card_rebuild_ms_p95")}
+    # two substeps, two rebuilds: card 0's 40 us of K1, card 1's 14 us of sort
+    assert got["k1_card_ms"] == pytest.approx(0.02)
+    assert got["rebucket_card_ms"] == pytest.approx(0.007)
+    assert got["card_rebuild_ms_p95"] == pytest.approx(95.05)
+
+
+def test_mesh_readers_find_nothing_on_one_card():
+    rec = traced.reduce(timeline(), [(1e-4, [0.1], [True])], cards=[0])
+    rec["window"] = {"rebuild_ms": [1.0]}
+    assert rec["card_busy_us"] == [rec["busy_us"]]
+    for m in MESH_READERS:
+        assert run.load_reader("metrics", m).read(rec) is None
 
 
 def test_per_layer_readers():

@@ -11,6 +11,13 @@ and the device's idle gaps by the host range that was running).  Nothing
 is written to disk.  ``bounds`` prices one substep and one rebuild of the
 snapshot with the frozen counts.  The per-layer readers
 (``metrics/<name>.py``) take this record.
+
+Each device operation keeps its card (``op_cards``, beside
+``device_ops``), and each card of the run its busy time
+(``card_busy_us``, over ``cards``).  ``busy_us`` is the union over every
+card.  Where the operations ran on more than one card, the breakdown
+names each operation and each idle gap with its card (``name@cuda:k``),
+the gaps being those of each card's own timeline.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ def trace_episodes(eps, n: int, device) -> dict:
     with profile(activities=acts) as prof:
         for _ in range(n):
             runs.append(eps.run(label=EPISODE))
-    return reduce(prof.events(), runs)
+    cards = sorted({d.index or 0 for d in eps.devices}) if device.type == "cuda" else None
+    return reduce(prof.events(), runs, cards)
 
 
 def merge(intervals):
@@ -57,18 +65,29 @@ def short_name(name: str) -> str:
     return (name[5:] if name.startswith("void ") else name)[:160]
 
 
-def reduce(events, runs) -> dict:
+def busy_of(device_ops, episodes) -> list:
+    """The merged intervals inside ``episodes`` in which some of
+    ``device_ops`` runs."""
+    busy = []
+    for a, b in episodes:
+        busy += [(max(s, a), min(t, b)) for _, s, t in device_ops if s < b and t > a]
+    return merge(busy)
+
+
+def reduce(events, runs, cards=None) -> dict:
     """The record of a profile: ``events`` as ``prof.events()`` gives them,
-    ``runs`` the episodes' (seconds, spans, rebuilt)."""
+    ``runs`` the episodes' (seconds, spans, rebuilt), ``cards`` the device
+    indices the run used (by default those the operations ran on)."""
     from torch.autograd import DeviceType
 
-    device_ops, host, episodes = [], [], []
+    device_ops, op_cards, host, episodes = [], [], [], []
     for e in events:
         s, t = float(e.time_range.start), float(e.time_range.end)
         if e.device_type == DeviceType.CUDA:
             if e.name.startswith("mpmbench.") or getattr(e, "is_user_annotation", False):
                 continue
             device_ops.append((e.name, s, t))
+            op_cards.append(int(getattr(e, "device_index", 0)))
         else:
             if e.name == EPISODE:
                 episodes.append((s, t))
@@ -78,16 +97,57 @@ def reduce(events, runs) -> dict:
     def inside(s, t):
         return any(s < b and t > a for a, b in episodes)
 
-    device_ops = [op for op in device_ops if inside(op[1], op[2])]
+    kept = [i for i, op in enumerate(device_ops) if inside(op[1], op[2])]
+    device_ops = [device_ops[i] for i in kept]
+    op_cards = [op_cards[i] for i in kept]
+    cards = sorted(set(op_cards)) if cards is None else list(cards)
     window_us = sum(b - a for a, b in episodes)
-    busy = []
-    for a, b in episodes:
-        busy += [(max(s, a), min(t, b)) for _, s, t in device_ops if s < b and t > a]
-    busy = merge(busy)
+    busy = busy_of(device_ops, episodes)
     busy_us = sum(b - a for a, b in busy)
-
-    # idle gaps inside each episode, named by the innermost host range then
+    per_card = {c: busy_of([op for op, k in zip(device_ops, op_cards) if k == c], episodes)
+                for c in cards}
+    several = len(set(op_cards)) > 1
+    host_sorted = sorted((s, t, n) for n, s, t in host if n != EPISODE)
+    starts = [h[0] for h in host_sorted]
+    by_host = defaultdict(float)
+    # idle gaps inside each episode (of each card's timeline where the
+    # operations ran on several), named by the innermost host range then
     # running (the substep call or the harness when no program range is)
+    for card, card_busy in (per_card.items() if several else [(None, busy)]):
+        for gs, ge in gaps_of(card_busy, episodes):
+            mid = 0.5 * (gs + ge)
+            name = "harness"
+            # the latest-starting range that still runs at the gap's middle
+            for j in range(bisect.bisect_right(starts, mid) - 1,
+                           max(-1, bisect.bisect_right(starts, mid) - 1 - _SCAN), -1):
+                if host_sorted[j][1] >= mid:
+                    name = host_sorted[j][2]
+                    break
+            by_host[name if card is None else f"{name}@cuda:{card}"] += (ge - gs) * 1e-6
+    by_op = defaultdict(float)
+    for (name, s, t), card in zip(device_ops, op_cards):
+        by_op[short_name(name) + (f"@cuda:{card}" if several else "")] += (t - s) * 1e-6
+
+    def top(d):
+        return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
+
+    return {
+        "device_ops": device_ops,
+        "op_cards": op_cards,
+        "cards": cards,
+        "card_busy_us": [sum(b - a for a, b in per_card[c]) for c in cards],
+        "episodes": episodes,
+        "window_us": window_us,
+        "busy_us": busy_us,
+        "substeps": sum(len(r[2]) for r in runs),
+        "rebuilds": sum(sum(r[2]) for r in runs),
+        "breakdown": {"device_ops": top(by_op), "idle_gaps": top(by_host)},
+    }
+
+
+def gaps_of(busy, episodes) -> list:
+    """The intervals inside each episode in which none of the merged
+    ``busy`` intervals runs."""
     gaps = []
     for a, b in episodes:
         cur = a
@@ -99,35 +159,7 @@ def reduce(events, runs) -> dict:
             cur = max(cur, t)
         if b > cur:
             gaps.append((cur, b))
-    host_sorted = sorted((s, t, n) for n, s, t in host if n != EPISODE)
-    starts = [h[0] for h in host_sorted]
-    by_host = defaultdict(float)
-    for gs, ge in gaps:
-        mid = 0.5 * (gs + ge)
-        name = "harness"
-        # the latest-starting range that still runs at the gap's middle
-        for j in range(bisect.bisect_right(starts, mid) - 1,
-                       max(-1, bisect.bisect_right(starts, mid) - 1 - _SCAN), -1):
-            if host_sorted[j][1] >= mid:
-                name = host_sorted[j][2]
-                break
-        by_host[name] += (ge - gs) * 1e-6
-    by_op = defaultdict(float)
-    for name, s, t in device_ops:
-        by_op[short_name(name)] += (t - s) * 1e-6
-
-    def top(d):
-        return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
-
-    return {
-        "device_ops": device_ops,
-        "episodes": episodes,
-        "window_us": window_us,
-        "busy_us": busy_us,
-        "substeps": sum(len(r[2]) for r in runs),
-        "rebuilds": sum(sum(r[2]) for r in runs),
-        "breakdown": {"device_ops": top(by_op), "idle_gaps": top(by_host)},
-    }
+    return gaps
 
 
 def kernel_us(rec: dict, patterns) -> tuple:
@@ -136,6 +168,19 @@ def kernel_us(rec: dict, patterns) -> tuple:
     rx = re.compile("|".join(patterns))
     hits = [t - s for name, s, t in rec["device_ops"] if rx.search(name)]
     return sum(hits), len(hits)
+
+
+def card_kernel_us(rec: dict, patterns) -> tuple:
+    """({card: summed device microseconds}, operations) of the device
+    operations whose name matches one of ``patterns``, each on its card."""
+    rx = re.compile("|".join(patterns))
+    per_card = {c: 0.0 for c in rec.get("cards", [])}
+    hits = 0
+    for (name, s, t), card in zip(rec["device_ops"], rec["op_cards"]):
+        if card in per_card and rx.search(name):
+            per_card[card] += t - s
+            hits += 1
+    return per_card, hits
 
 
 def bounds(sizes: dict) -> dict:
