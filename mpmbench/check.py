@@ -1,10 +1,10 @@
 """The check that decides ``correct``.
 
 ``Capture`` takes, inside the window's first episode, what the timed path
-produced after its ``K``-th substep: every particle's position and
-deformation field filed by its id (the input row), how many live slots
-hold each id, the grid's mass (a float64 sum), the next step size and the
-loss counters.  ``K`` is the first substep count at or past the cell's
+produced after its ``K``-th substep: every particle's position and every
+field of its material (F, J, logJp) filed by its id (the input row), how
+many live slots hold each id, the grid's mass (a float64 sum), the next
+step size and the loss counters.  ``K`` is the first substep count at or past the cell's
 ``check.substeps`` that also lies ``check.past_first_rebuild`` substeps
 past the episode's first rebuild, so that the compared stretch holds a
 rebucket (or the episode's end, where none came).  The capture is a few
@@ -45,8 +45,8 @@ class Capture:
         self.widths = [FIELDS[m["material"]] for m in config["models"]]
         f = dict(dtype=torch.float32, device=device)
         self.pos = [torch.full((3, n + 1), math.nan, **f) for n in self.counts]
-        self.field = [torch.full((w, n + 1), math.nan, **f) for (_, w), n in
-                      zip(self.widths, self.counts)]
+        self.fields = [{name: torch.full((w, n + 1), math.nan, **f) for name, w in ws}
+                       for ws, n in zip(self.widths, self.counts)]
         self.seen = [torch.zeros((n + 1,), dtype=torch.int32, device=device)
                      for n in self.counts]
         self.stray = torch.zeros((), dtype=torch.int64, device=device)
@@ -96,8 +96,9 @@ class Capture:
                 stray = stray + (m.active & ~ok).sum().to(dev)
                 idx = torch.where(ok, m.pid.long(), n).to(dev)
                 self.pos[i].index_copy_(1, idx, m.pos.to(dev))
-                name, width = self.widths[i]
-                self.field[i].index_copy_(1, idx, m.fields[name].reshape(width, -1).to(dev))
+                for name, width in self.widths[i]:
+                    self.fields[i][name].index_copy_(
+                        1, idx, m.fields[name].reshape(width, -1).to(dev))
                 self.seen[i].index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
         self.stray.copy_(stray)
         self.dt.copy_(states[0].dt)
@@ -119,8 +120,10 @@ class Capture:
         """The captured outputs in ``compare``'s form."""
         missing = sum(int((s[:n] != 1).sum()) for s, n in zip(self.seen, self.counts))
         return {
-            "models": [{"pos": p[:, :n].t(), "field": f[0, :n] if f.shape[0] == 1 else f[:, :n].t()}
-                       for p, f, n in zip(self.pos, self.field, self.counts)],
+            "models": [{"pos": p[:, :n].t(),
+                        "fields": {k: f[0, :n] if f.shape[0] == 1 else f[:, :n].t()
+                                   for k, f in fs.items()}}
+                       for p, fs, n in zip(self.pos, self.fields, self.counts)],
             "mass": float(self.mass), "dt": float(self.dt),
             "missing": missing + int(self.stray),
             "dropped": int(self.dropped), "overflow": int(self.overflow),
@@ -144,13 +147,17 @@ def row_gaps(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 22) -> torch.Te
 def compare(got: dict, ref: dict, dx: float, expected_mass: float, limits: dict):
     """(checks, attempted, failed): ``checks`` maps each name of ``NAMES``
     to (number, limit); ``attempted`` is the particles compared and
-    ``failed`` those whose position or field lies past its limit, plus
-    the ids not held by exactly one live slot."""
+    ``failed`` those whose position or one of whose fields lies past its
+    limit, plus the ids not held by exactly one live slot.  ``def_gap`` is
+    the widest gap over every field of every particle (F, J, logJp)."""
     pos_gap = def_gap = 0.0
     attempted = bad = 0
     for g, r in zip(got["models"], ref["models"]):
         pg = row_gaps(g["pos"], r["pos"])
-        fg = row_gaps(g["field"], r["field"])
+        fg = None
+        for name, field in g["fields"].items():
+            gap = row_gaps(field, r["fields"][name])
+            fg = gap if fg is None else torch.maximum(fg, gap)
         if pg.numel():
             pos_gap = max(pos_gap, float(pg.max()))
             def_gap = max(def_gap, float(fg.max()))

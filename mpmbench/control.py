@@ -3,19 +3,28 @@
     python3 mpmbench/control.py --workload <cell> [--program-seeds 1,2,...]
         [--control-seeds 7,8,9] [--faults unchanged,half,altered,...]
         [--fault-seeds 11,12,13] [--seconds 1] [--out FILE]
+        [--workloads DIR --configs DIR]
 
 * program seeds: whole runs of the cell (a short window), each the
   program's compared numbers; the largest over a dozen seeds or more is a
   number's lower reading;
 * control seeds: the control, the reference computed in bfloat16 (the
   precision below the configuration's float32; positions stay float32, see
-  ``reference/mpm.py``) put in the program's place and compared with the
-  float32 reference over the substeps the program's check compares
-  (``--substeps``, or what the cell's first program run compared); the
-  least over three seeds or more is an upper reading;
+  ``reference/mpm.py``; the plastic materials' SVD rounds its input to
+  float32 and its factors back, ``reference/plastic.py``; the colliders'
+  distances, normals and projections and an SDF's table in bfloat16) put
+  in the program's place and compared with the float32 reference over the
+  substeps the program's check compares (``--substeps``, or what the
+  cell's first program run compared); the least over three seeds or more
+  is an upper reading;
 * faults (``faults.py``): whole runs with the timed path broken
   underneath, on the fault seeds (a mesh's also ``halo_dropped`` and
-  ``migrants_lost``).
+  ``migrants_lost``; with colliders ``colliders_dropped``; with Sand or
+  NACC ``plastic_frozen``).
+
+``--workloads`` and ``--configs`` read the cell and its configuration from
+other directories than ``mpmbench/workloads`` and ``mpmbench/configs``
+(readings for files not yet added).
 
 A mesh cell's program runs also give ``moved``, the particles held by
 another shard than at set-up when compared.
@@ -52,6 +61,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=1.0)
     ap.add_argument("--substeps", type=int, default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--workloads", default=None)
+    ap.add_argument("--configs", default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -64,7 +75,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cell = scene.load_cell(args.workload)
+    cell = scene.load_cell(args.workload, Path(args.workloads or scene.WORKLOADS),
+                           Path(args.configs or scene.CONFIGS))
     config = cell["configuration"]
     out = open(args.out, "a") if args.out else None
 

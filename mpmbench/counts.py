@@ -1,8 +1,9 @@
 """Operations and bytes of the substep's kernels, and the chip's peaks.
 
 Copied from claymore_tpu_torch/utils/bounds.py at commit 5f9f87e (its
-``PEAK_*``, ``K1_*``, ``K2_OPS``, ``bound``, ``grid_bound``,
-``g2p2g_bound``, ``rebucket_bound`` and ``partition_bound``), frozen here
+``PEAK_*``, ``K1_*``, ``K2_OPS``, ``K2_SDF_OPS``, ``bound``, ``grid_bound``
+with its colliders, ``sdf_band_cells``, ``g2p2g_bound``,
+``rebucket_bound`` and ``partition_bound``), frozen here
 so that a change to the program cannot move the yardstick.  The functions
 take plain counts (slots, tiles, octs, particles, cells), which the harness
 reads from the program's state; the arithmetic is the original's.  They
@@ -12,12 +13,26 @@ read once and each output byte written once.
 
 from __future__ import annotations
 
+import torch
+
 # NVIDIA H100 SXM, published, dense, at 700 W
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
 # K2 per massive cell: 1/m, 3 momenta x 1/m, 3 gravity adds, |v|^2 (5)
 K2_OPS = 12
+# per collider and massive cell: world -> material (3 subtractions, 3
+# divisions; the colliders here are static, so no rotation's 15) and the
+# SDF of its type; the projection of the cells that hit is data-dependent
+# and not counted
+K2_TRANSFORM_OPS = 6
+K2_SDF_OPS = {"HalfSpace": 8, "Sphere": 14, "Box": 35, "SignedDistanceCollider": 109}
+# bytes of one collider's packed record; an SDF node's (value, gradient)
+COLLIDER_BYTES = 96
+SDF_NODE_BYTES = 16
+# the program's collider type of each kind of a configuration file
+COLLIDER_TYPES = {"half_space": "HalfSpace", "sphere": "Sphere", "box": "Box",
+                  "sdf": "SignedDistanceCollider"}
 # K1 per active particle: two stencils 132, G2P 783, advection 6, P2G 876;
 # and each material's update
 K1_OPS = 1797
@@ -36,11 +51,32 @@ def bound(nbytes: float, ops: float) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def grid_bound(pool_rows: int, max_active_octs: int, massive_cells: int) -> dict:
-    """K2 without colliders: the pool ([rows, 16, 128] floats) read and
-    written, the keys read; K2_OPS per massive cell."""
-    nbytes = 2 * pool_rows * ROW_BYTES + max_active_octs * 4
-    return bound(nbytes, K2_OPS * massive_cells)
+def grid_bound(pool_rows: int, max_active_octs: int, massive_cells: int,
+               colliders=()) -> dict:
+    """K2: the pool ([rows, 16, 128] floats) read and written, the keys and
+    the collider tables read once; K2_OPS per massive cell plus each
+    collider's transform and SDF, an SDF grid's only where the cell lies in
+    its band (the kernel samples nothing elsewhere).  ``colliders``: one
+    dict a static collider, its ``type`` (``K2_SDF_OPS``'s keys), an SDF's
+    table ``nodes`` and its ``band_cells`` (``sdf_band_cells``)."""
+    nbytes = 2 * pool_rows * ROW_BYTES + max_active_octs * 4 + len(colliders) * COLLIDER_BYTES
+    ops = K2_OPS * massive_cells
+    for c in colliders:
+        if c["type"] == "SignedDistanceCollider":
+            nbytes += c["nodes"] * SDF_NODE_BYTES
+            ops += K2_TRANSFORM_OPS * massive_cells + K2_SDF_OPS[c["type"]] * c["band_cells"]
+        else:
+            ops += (K2_TRANSFORM_OPS + K2_SDF_OPS[c["type"]]) * massive_cells
+    return bound(nbytes, ops)
+
+
+def sdf_band_cells(x3, lo: float, hi: float) -> int:
+    """How many of the world positions ``x3`` (three f32 tensors) lie in a
+    static SDF collider's interior band, [lo, hi) on every axis."""
+    inside = torch.ones_like(x3[0], dtype=torch.bool)
+    for c in x3:
+        inside &= (c >= lo) & (c < hi)
+    return int(inside.sum())
 
 
 def g2p2g_bound(material: str, slots: int, tiles: int, octs: int, active: int) -> dict:

@@ -13,6 +13,14 @@ Wrappers of the engine's ``substep`` (every engine):
   they had before the substep: half of the particles left out of it.
 * ``altered``: the particle with id 0 is moved by 0.05 dx along x where
   the substep produces it, once an episode (on its first substep).
+* ``plastic_frozen``: after every substep each live particle of a plastic
+  material (Sand, NACC) has its ``logJp`` put back to its start, the
+  material's ``log_jp0``.
+
+The engine built without its colliders (configurations with colliders):
+
+* ``colliders_dropped``: ``harness.build_program(..., colliders=False)``;
+  ``install`` only checks that there were colliders to drop.
 
 Wrappers of the mesh's exchange (``MultiChipEngine`` only):
 
@@ -33,18 +41,20 @@ from .harness import shards as _shards
 from .scene import FIELDS
 
 
-def _by_id(states, i, counts_n, name, width, device):
-    """Model ``i``'s positions and field filed by id over every shard, on
-    ``device``: ([3, N+1], [width, N+1])."""
+def _by_id(states, i, counts_n, widths, device):
+    """Model ``i``'s positions and fields filed by id over every shard, on
+    ``device``: ([3, N+1], {name: [width, N+1]})."""
     pos = torch.zeros((3, counts_n + 1), dtype=torch.float32, device=device)
-    f = torch.zeros((width, counts_n + 1), dtype=torch.float32, device=device)
+    fs = {name: torch.zeros((width, counts_n + 1), dtype=torch.float32, device=device)
+          for name, width in widths}
     for st in states:
         model = st.models[i]
         ok = model.active & (model.pid >= 0) & (model.pid < counts_n)
         idx = torch.where(ok, model.pid.long(), counts_n).to(device)
         pos.index_copy_(1, idx, model.pos.to(device))
-        f.index_copy_(1, idx, model.fields[name].reshape(width, -1).to(device))
-    return pos, f
+        for name, width in widths:
+            fs[name].index_copy_(1, idx, model.fields[name].reshape(width, -1).to(device))
+    return pos, fs
 
 
 def install(engine, fault: str, config: dict, counts):
@@ -52,6 +62,11 @@ def install(engine, fault: str, config: dict, counts):
     its faulty form ``fault``."""
     real = engine.substep
     fields = [FIELDS[m["material"]] for m in config["models"]]
+
+    if fault == "colliders_dropped":
+        if not config.get("colliders"):
+            raise ValueError(f"fault {fault!r} needs colliders")
+        return
 
     if fault in ("halo_dropped", "migrants_lost"):
         comm = getattr(engine, "comm", None)
@@ -75,21 +90,22 @@ def install(engine, fault: str, config: dict, counts):
     elif fault == "half":
         def substep(state, frame_end):
             dev = _shards(state)[0].grid.device
-            before = [_by_id(_shards(state), i, n, *f, dev)
+            before = [_by_id(_shards(state), i, n, f, dev)
                       for i, (n, f) in enumerate(zip(counts, fields))]
             state = real(state, frame_end)
             out = []
             for st in _shards(state):
                 models = []
-                for m, n, (name, width), (pos0, f0) in zip(st.models, counts, fields, before):
+                for m, n, widths, (pos0, f0) in zip(st.models, counts, fields, before):
                     keep = m.active & (m.pid >= 0) & (m.pid < n) & (m.pid % 2 == 0)
                     idx = torch.clamp(m.pid.long(), 0, n).to(dev)
                     pos = torch.where(keep, pos0[:, idx].to(m.pos.device), m.pos)
-                    fld = m.fields[name].reshape(width, -1)
-                    fld = torch.where(keep, f0[:, idx].to(fld.device), fld)
-                    fld = fld.reshape(m.fields[name].shape)
-                    models.append(dataclasses.replace(m, pos=pos,
-                                                      fields={**m.fields, name: fld}))
+                    kept = dict(m.fields)
+                    for name, width in widths:
+                        fld = m.fields[name].reshape(width, -1)
+                        fld = torch.where(keep, f0[name][:, idx].to(fld.device), fld)
+                        kept[name] = fld.reshape(m.fields[name].shape)
+                    models.append(dataclasses.replace(m, pos=pos, fields=kept))
                 out.append(dataclasses.replace(st, models=tuple(models)))
             return tuple(out) if isinstance(state, tuple) else out[0]
     elif fault == "altered":
@@ -107,6 +123,23 @@ def install(engine, fault: str, config: dict, counts):
                 pos[0] += torch.where(m.active & (m.pid == 0), 0.05 * dx, 0.0)
                 out.append(dataclasses.replace(
                     st, models=(dataclasses.replace(m, pos=pos),) + st.models[1:]))
+            return tuple(out) if isinstance(state, tuple) else out[0]
+    elif fault == "plastic_frozen":
+        start = {i: float(m["params"]["log_jp0"]) for i, m in enumerate(config["models"])
+                 if "logJp" in dict(FIELDS[m["material"]])}
+        if not start:
+            raise ValueError(f"fault {fault!r} needs a plastic material")
+
+        def substep(state, frame_end):
+            state = real(state, frame_end)
+            out = []
+            for st in _shards(state):
+                models = list(st.models)
+                for i, jp0 in start.items():
+                    m = models[i]
+                    log_jp = torch.where(m.active, jp0, m.fields["logJp"])
+                    models[i] = dataclasses.replace(m, fields={**m.fields, "logJp": log_jp})
+                out.append(dataclasses.replace(st, models=tuple(models)))
             return tuple(out) if isinstance(state, tuple) else out[0]
     else:
         raise ValueError(f"unknown fault {fault!r}")

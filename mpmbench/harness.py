@@ -15,9 +15,11 @@ synchronise between substeps.  A substep rebuilt when
 ``MPMEngine.rebuilds`` rose during its call.
 
 Set-up: the inputs (``scene.make_inputs``), the program's ``SimConfig``,
-materials, ``exact_tiles`` and ``init_state``, the pre-strain written into
-the initial state by id, the snapshot, the capture's buffers, and one
-whole warm-up episode (every shape the window runs, a rebuild included).
+materials, colliders (``scene.make_colliders``: ``HalfSpace``, ``Sphere``,
+``Box``, ``SignedDistanceCollider``), ``exact_tiles`` and ``init_state``,
+every field of the inputs written into the initial state by id, the
+snapshot, the capture's buffers, and one whole warm-up episode (every shape
+the window runs, a rebuild included).
 
 A configuration with a ``mesh`` runs the program's mesh,
 ``MultiChipEngine`` over ``LocalGroup``, one shard a card (``cuda:0`` to
@@ -34,9 +36,10 @@ import dataclasses
 import gc
 import time
 
+import numpy as np
 import torch
 
-from . import check, scene
+from . import check, counts, scene
 
 SUBSTEP = "mpmbench.substep"
 
@@ -108,14 +111,38 @@ def launch_counts() -> dict:
     return out
 
 
-def build_program(program, config: dict, traffic: dict, inputs, device, devices=None):
+def program_colliders(program, specs) -> tuple:
+    """The program's colliders of ``scene.make_colliders``'s specs, through
+    its public classes (an SDF's node table and gradients handed over as
+    they were sampled)."""
+    out = []
+    for c in specs:
+        kind, fr = c["boundary"], c["friction"]
+        if c["kind"] == "half_space":
+            out.append(program.HalfSpace(c["origin"], c["normal"], kind=kind, friction=fr))
+        elif c["kind"] == "sphere":
+            out.append(program.Sphere(c["center"], c["radius"], kind=kind, friction=fr))
+        elif c["kind"] == "box":
+            out.append(program.Box(c["lo"], c["hi"], kind=kind, friction=fr))
+        else:
+            tab = c["table"].cpu().numpy()
+            out.append(program.SignedDistanceCollider(
+                np.ascontiguousarray(tab[..., 0]), float(c["spacing"]), kind=kind, friction=fr,
+                gradients=np.ascontiguousarray(np.moveaxis(tab[..., 1:], -1, 0)),
+                bound_cells=int(c["band"])))
+    return tuple(out)
+
+
+def build_program(program, config: dict, traffic: dict, inputs, device, devices=None,
+                  colliders: bool = True):
     """(engine, initial state) through the program's public API, as a user
-    builds a scene: ``SimConfig``, the materials, ``exact_tiles``,
-    ``MPMEngine`` and ``init_state``; then the inputs' deformation field
-    written into the state by id.  With a ``mesh`` in the configuration,
-    ``MultiChipEngine`` over ``devices`` (one a shard), which sizes its
-    tiles itself (``exact_tiles`` with ``tile_slack`` as its capacity
-    factor), and the field written into every shard."""
+    builds a scene: ``SimConfig``, the materials, the colliders (none where
+    ``colliders`` is false), ``exact_tiles``, ``MPMEngine`` and
+    ``init_state``; then every field of the inputs written into the state
+    by id.  With a ``mesh`` in the configuration, ``MultiChipEngine`` over
+    ``devices`` (one a shard), which sizes its tiles itself
+    (``exact_tiles`` with ``tile_slack`` as its capacity factor), and the
+    fields written into every shard."""
     sim = dict(config["sim"])
     sim["gravity"] = tuple(sim["gravity"])
     sim.update(rebucket_auto=bool(traffic["rebucket_auto"]),
@@ -130,12 +157,13 @@ def build_program(program, config: dict, traffic: dict, inputs, device, devices=
             cfg, parts, slack=float(config["tile_slack"])))
     mats = [getattr(program, m["material"])(volume=cfg.default_volume(), **m["params"])
             for m in config["models"]]
+    cols = program_colliders(program, scene.make_colliders(config, "cpu")) if colliders else ()
     if mesh is None:
-        eng = program.MPMEngine(cfg, mats, (), tile_chunk=int(config["tile_chunk"]),
+        eng = program.MPMEngine(cfg, mats, cols, tile_chunk=int(config["tile_chunk"]),
                                 device=device)
     else:
         eng = program.MultiChipEngine(
-            cfg, mats, mesh_shape=tuple(mesh["shape"]), device=list(devices),
+            cfg, mats, mesh_shape=tuple(mesh["shape"]), device=list(devices), colliders=cols,
             halo_capacity=int(mesh["halo_capacity"]),
             migration_capacity=int(mesh["migration_capacity"]),
             tile_chunk=int(config["tile_chunk"]),
@@ -144,16 +172,16 @@ def build_program(program, config: dict, traffic: dict, inputs, device, devices=
     del parts
     for shard in shards(state):
         for m, x in zip(shard.models, inputs):
-            name, width = scene.FIELDS[x["material"]]
-            fld = m.fields[name]
-            src = x["field"].device
-            idx = torch.clamp(torch.where(m.active, m.pid.long(), 0), 0,
-                              x["field"].shape[0] - 1).to(src)
-            val = x["field"][idx].to(fld.device)
-            val = val.t().reshape(fld.shape) if width > 1 else val
-            fld.copy_(torch.where(m.active, val, fld))
+            for name, width in scene.FIELDS[x["material"]]:
+                fld = m.fields[name]
+                src = x["fields"][name]
+                idx = torch.clamp(torch.where(m.active, m.pid.long(), 0), 0,
+                                  src.shape[0] - 1).to(src.device)
+                val = src[idx].to(fld.device)
+                val = val.t().reshape(fld.shape) if width > 1 else val
+                fld.copy_(torch.where(m.active, val, fld))
     for x in inputs:
-        x["field"] = None
+        x["fields"] = None
     return eng, state
 
 
@@ -265,6 +293,49 @@ def window_stats(win: dict, particles: int) -> dict:
     }
 
 
+def massive_positions(state, cfg) -> tuple:
+    """World x, y, z (f32) of the massive cells of a state's pool
+    [rows, 16, 128]: row r's oct key, the lane's z8, cy, cz and the mass
+    row's cx (the pool layout, copied from
+    claymore_tpu_torch/core/grid.py:_cell_coords and core/octpool.py:
+    oct_coord at 5f9f87e); the null row sits at the origin."""
+    keys = torch.clamp(state.partition.keys.long(), max=cfg.num_oct_keys - 1)
+    g, gzo = cfg.grid_size, cfg.grid_size_zo
+    bzo = keys % gzo
+    by = torch.div(keys, gzo, rounding_mode="floor") % g
+    bx = torch.clamp(torch.div(keys, gzo * g, rounding_mode="floor"), max=g - 1)
+    zero = torch.zeros((1,), dtype=bx.dtype, device=bx.device)
+    bx, by, bzo = (torch.cat([c, zero]) for c in (bx, by, bzo))
+    lane = torch.arange(128, device=bx.device)
+    cx = torch.arange(4, device=bx.device)[None, :, None]
+    bs = cfg.block_size
+    x = (bx[:, None, None] * bs + cx).to(torch.float32) * cfg.dx
+    y = (by[:, None, None] * bs + ((lane >> 2) & 3)[None, None, :]).to(torch.float32) * cfg.dx
+    z = (((bzo[:, None, None] * 8 + (lane >> 4)[None, None, :]) * bs
+          + (lane & 3)[None, None, :]).to(torch.float32) * cfg.dx)
+    shape = (bx.shape[0], 4, 128)
+    massive = state.grid[:, 0:4] > 0
+    return tuple(c.expand(shape)[massive] for c in (x, y, z))
+
+
+def collider_sizes(state, config: dict, cfg) -> list:
+    """Per collider of the configuration, what the frozen ``grid_bound``
+    takes: its type, its SDF table's nodes and the massive cells inside
+    the SDF's band (``counts.sdf_band_cells``)."""
+    out, x3 = [], None
+    for c in config.get("colliders", []):
+        kind = counts.COLLIDER_TYPES[c["kind"]]
+        if c["kind"] != "sdf":
+            out.append({"type": kind, "nodes": 0, "band_cells": 0})
+            continue
+        if x3 is None:
+            x3 = massive_positions(state, cfg)
+        n, b, h = int(c["nodes"]), int(c["band"]), float(c["spacing"])
+        out.append({"type": kind, "nodes": n ** 3,
+                    "band_cells": counts.sdf_band_cells(x3, b * h, (n - b) * h)})
+    return out
+
+
 def state_sizes(state, config: dict, cfg) -> dict:
     """Counts of a state the frozen bounds take (``counts.py``); of a mesh,
     its fullest shard's (the most live particles)."""
@@ -280,7 +351,7 @@ def state_sizes(state, config: dict, cfg) -> dict:
         hb = (base - 1) >> cfg.block_bits
         g = cfg.grid_size
         keys = (hb[0] * g + hb[1]) * g + hb[2]
-        _, width = scene.FIELDS[mc["material"]]
+        width = sum(w for _, w in scene.FIELDS[mc["material"]])
         models.append({"material": mc["material"], "slots": int(m.pos.shape[1]),
                        "tiles": int(m.tiles.block.shape[0]), "active": int(act.sum()),
                        "segments": int(torch.unique(keys).numel()),
@@ -288,7 +359,7 @@ def state_sizes(state, config: dict, cfg) -> dict:
     return {"pool_rows": rows, "massive_cells": massive,
             "octs": int(state.partition.count[0]), "max_active_octs": cfg.max_active_octs,
             "num_oct_keys": cfg.num_oct_keys, "particle_tile": cfg.particle_tile,
-            "models": models}
+            "models": models, "colliders": collider_sizes(state, config, cfg)}
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start=None,
@@ -313,7 +384,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
     inputs = scene.make_inputs(config, seed, dev)
     counts = [x["pos"].shape[0] for x in inputs]
     particles = sum(counts)
-    eng, snapshot = build_program(program, config, traffic, inputs, dev, devs)
+    eng, snapshot = build_program(program, config, traffic, inputs, dev, devs,
+                                  colliders=fault != "colliders_dropped")
     del inputs
     if fault is not None:
         from . import faults

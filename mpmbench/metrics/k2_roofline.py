@@ -1,6 +1,7 @@
 """K2, the grid update: its least time on the snapshot's pool (the frozen
-``grid_bound``, bytes over 3.35 TB/s) over the device time of its kernels
-per substep in the traced episodes, in %."""
+``grid_bound`` with the configuration's colliders, bytes over 3.35 TB/s)
+over the device time of its kernels (with or without colliders) per
+substep in the traced episodes, in %."""
 
 from mpmbench.traced import kernel_us
 

@@ -3,21 +3,26 @@
 It computes what a substep of the system under test computes, written from
 the method and not from the program: the grid update (momentum to velocity,
 the sticky slab of ``bound_blocks`` blocks at every domain face, gravity
-after the slab, the largest speed), the CFL step, and the fused
+after the slab, the static colliders on every massive node
+(``colliders.py``), the largest speed), the CFL step, and the fused
 grid-to-particle-to-grid transfer with quadratic B-splines and APIC
 moments (MLS-MPM, Hu et al. 2018): gather the velocity and its moment
 ``A_rc = sum_i w_i v_ir (x_i - x_p)_c``, update the material, advect, and
 scatter ``w_i (m v + Q (x_i - x_p))`` at the advected position with
 ``Q = (m A - P F^T V0 dt_next) D^-1``, ``D^-1 = 4 / dx^2``.  Materials:
 fixed corotated elasticity (the polar rotation by an unscaled Newton
-iteration) and the weakly compressible J-fluid (Tait pressure, viscosity).
+iteration), the weakly compressible J-fluid (Tait pressure, viscosity),
+and the plastic Drucker-Prager sand and NACC (``plastic.py``), which carry
+``logJp`` beside F.
 
 There are no blocks, tiles, arenas or rebuilds: every particle scatters
 into one dense ``(2^domain_bits)^3`` grid by ``index_add_``, and particles
 are addressed by their input row, the id the program reports.  The
 particles run in chunks of ``chunk`` rows so that the temporaries fit.
 It imports nothing of the program and takes only the inputs the benchmark
-made (``mpmbench/scene.py``) and the configuration file's numbers.
+made (``mpmbench/scene.py``: the particles and the colliders, an SDF's node
+table among them) and the configuration file's numbers, every material
+constant written out there.
 
 ``dtype`` is the precision everything but the positions is computed and
 stored in: the grid, the weights and offsets, velocities, moments, the
@@ -34,10 +39,8 @@ import math
 
 import torch
 
-
-def lame(e: float, nu: float):
-    """(lambda, mu) of Young's modulus ``e`` and Poisson's ratio ``nu``."""
-    return e * nu / ((1 + nu) * (1 - 2 * nu)), e / (2 * (1 + nu))
+from . import colliders as colliders_
+from .plastic import PLASTIC, lame
 
 
 def cofactor3(a: torch.Tensor) -> torch.Tensor:
@@ -79,46 +82,61 @@ class Material:
         self.rho = float(p["rho"])
         self.volume = volume
         self.mass = self.rho * volume
+        self.plastic = None
         if self.kind == "FixedCorotated":
             self.lam, self.mu = lame(float(p["e"]), float(p["nu"]))
         elif self.kind == "JFluid":
             self.bulk = float(p["bulk"])
             self.gamma = float(p["gamma"])
             self.viscosity = float(p["viscosity"])
+        elif self.kind in PLASTIC:
+            law = PLASTIC[self.kind]
+            missing = [k for k in law.KEYS + ("log_jp0",) if k not in p]
+            if missing:
+                raise ValueError(f"{self.kind}: the configuration states no {missing}")
+            self.plastic = law(p, volume)
         else:
             raise ValueError(f"the reference has no material {self.kind!r}")
 
-    def update(self, a, dt, d_inv, field):
-        """(new field, P F^T V0) of a chunk: ``a`` [B, 3, 3] the APIC
-        moment, ``field`` [B, 3, 3] (F) or [B] (J)."""
+    def update(self, a, dt, d_inv, fields):
+        """(new fields, P F^T V0) of a chunk: ``a`` [B, 3, 3] the APIC
+        moment, ``fields`` {"F": [B, 3, 3]}, {"J": [B]} or {"F", "logJp":
+        [B]}."""
         eye = torch.eye(3, dtype=a.dtype, device=a.device)
+        if self.plastic is not None:
+            f = matmul3(eye + (dt * d_inv) * a, fields["F"])
+            f, log_jp, stress = self.plastic.project(f, fields["logJp"])
+            return {"F": f, "logJp": log_jp}, stress
         if self.kind == "FixedCorotated":
-            f = matmul3(eye + (dt * d_inv) * a, field)
+            f = matmul3(eye + (dt * d_inv) * a, fields["F"])
             r = polar_rotation(f)
             j = det3(f)
             r = torch.where((j < 0)[:, None, None], -r, r)
             ft = f.transpose(-1, -2)
             stress = 2.0 * self.mu * (matmul3(f, ft) - matmul3(r, ft)) \
                 + (self.lam * (j - 1.0) * j)[:, None, None] * eye
-            return f, stress * self.volume
+            return {"F": f}, stress * self.volume
+        field = fields["J"]
         j = field + (a[:, 0, 0] + a[:, 1, 1] + a[:, 2, 2]) * (dt * d_inv) * field
         j = torch.clamp(j, min=0.1)
         pressure = self.bulk * (torch.pow(j, -self.gamma) - 1.0)
         stress = (a + a.transpose(-1, -2)) * (d_inv * self.viscosity) \
             - pressure[:, None, None] * eye
-        return j, stress * (j * self.volume)[:, None, None]
+        return {"J": j}, stress * (j * self.volume)[:, None, None]
 
 
 class DenseMPM:
     """The reference simulation of one configuration.
 
     ``config`` is the configuration file's dict; ``inputs`` one dict per
-    model with ``pos`` [N, 3], ``field`` ([N, 9] F or [N] J) and ``v0``
-    (3 floats), as ``mpmbench/scene.py`` makes them.  ``frame_end`` is the
-    end time the program's substeps are given."""
+    model with ``pos`` [N, 3], ``fields`` (name -> [N, 9] F, [N] J or [N]
+    logJp) and ``v0`` (3 floats), as ``mpmbench/scene.py`` makes them;
+    ``colliders`` the configuration's colliders as
+    ``scene.make_colliders`` gives them (made from ``config`` where None).
+    ``frame_end`` is the end time the program's substeps are given."""
 
     def __init__(self, config: dict, inputs, dtype=torch.float32, device="cpu",
-                 frame_end: float = 1e9, chunk: int = 1 << 21):
+                 frame_end: float = 1e9, chunk: int = 1 << 21, colliders=None):
         sim = config["sim"]
         self.dtype = dtype
         self.device = torch.device(device)
@@ -144,12 +162,13 @@ class DenseMPM:
         self.iota = torch.arange(3, dtype=torch.float32, device=self.device)
 
         f = dict(dtype=dtype, device=self.device)
+        if colliders is None:
+            from ..scene import make_colliders
+            colliders = make_colliders(config, self.device)
+        self.colliders = colliders
         self.pos = [x["pos"].to(torch.float32).contiguous() for x in inputs]
-        self.field = []
-        for x, mat in zip(inputs, self.materials):
-            fld = x["field"].to(**f)
-            self.field.append(fld.reshape(-1, 3, 3).clone() if mat.kind == "FixedCorotated"
-                              else fld.clone())
+        self.fields = [{k: (v.to(**f).reshape(-1, 3, 3) if k == "F" else v.to(**f)).clone()
+                        for k, v in x["fields"].items()} for x in inputs]
         self.t = torch.zeros((), **f)
         self.dt = torch.full((), self.default_dt, **f)
         self.step_count = 0
@@ -195,6 +214,11 @@ class DenseMPM:
             torch.where(self.near[None, :, None], 0.0, v[..., 1]),
             torch.where(self.near[None, None, :], 0.0, v[..., 2])], dim=-1).view(-1, 3)
         v = v + self.gravity * self.dt
+        if self.colliders:
+            rows = has.nonzero()[:, 0]
+            ijk = torch.stack([rows // (n * n), (rows // n) % n, rows % n], dim=1)
+            x = ijk.to(torch.float32) * self.dx
+            v = v.index_copy(0, rows, colliders_.apply(self.colliders, x, v[rows]))
         v = torch.where(has[:, None], v, 0.0)
         vs = (v * v).sum(dim=1)
         vs = torch.where(torch.isnan(vs), torch.inf, vs)
@@ -218,7 +242,7 @@ class DenseMPM:
         dt, d_inv = self.dt, self.d_inv
         nxt = torch.zeros_like(self.grid)
         for mi, mat in enumerate(self.materials):
-            pos, field = self.pos[mi], self.field[mi]
+            pos, fields = self.pos[mi], self.fields[mi]
             for lo in range(0, pos.shape[0], self.chunk):
                 sl = slice(lo, lo + self.chunk)
                 xs = pos[sl]
@@ -230,7 +254,8 @@ class DenseMPM:
                                  (wv.sum(dim=(1, 3)) * d[:, 1, :, None]).sum(dim=1),
                                  (wv.sum(dim=(1, 2)) * d[:, 2, :, None]).sum(dim=1)],
                                 dim=-1)                               # [B, 3 (r), 3 (c)]
-                new_field, stress = mat.update(a, dt, d_inv, field[sl])
+                new_fields, stress = mat.update(a, dt, d_inv,
+                                                {k: f[sl] for k, f in fields.items()})
                 xn = xs + (vel * dt).float()
                 q = (a * mat.mass - stress * next_dt) * d_inv
                 w2, idx2, d2 = self._stencil(xn)
@@ -242,7 +267,8 @@ class DenseMPM:
                 vals = torch.cat([torch.full_like(w2[..., None], mat.mass), mom], dim=-1)
                 nxt.index_add_(0, idx2.reshape(-1), (w2[..., None] * vals).reshape(-1, 4))
                 pos[sl] = xn
-                field[sl] = new_field
+                for k, f in new_fields.items():
+                    fields[k][sl] = f
         self.grid = nxt
         self.t = t_after
         self.dt = next_dt
@@ -256,11 +282,13 @@ class DenseMPM:
     # ------------------------------------------------------------------
 
     def outputs(self):
-        """Per model: positions [N, 3] and the deformation field, F as
-        [N, 9] row-major or J as [N], in float32; plus the grid's mass in
-        float64 and the step size the next substep would take."""
-        models = [{"pos": p.float(), "field": (f.reshape(-1, 9) if f.dim() == 3 else f).float()}
-                  for p, f in zip(self.pos, self.field)]
+        """Per model: positions [N, 3] and the fields, F as [N, 9] row-major,
+        J or logJp as [N], in float32; plus the grid's mass in float64 and
+        the step size the next substep would take."""
+        models = [{"pos": p.float(),
+                   "fields": {k: (f.reshape(-1, 9) if f.dim() == 3 else f).float()
+                              for k, f in fs.items()}}
+                  for p, fs in zip(self.pos, self.fields)]
         return {"models": models, "mass": float(self.grid[:, 0].double().sum()),
                 "dt": float(self.dt), "substeps": self.step_count}
 

@@ -21,7 +21,9 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["tiny_sphere.fall", "tiny_fluid.launch"])
+@pytest.mark.parametrize("name", ["tiny_sphere.fall", "tiny_fluid.launch", "tiny_halfspace.run",
+                                  "tiny_ball.run", "tiny_box.run", "tiny_sdf.run", "tiny_sand.run",
+                                  "tiny_nacc.run", "tiny_multimat.run"])
 def test_small_cell_on_card(card, name):
     cell = copy.deepcopy(scene.load_cell(name, DATA / "workloads", DATA / "configs"))
     cell["configuration"]["sim"]["particle_tile"] = 256

@@ -35,7 +35,8 @@ def test_run_and_program_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    names = loaded_top_names("import mpmbench.reference.mpm, mpmbench.scene, mpmbench.check")
+    names = loaded_top_names("import mpmbench.reference.mpm, mpmbench.reference.plastic, "
+                             "mpmbench.reference.colliders, mpmbench.scene, mpmbench.check")
     assert not names & {"jax", "jaxlib", "flax", "claymore_tpu", "claymore_tpu_torch"}
 
 

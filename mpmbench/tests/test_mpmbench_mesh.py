@@ -76,7 +76,8 @@ def test_mesh_capture_matches_one_device():
     assert got["missing"] == want["missing"] == 0
     for g, w in zip(got["models"], want["models"]):
         assert float((g["pos"] - w["pos"]).abs().max()) < 2e-6
-        assert float((g["field"] - w["field"]).abs().max()) < 2e-6
+        for name, f in g["fields"].items():
+            assert float((f - w["fields"][name]).abs().max()) < 2e-6
     assert got["mass"] == pytest.approx(want["mass"], rel=1e-6)
 
 

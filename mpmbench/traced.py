@@ -184,13 +184,13 @@ def card_kernel_us(rec: dict, patterns) -> tuple:
 
 
 def bounds(sizes: dict) -> dict:
-    """Least times (ms) of one substep's K1 (every model) and K2, and of one
-    rebuild (the rebucket with its sort, every model, and the partition
+    """Least times (ms) of one substep's K1 (every model) and K2 (with the
+    configuration's colliders), and of one rebuild (the rebucket with its sort, every model, and the partition
     rebuild), on the snapshot's sizes (``harness.state_sizes``)."""
     k1 = sum(counts.g2p2g_bound(m["material"], m["slots"], m["tiles"], sizes["octs"],
                                 m["active"])["bound_ms"] for m in sizes["models"])
     k2 = counts.grid_bound(sizes["pool_rows"], sizes["max_active_octs"],
-                           sizes["massive_cells"])["bound_ms"]
+                           sizes["massive_cells"], sizes.get("colliders", ()))["bound_ms"]
     rb = 0.0
     for m in sizes["models"]:
         b = counts.rebucket_bound(sizes["particle_tile"], m["slots"], m["channels"],
