@@ -231,7 +231,7 @@ def grid_info(name: str, num_colliders: int = 3) -> dict:
 def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
                        reps: int = 20, model_idx: int = 0,
                        time_plain: bool = True, plain_reps: int = 0,
-                       tile_split: int = None) -> dict:
+                       tile_split: int = None, ranges=None, repeat: int = 1) -> dict:
     """K1 (the variant of ``mat``) against core.transfer.g2p2g_model on the
     card, from one grid update of ``state``: the grids (the pools' live
     rows) within 1e-5 x the largest grid value (float atomics reorder the
@@ -253,7 +253,15 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     (``g2p2g_kernel.occupied_slots`` of the input): its count of streamed
     slots must equal their sum over the range (``streamed_slots`` of
     ``slots``), and every output slot past a prefix must read inactive, pid
-    S."""
+    S.  Its blocks claim the tiles at run time: the live tiles they took
+    (``block_balance_counter``) must equal the tiles with an occupied
+    prefix, and every block of each launch must have ended
+    (``balance``: ``prof_k1.block_balance``).  ``ranges``: consecutive tile
+    ranges from 0 to T instead of ``tile_split``'s two, where the plain
+    version, which takes whole ``tile_chunk``s, runs all T at once (a
+    tile's result does not depend on the split); ``repeat`` n: the
+    kernel runs n times back to back, each call into new outputs, and the
+    last is compared (the counters then read n times the input's)."""
     from claymore_tpu_torch.core import grid, partition, transfer
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
     from claymore_tpu_torch.scripts import prof_k1
@@ -264,7 +272,13 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     table, model = state.partition.table, state.models[model_idx]
 
     nt = model.tiles.tvalid.shape[0]
-    ranges = [None] if tile_split is None else [(0, tile_split), (tile_split, nt)]
+    if ranges is None:
+        ranges = [None] if tile_split is None else [(0, tile_split), (tile_split, nt)]
+        plain_ranges = ranges
+    elif [r[0] for r in ranges] + [nt] != [0] + [r[1] for r in ranges]:
+        raise ValueError(f"ranges {ranges} do not cover the {nt} tiles in order")
+    else:
+        plain_ranges = [None]   # the same tiles in one call: it takes whole tile_chunks
 
     def kernel(acc):
         out, margin = None, None
@@ -276,7 +290,7 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
 
     def plain(acc):
         out = None
-        for r in ranges:
+        for r in plain_ranges:
             out, acc = transfer.g2p2g_model(cfg, mat, pool_v, table, model, state.dt,
                                             next_dt, acc, tile_chunk, r, out)
         return out, acc
@@ -285,14 +299,24 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
     if span4:
         g2p2g_kernel.wide_tile_counter(DEVICE).zero_()
     g2p2g_kernel.streamed_slot_counter(DEVICE).zero_()
-    mk, pk, margin = kernel(torch.zeros_like(state.grid))
+    g2p2g_kernel.block_balance_counter(DEVICE).zero_()
+    for _ in range(repeat):
+        mk, pk, margin = kernel(torch.zeros_like(state.grid))
     streamed = int(g2p2g_kernel.streamed_slot_counter(DEVICE)[0])
+    words = g2p2g_kernel.block_balance_counter(DEVICE).tolist()
     mt, pt = plain(torch.zeros_like(state.grid))
     torch.cuda.synchronize()
     prefix = g2p2g_kernel.occupied_slots(cfg, model)
-    if streamed != int(prefix.sum()):
-        raise AssertionError(f"g2p2g kernel: {streamed} slots streamed, the occupied "
-                             f"prefixes hold {int(prefix.sum())}")
+    if streamed != repeat * int(prefix.sum()):
+        raise AssertionError(f"g2p2g kernel: {streamed} slots streamed in {repeat} calls, "
+                             f"the occupied prefixes hold {int(prefix.sum())}")
+    grid_blocks = torch.cuda.get_device_properties(DEVICE).multi_processor_count * \
+        g2p2g_kernel.kernel_info(mat, cfg.particle_tile, cfg.arena_span)["blocks_per_sm"]
+    blocks = repeat * sum(min((r[1] - r[0]) if r else nt, grid_blocks) for r in ranges)
+    live = repeat * int((prefix > 0).sum())
+    if words[0] != blocks or words[1] != live or words[5] < blocks:
+        raise AssertionError(f"g2p2g kernel: {words[0]} blocks ended of {blocks}, their "
+                             f"live tiles {words[1]} of {live}, {words[5]} claims")
     past = (torch.arange(cfg.particle_tile, device=DEVICE)[None, :] >= prefix[:, None]).reshape(-1)
     s_cap = model.pos.shape[1]
     if bool(mk.active[past].any()) or bool((mk.pid[past] != s_cap).any()):
@@ -357,7 +381,8 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         raise AssertionError("g2p2g kernel: particles did not move")
     out = {"max_abs_err": grid_err, "grid_max": grid_max, "pos_err": pos_err,
            "field_err": field_err, "flipped": flipped, "active": n_act,
-           "margin": float(margin), "streamed_slots": streamed, "slots": s_cap, **wide}
+           "margin": float(margin), "streamed_slots": streamed, "slots": s_cap,
+           "balance": prof_k1.block_balance(words), **wide}
     if time_it:
         # into one pool that keeps adding up: its contents do not change the
         # work, and a zeroing pass would add 0.5 GB of stores to the time
@@ -1756,7 +1781,9 @@ def log_k1(label: str, k1: dict, facts: str) -> None:
         f"kernel {k1['ms']:.4f} ms, plain "
         + (f"{k1['plain_ms']:.4f} ms" if "plain_ms" in k1 else "not timed") + ", margin "
         f"{k1['margin']!r} == arena_margin, streamed {k1['streamed_slots']} of "
-        f"{k1['slots']} slots, {k1['registers']} registers, "
+        f"{k1['slots']} slots, blocks' live tiles and span max/mean "
+        f"{k1['balance']['live_ratio']:.3f}, {k1['balance']['time_ratio']:.3f}, "
+        f"{k1['registers']} registers, "
         f"{k1['blocks_per_sm']} blocks/SM"
         + (f", wide tiles {k1['wide_tiles']} of {k1['live_tiles']}" if "wide_tiles" in k1
            else "") + f" | {facts}")

@@ -56,21 +56,49 @@
 //    (dambreak12m) of the slots are active.  The placement fills a tile from
 //    slot 0 and a slot only goes inactive between rebuilds, so L is tight; it
 //    is read from the tile's own active column, so it holds for any layout.
-//    A block reads the valid flags and active columns of its next kTileList
-//    candidate tiles at once (a lane a tile from the column's end, then a
+//    A block reads the valid flags and active columns of the candidate
+//    tiles it claims at once (a lane a tile from the column's end, then a
 //    warp a column for the tiles that end early) and lists the occupied ones
 //    with their L: the ring loads only listed tiles, so a run of dead tiles
-//    costs no stage and never leaves a live tile's load un-overlapped.  With
-//    dead tiles nearly free a block's time is its live tiles', so the
-//    blocks' candidates rotate through the tile index's residues mod 8
-//    (``candidate``).  Every slot loop runs over [0, L); the stage past L
+//    costs no stage and never leaves a live tile's load un-overlapped.
+//  * With dead tiles nearly free a block's time is its live tiles', and a
+//    fixed share of the tiles left the busiest block 8-13% above the mean
+//    (a model of the static walk on the benchmark's jittered states).  So
+//    the tiles are handed out at run time: a block claims the next chunk of
+//    the range, in tile order, from a cursor in the launch's zeroed margin
+//    words (``list_tiles``): 8 tiles after a claim that listed a live tile
+//    (fewer where a block's share of the range is under 64 tiles), twice
+//    the last claim after one that listed none (up to 256 and to the
+//    unclaimed tiles over twice the grid).  Measured on an H100 at 700 W
+//    (scripts/prof_k1.py --cells, the benchmark's jittered states, against
+//    the static walk in the same call): sphere25m 6.58-6.74 ms at set-up
+//    and 7.29-7.57 after 20 substeps against 7.00-7.35 and 7.97-8.16,
+//    dambreak12m 2.73-2.94 against 3.13-3.54, the busiest block's span
+//    1.2-3.6% above the mean (``block_balance_counter``), 26-60 claims a
+//    block.  What each part of the rule is for:
+//    - tile order: a block's consecutive tiles share neighbour rows; the
+//      same claims taken down the static walk's columns (tile b + i x
+//      grid) ran 2-7% slower;
+//    - small chunks where tiles are live: chunks of the unclaimed tiles
+//      over twice the grid (guided scheduling) assume the live tiles
+//      spread evenly, but the rebucket fills tiles from 0 and leaves the
+//      capacity's slack at the end, so dambreak12m's first chunks held
+//      160 live tiles and its busiest block ran 1.6-1.9x the mean (4.4 ms);
+//    - doubling over dead tiles: chunks of 8 everywhere took 42 claims a
+//      block on dambreak12m's slack (2.88-2.96 ms) against 27;
+//    - the floor scaled to the range: at 1-2M particles (4-7k tiles)
+//      chunks of 8 left blocks 1.2-1.7x the mean, and K1-SD took 0.77-0.85
+//      ms against the static walk's 0.68-0.69 (0.64-0.70 scaled).
+//  * Every slot loop runs over [0, L); the stage past L
 //    holds an earlier tile's bytes and is never read.  Position and fields
 //    are written back over [0, L) only: past it they stay as the caller's
 //    output held them (inactive slots' state is undefined after the
 //    transfer).  Active and pid are written for every slot, 0 and S past L
 //    and over every tile the list skips (5 bytes a slot).  A device counter
 //    (ops/g2p2g_kernel.py:streamed_slot_counter) sums the L of every
-//    streamed tile, one atomic a block; the substep never reads it.
+//    streamed tile, one atomic a block, and another
+//    (block_balance_counter) each block's live tiles, span on %globaltimer
+//    and claims, six atomics a block; the substep reads neither.
 //  * Phase 1, one slot per thread: G2P, the material, advection, the range
 //    checks and the margin; the particle's m v and Q go to shared memory.
 //  * P2G with ~7x fewer atomics: the block counting-sorts its particles by
@@ -179,7 +207,7 @@ constexpr int kRowFloats = 16 * 128;
 constexpr int kMaxParams = 16;
 constexpr int kMinTile = 32, kMaxTile = 1024;
 constexpr int kP2G = 12;                      // m v (3) and Q (9) per particle
-constexpr int kTileList = kThreads;           // candidate tiles a block lists at once
+constexpr int kTileList = kThreads;           // the most tiles a block claims at once
 constexpr int kSlotRound = 16;                // an occupied prefix is whole 16-slot runs
 
 // the transfer arena of span kSpan blocks a side.  The shared-memory arenas
@@ -229,10 +257,13 @@ struct Params {
   unsigned char* active_out;
   int* pid_out;
   float* next_pool;
-  unsigned int* margin_key;     // u32[2]: key, finished blocks; zeroed by the wrapper
+  unsigned int* margin_key;     // u32[3]: key, finished blocks, the candidate cursor;
+                                // zeroed by the wrapper
   float* margin_out;            // f32[]
   unsigned int* wide_tiles;     // u32[1]: span 4, tiles whose P2G took several passes
   unsigned long long* streamed; // u64[1]: slots of the occupied prefixes streamed
+  unsigned long long* balance;  // u64[6]: blocks, live tiles (sum, max), block ns (sum,
+                                // max), claims
   int num_tiles, tile_lo, tile_hi, tile, g, gzo, num_oct_keys, null_oct;
   float dx, dx_inv, d_inv, mass;
   float mp[kMaxParams];         // the material's constants (ops/g2p2g_kernel.py)
@@ -709,10 +740,12 @@ struct Layout {                 // byte offsets into the dynamic shared memory
 
 // the tile ring's control words in shared memory (ints): per ring slot b
 // its tile and occupied prefix (0: no tile), per take parity b the list
-// position, the listed count, the first candidate of the list and of the
-// next one, and the streamed slots (u64, 8-byte aligned)
+// position, the listed count, the first tile of the block's claim (from
+// tile_lo) and its length, the live tiles the block took, the streamed
+// slots and the block's start (u64, 8-byte aligned), the block's claims
+// and the length of its next claim
 enum Ctl { kRingTile = 0, kRingLen = 1, kPos = 4, kCount = 6, kBase = 7, kCand = 8,
-           kStreamed = 10, kCtlWords = 12 };
+           kLive = 9, kStreamed = 10, kStart = 12, kClaims = 14, kNext = 15, kCtlWords = 16 };
 
 template <class M, class A>
 __host__ __device__ inline Layout layout(int n) {
@@ -818,29 +851,47 @@ __device__ __forceinline__ void clear_tile(const Params& p, int t, int n, int la
   for (int i = lane; i < n / 4; i += 32) d[i] = make_int4(none, none, none, none);
 }
 
-// the tile of the block's candidate i: row i of gridDim.x tiles from
-// tile_lo, at column (blockIdx.x + i) mod gridDim.x.  Each row is shared
-// out among the blocks, and a block's columns rotate through every residue:
-// at a fixed column the tile index would keep one residue mod 8, and each
-// oct's tiles are padded to 8 with its dead tiles last, so some blocks
-// would walk mostly dead tiles and others mostly live ones (sphere25m's
-// jittered state: 412 live tiles on the busiest block against 284 on
-// average, 306 rotated)
-__device__ __forceinline__ int candidate(const Params& p, int i) {
-  return p.tile_lo + i * (int)gridDim.x + (int)((blockIdx.x + i) % gridDim.x);
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-// the block's next kTileList candidates, from the control word kCand
-// (thread k reads candidate kCand + k): the occupied ones go to ``tlist``
+// the block's next claim of candidate tiles, listed.  Thread 0 claims the
+// next chunk of the range's tiles, in order, from the launch's cursor
+// (margin_key[2]) with one atomicAdd: after a claim that listed a live
+// tile, the floor, 8 tiles (an oct's padded group) or, where the range
+// holds fewer than 64 a block, the range over 8 x the grid (at least 1),
+// so that every block takes 8 or more claims; after a claim that listed
+// none, twice that claim, but no more than kTileList and than the
+// unclaimed tiles over 2 x the grid, so that the capacity's dead tail
+// takes few claims and no block is left with a large one at the end.
+// Thread k reads tile kBase + k of it: the occupied ones go to ``tlist``
 // in order as (k << 8 | runs), the others in the range are cleared; the
-// list's count, its first candidate, the next list's and list position b
-// (0) go to the control words.  Every thread calls it; it synchronises
+// claim's first tile (from tile_lo) and length, the next claim's length
+// (0: the floor), the list's count and list position b (0) go to the
+// control words.  Every thread calls it; it synchronises before the claim
+// (every thread has read the words that brought it here), after it,
 // before it writes the list and after
 __device__ __forceinline__ void list_tiles(const Params& p, int n, unsigned short* tlist,
                                            volatile int* ctl, int b, int* wsum, int tid) {
   const int lane = tid & 31, warp = tid >> 5;
-  const int first = ctl[kCand];
-  const int c = candidate(p, first + tid);
+  __syncthreads();
+  if (tid == 0) {
+    unsigned int* cursor = p.margin_key + 2;
+    const int range = p.tile_hi - p.tile_lo, g = (int)gridDim.x;
+    const int least = min(max(range / (8 * g), 1), 8);
+    int chunk = max(ctl[kNext], least);
+    if (chunk > least) {
+      const int left = range - (int)*reinterpret_cast<volatile unsigned int*>(cursor);
+      chunk = max(min(chunk, left / (2 * g)), least);
+    }
+    ctl[kBase] = (int)atomicAdd(cursor, (unsigned int)chunk);
+    ctl[kCand] = chunk;
+    ctl[kClaims] += 1;
+  }
+  __syncthreads();
+  const int c = tid < ctl[kCand] ? p.tile_lo + ctl[kBase] + tid : p.tile_hi;
   const int runs = occupied_runs(p, c, n, lane);
   const unsigned has = __ballot_sync(0xffffffffu, runs > 0);
   unsigned dead = __ballot_sync(0xffffffffu, c < p.tile_hi && runs == 0);
@@ -855,9 +906,8 @@ __device__ __forceinline__ void list_tiles(const Params& p, int n, unsigned shor
   if (runs) tlist[off + __popc(has & ((1u << lane) - 1u))] = (unsigned short)((tid << 8) | runs);
   if (tid == 0) {
     ctl[kCount] = total;
-    ctl[kBase] = first;
-    ctl[kCand] = first + kTileList;
     ctl[kPos + b] = 0;
+    ctl[kNext] = total ? 0 : min(2 * ctl[kCand], kTileList);
   }
   while (dead) {
     const int j = __ffs(dead) - 1;
@@ -1256,6 +1306,7 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
   volatile int* ctl = reinterpret_cast<volatile int*>(smem + lay.ctl);
   unsigned long long* streamed =
       reinterpret_cast<unsigned long long*>(smem + lay.ctl) + kStreamed / 2;
+  unsigned long long* start = reinterpret_cast<unsigned long long*>(smem + lay.ctl) + kStart / 2;
   unsigned short* tlist = reinterpret_cast<unsigned short*>(smem + lay.tlist);
   int* wsum = reinterpret_cast<int*>(smem + lay.wsum);
   uint4* wext = reinterpret_cast<uint4*>(smem + lay.wext);
@@ -1281,9 +1332,9 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
     mbar_init(&bar[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     *blk_key = 0u;
-    ctl[kPos] = ctl[kCount] = 0;
-    ctl[kCand] = 0;
+    ctl[kPos] = ctl[kCount] = ctl[kBase] = ctl[kLive] = ctl[kClaims] = ctl[kNext] = 0;
     *streamed = 0ull;
+    *start = global_ns();
   }
   for (int i = tid; i < 4 * Ar::kChan; i += kThreads) oarena[i] = 0.0f;
   for (int i = tid; i < Ar::kBins; i += kThreads) hist[i] = 0;
@@ -1345,23 +1396,22 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
   };
 
   // the block's next tile with an occupied prefix, in the order of its
-  // candidates (``candidate``), into ring slot b (prefix 0: none left).
-  // Candidates are listed kTileList at a time; the list position is kept
-  // per take parity (b), so that thread 0 writes one while the others read
-  // the other.  Every thread calls it alike after a barrier; it ends with
-  // one
+  // claims (``list_tiles``), into ring slot b (prefix 0: none left, once a
+  // claim starts past the candidates).  The list position is kept per take
+  // parity (b), so that thread 0 writes one while the others read the
+  // other.  Every thread calls it alike after a barrier; it ends with one
   auto take = [&](int b) {
-    while (ctl[kPos + b] == ctl[kCount]
-           && ctl[kCand] * (int)gridDim.x < p.tile_hi - p.tile_lo)
+    while (ctl[kPos + b] == ctl[kCount] && ctl[kBase] < p.tile_hi - p.tile_lo)
       list_tiles(p, n, tlist, ctl, b, wsum, tid);
     if (tid == 0) {
       const int pos = ctl[kPos + b];
       int tile = 0, len = 0;
       if (pos < ctl[kCount]) {
         const int e = tlist[pos];
-        tile = candidate(p, ctl[kBase] + (e >> 8));
+        tile = p.tile_lo + ctl[kBase] + (e >> 8);
         len = (e & 255) * kSlotRound;
         *streamed += len;
+        ctl[kLive] += 1;
       }
       ctl[kPos + (b ^ 1)] = pos + (len > 0);
       ctl[kRingTile + 2 * b] = tile;
@@ -1603,6 +1653,15 @@ __global__ void __launch_bounds__(kThreads, M::kMinBlocks)
       __threadfence();
       *p.margin_out = margin_value(atomicMax(&p.margin_key[0], 0u));
     }
+    // the block's balance: its live tiles, its span, its claims
+    const unsigned long long live = (unsigned long long)ctl[kLive],
+                             ns = global_ns() - *start;
+    atomicAdd(&p.balance[0], 1ull);
+    atomicAdd(&p.balance[1], live);
+    atomicMax(&p.balance[2], live);
+    atomicAdd(&p.balance[3], ns);
+    atomicMax(&p.balance[4], ns);
+    atomicAdd(&p.balance[5], (unsigned long long)ctl[kClaims]);
   }
 }
 
@@ -1633,7 +1692,8 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
            float* F_out, float* aux_out, unsigned char* active_out,
            int* pid_out, float* next_pool, unsigned int* margin_key,
            float* margin_out, unsigned int* wide_tiles, unsigned long long* streamed,
-           int num_tiles, int tile_lo, int tile_hi, int tile, int g, int gzo,
+           unsigned long long* balance, int num_tiles, int tile_lo, int tile_hi, int tile,
+           int g, int gzo,
            int num_oct_keys, int null_oct,
            float dx, float dx_inv, float d_inv, float mass, const float* mp, int num_mp,
            void* stream) {
@@ -1643,7 +1703,7 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
     return (int)cudaErrorInvalidValue;
   if ((M::kF && (F == nullptr || F_out == nullptr)) ||
       (M::kAux && (aux == nullptr || aux_out == nullptr)) ||
-      (A::kWindow && wide_tiles == nullptr) || streamed == nullptr)
+      (A::kWindow && wide_tiles == nullptr) || streamed == nullptr || balance == nullptr)
     return (int)cudaErrorInvalidValue;
   int per_sm = 0, bytes = 0, dev = 0, sms = 0;
   cudaError_t err = occupancy<M, A>(tile, &per_sm, &bytes);
@@ -1654,7 +1714,8 @@ int launch(const float* pool_v, const int* table, const int* bcoord,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Params p{pool_v, table, bcoord, tvalid, pos, F, aux, active, pid, dt,
            next_dt, pos_out, F_out, aux_out, active_out, pid_out, next_pool,
-           margin_key, margin_out, wide_tiles, streamed, num_tiles, tile_lo, tile_hi, tile,
+           margin_key, margin_out, wide_tiles, streamed, balance, num_tiles, tile_lo, tile_hi,
+           tile,
            g, gzo, num_oct_keys, null_oct, dx, dx_inv, d_inv, mass, {}};
   for (int i = 0; i < num_mp; ++i) p.mp[i] = mp[i];
   const int range = tile_hi - tile_lo;
@@ -1695,7 +1756,8 @@ int info_span(int span, int tile, int* out) {
       const float* dt, const float* next_dt, float* pos_out, float* F_out,     \
       float* aux_out, unsigned char* active_out, int* pid_out,                 \
       float* next_pool, unsigned int* margin_key, float* margin_out,           \
-      unsigned int* wide_tiles, unsigned long long* streamed, int num_tiles,   \
+      unsigned int* wide_tiles, unsigned long long* streamed,                  \
+      unsigned long long* balance, int num_tiles,                              \
       int tile_lo, int tile_hi, int tile, int span, int g, int gzo,            \
       int num_oct_keys, int null_oct,                                          \
       float dx, float dx_inv, float d_inv, float mass, const float* mp,        \
@@ -1705,7 +1767,7 @@ int info_span(int span, int tile, int* out) {
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
                                 margin_key, margin_out, wide_tiles, streamed,  \
-                                num_tiles, tile_lo, tile_hi, tile, g,          \
+                                balance, num_tiles, tile_lo, tile_hi, tile, g, \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     if (span == 4)                                                             \
@@ -1713,7 +1775,7 @@ int info_span(int span, int tile, int* out) {
                                 active, pid, dt, next_dt, pos_out, F_out,      \
                                 aux_out, active_out, pid_out, next_pool,       \
                                 margin_key, margin_out, wide_tiles, streamed,  \
-                                num_tiles, tile_lo, tile_hi, tile, g,          \
+                                balance, num_tiles, tile_lo, tile_hi, tile, g, \
                                 gzo, num_oct_keys, null_oct, dx, dx_inv,       \
                                 d_inv, mass, mp, num_mp, stream);              \
     return (int)cudaErrorInvalidValue;                                         \

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
-_G2P2G = [_P] * 21 + [_I] * 9 + [_F] * 4 + [_P, _I, _P]
+_G2P2G = [_P] * 22 + [_I] * 9 + [_F] * 4 + [_P, _I, _P]
 # the probes: (x, shifts, out, tiles, stream); P5 (pool, idx, out, slot,
 # wsum, rows, programs, runs, run_rows, plan, stream); P6 (pool, idx, out,
 # cover, rows, programs, runs, run_rows, stream)

@@ -38,6 +38,7 @@ _LAYOUT = {
 MIN_TILE, MAX_TILE = 32, 1024     # the kernel's range of particle_tile
 _WIDE = {}                        # device -> wide_tile_counter
 _STREAMED = {}                    # device -> streamed_slot_counter
+_BALANCE = {}                     # device -> block_balance_counter
 
 
 def kernel_params(material: Material) -> List[float]:
@@ -183,7 +184,9 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
         return fields[key].data_ptr() if key else None
 
     pos_out, active_out, pid_out = out.pos, out.active, out.pid
-    margin_key = torch.zeros((2,), dtype=torch.int32, device=dev)
+    # the margin's key and finished blocks, and the cursor the blocks claim
+    # their candidate tiles from: zero for every call
+    margin_key = torch.zeros((3,), dtype=torch.int32, device=dev)
     margin = torch.empty((), dtype=torch.float32, device=dev)
     mp = kernel_params(material)
     mp_arr = (ctypes.c_float * len(mp))(*mp)
@@ -196,7 +199,8 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
         ptr(fields_out, f_name), ptr(fields_out, aux_name),
         active_out.data_ptr(), pid_out.data_ptr(), next_pool.data_ptr(),
         margin_key.data_ptr(), margin.data_ptr(), wide_tile_counter(dev).data_ptr(),
-        streamed_slot_counter(dev).data_ptr(), num_tiles, lo, hi, cfg.particle_tile,
+        streamed_slot_counter(dev).data_ptr(), block_balance_counter(dev).data_ptr(),
+        num_tiles, lo, hi, cfg.particle_tile,
         cfg.arena_span, cfg.grid_size, cfg.grid_size_zo,
         cfg.num_oct_keys, cfg.null_oct,
         cfg.dx, cfg.dx_inv, cfg.d_inv, material.mass, mp_arr, len(mp),
@@ -208,12 +212,12 @@ def _launch(cfg, material, pool_v, table, model, dt, next_dt, next_pool, lo, hi,
     return new_model, next_pool, margin
 
 
-def _counter(store: dict, device, dtype) -> torch.Tensor:
+def _counter(store: dict, device, dtype, size: int = 1) -> torch.Tensor:
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device(dev.type, torch.cuda.current_device())
     if dev not in store:
-        store[dev] = torch.zeros((1,), dtype=dtype, device=dev)
+        store[dev] = torch.zeros((size,), dtype=dtype, device=dev)
     return store[dev]
 
 
@@ -235,6 +239,19 @@ def streamed_slot_counter(device) -> torch.Tensor:
     the transfer moves.  The substep never reads it; a profiling script
     zeroes it (``zero_()``) and reads it after its run."""
     return _counter(_STREAMED, device, torch.int64)
+
+
+def block_balance_counter(device) -> torch.Tensor:
+    """The device counter (i64[6] on ``device``) of how evenly K1's
+    persistent blocks shared the work, summed over every launch on the
+    device: the blocks, the sum and the max of the live tiles (an occupied
+    prefix) each block transferred, the sum and the max of each block's span
+    from its start to its end in nanoseconds (``%globaltimer``), and the
+    blocks' claims of candidate tiles.  max over sum / blocks is a block's
+    imbalance (``scripts/prof_k1.py:block_balance``).  The substep never
+    reads it; a profiling script zeroes it (``zero_()``) and reads it after
+    its run."""
+    return _counter(_BALANCE, device, torch.int64, 6)
 
 
 def occupied_slots(cfg: SimConfig, model: ParticleModel) -> torch.Tensor:

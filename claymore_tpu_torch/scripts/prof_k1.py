@@ -9,8 +9,11 @@ CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
 * K1 on the benchmark's sphere25m and dambreak12m states, built as its
   cells build theirs (jittered lattice, capacity from ``exact_tiles`` at
   the cell's slack), at set-up and after 20 substeps, with their live,
-  dead and overflow tiles and the share of the slots K1 streams (under
-  ``cells``; with ``--cells`` nothing else);
+  dead and overflow tiles, the share of the slots K1 streams, and how
+  evenly its blocks shared the tiles: the static walks' model
+  (``block_live``) and, from the kernel's own counter, the busiest block's
+  live tiles and span over the mean (``block_balance``) (under ``cells``;
+  with ``--cells`` nothing else);
 * K1-FC on ``bench.py``'s sphere25m (25,088,753 particles) after one
   substep and after ``--substeps``, with every tile's slots as they are,
   permuted by a seeded permutation, and sorted by G2P stencil base
@@ -324,9 +327,11 @@ def tile_counts(cfg, model) -> dict:
 
 
 def block_loads(live: torch.Tensor, blocks: int) -> dict:
-    """Live tiles a block of K1's persistent grid of ``blocks`` walks when
-    block b takes tiles b, b + blocks, ...: max and mean over the blocks, and
-    the same for a walk whose k-th tile of block b is k blocks + (b + k) mod
+    """The static walks' model of K1's balance (the kernel hands its tiles
+    out at run time; ``block_balance`` reads what it did): live
+    tiles a block of a persistent grid of ``blocks`` walks when block b
+    takes tiles b, b + blocks, ...: max and mean over the blocks, and the
+    same for a walk whose k-th tile of block b is k blocks + (b + k) mod
     blocks (every residue of the tile index mod 8, where each oct's tiles
     are padded to 8, seen alike)."""
     t = live.shape[0]
@@ -342,15 +347,35 @@ def block_loads(live: torch.Tensor, blocks: int) -> dict:
             "rotated_max": float(rot.max())}
 
 
+def block_balance(words) -> dict:
+    """K1's ``block_balance_counter`` (blocks, the sum and max of the live
+    tiles a block transferred, the sum and max of a block's span in ns,
+    claims) as the mean and max a block and their ratio (1: every block
+    alike), and the claims a block; None where no block ran."""
+    blocks, live_sum, live_max, ns_sum, ns_max, claims = (int(w) for w in words)
+    if blocks == 0:
+        return None
+    live_mean, ns_mean = live_sum / blocks, ns_sum / blocks
+    return {"blocks": blocks, "live_max": live_max, "live_mean": live_mean,
+            "live_ratio": live_max / live_mean if live_sum else None,
+            "block_ms_max": ns_max / 1e6, "block_ms_mean": ns_mean / 1e6,
+            "time_ratio": ns_max / ns_mean if ns_sum else None,
+            "claims_per_block": claims / blocks}
+
+
 def cell_states(reps: int, substeps: int = 20) -> dict:
     """K1 on the benchmark's two configurations built as its cells build
     them (``jittered_engine``), at set-up and after ``substeps`` drift
-    substeps: ms, the tile counts, and the kernel's own count of streamed
-    slots as a share of the slots where the package has
-    ``streamed_slot_counter`` (null on an older checkout)."""
+    substeps: ms, the tile counts, the static walks' model of the blocks'
+    live tiles (``block_loads``), the kernel's own count of streamed slots
+    as a share of the slots where the package has
+    ``streamed_slot_counter``, and what its blocks did
+    (``block_balance``) where it has ``block_balance_counter`` (each null
+    on an older checkout)."""
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     counter = getattr(g2p2g_kernel, "streamed_slot_counter", None)
+    balance = getattr(g2p2g_kernel, "block_balance_counter", None)
     fe = torch.tensor(1e9, device="cuda")
     out = {}
     for name in CELL_SLACK:
@@ -365,13 +390,17 @@ def cell_states(reps: int, substeps: int = 20) -> dict:
             row["block_live"] = block_loads(live, sms * g2p2g_kernel.kernel_info(
                 mat, cfg.particle_tile, cfg.arena_span)["blocks_per_sm"])
             row["ms"] = k1_ms(cfg, mat, state, reps)
-            row["streamed_share"] = None
+            row["streamed_share"] = row["block_balance"] = None
             if counter is not None:
                 pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
                 counter("cuda").zero_()
+                if balance is not None:
+                    balance("cuda").zero_()
                 g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, state.models[0],
                                    state.dt, state.dt, torch.zeros_like(state.grid), 64)
                 row["streamed_share"] = int(counter("cuda")[0]) / row["slots"]
+                if balance is not None:
+                    row["block_balance"] = block_balance(balance("cuda").tolist())
             res[label] = row
         out[name] = res
         del eng, state

@@ -79,6 +79,42 @@ def test_profiling_scenes_are_bench_scenes():
     assert np.array_equal(pos, bparts[0])
 
 
+@pytest.mark.parametrize("words, want", [
+    ([264, 74_897, 306, 264 * 7_000_000, 7_350_000, 2_400],
+     {"blocks": 264, "live_max": 306, "live_mean": 74_897 / 264,
+      "live_ratio": 306 * 264 / 74_897, "block_ms_max": 7.35, "block_ms_mean": 7.0,
+      "time_ratio": 1.05, "claims_per_block": 2_400 / 264}),
+    ([3, 0, 0, 3_000, 1_500, 3],
+     {"blocks": 3, "live_max": 0, "live_mean": 0.0, "live_ratio": None,
+      "block_ms_max": 0.0015, "block_ms_mean": 0.001, "time_ratio": 1.5,
+      "claims_per_block": 1.0}),
+])
+def test_block_balance_decodes_the_kernel_counter(words, want):
+    """``prof_k1.block_balance`` reads K1's ``block_balance_counter`` (blocks,
+    live tiles' sum and max, block ns' sum and max, claims) as a block's
+    mean and max and their ratio; no ratio where no block took a live
+    tile, and no report where no block ran."""
+    got = prof_k1.block_balance(torch.tensor(words, dtype=torch.int64).tolist())
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert got[key] == (None if value is None else pytest.approx(value)), key
+    assert prof_k1.block_balance([0] * 6) is None
+
+
+def test_block_loads_models_the_static_walks():
+    """``prof_k1.block_loads``: live tiles a block of a static walk takes,
+    block b taking tiles b, b + blocks, ... and, rotated, the k-th tile of
+    block b at k blocks + (b + k) mod blocks; the tail padded dead."""
+    live = torch.tensor([1, 1, 0, 1,  1, 1, 0, 1,  1, 1, 0], dtype=torch.bool)
+    got = prof_k1.block_loads(live, 4)
+    # columns: 3, 3, 0, 2 live; rotated walks of 3 rows: block 0 takes
+    # tiles 0, 5, 10 (2 live), block 1: 1, 6, 11 (1), block 2: 2, 7, 8
+    # (2), block 3: 3, 4, 9 (3)
+    assert got == {"blocks": 4, "max": 3.0, "mean": 2.0, "rotated_max": 3.0}
+    got = prof_k1.block_loads(torch.tensor([True] * 6 + [False] * 2), 2)
+    assert got == {"blocks": 2, "max": 3.0, "mean": 3.0, "rotated_max": 3.0}
+
+
 def small_scene():
     """(jax cfg, port cfg, jax material, port material, positions, v0): a
     few thousand FixedCorotated particles at domain_bits 6, drift-triggered

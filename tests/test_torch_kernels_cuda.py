@@ -199,12 +199,12 @@ def test_g2p2g_kernel_margin_is_arena_margin(card, name):
     assert 0.0 < margins[0] < 6.0
 
 
-def _span4_engine(name, tile=512, every=4, v0=(1.5, -1.0, 0.5), **kw):
+def _span4_engine(name, tile=512, every=4, v0=(1.5, -1.0, 0.5), hi=(0.55, 0.6, 0.5), **kw):
     """A span-4 engine (``rebucket_every=every``, 3..8) on the card and its
-    initial state: the box of the K1 checks above."""
+    initial state: the box of the K1 checks above (to ``hi``)."""
     cfg = ct.SimConfig(domain_bits=7, max_active_blocks=2048, default_dt=2e-4,
                        particle_tile=tile, rebucket_every=every, **kw)
-    pos = sample_uniform_box_world(cfg.dx, [0.3, 0.45, 0.35], [0.55, 0.6, 0.5], cfg.ppc)
+    pos = sample_uniform_box_world(cfg.dx, [0.3, 0.45, 0.35], list(hi), cfg.ppc)
     cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, [pos], slack=1.5))
     eng = ct.MPMEngine(cfg, [_material(name, cfg.default_volume())], tile_chunk=8,
                        device="cuda")
@@ -304,6 +304,36 @@ def test_g2p2g_kernel_streams_occupied_prefixes(card, name, span):
         r = card.check_g2p2g_kernel(cfg, mat, carved, tile_chunk=8, time_it=False,
                                     tile_split=split)
         assert 0 < r["streamed_slots"] < r["slots"]
+
+
+@pytest.mark.parametrize("span", [2, 4])
+@pytest.mark.parametrize("name", ["fixed_corotated", "jfluid"])
+def test_g2p2g_kernel_hands_out_every_tile_once(card, name, span):
+    """K1's blocks claim chunks of tiles from a cursor each launch zeroes: 8
+    after a claim with a live tile (the range over 8 x the grid where that
+    is less: 4-6 here, 1 on the short ranges), twice the last after one
+    without (the capacity's dead tail), up to the unclaimed tiles over
+    twice the grid.  On a ``carve_tiles`` state of ~13k tiles of 32:
+    ranges of 13 tiles (fewer than the grid's blocks), a long one whose
+    length is no multiple of 8 and one of 5 or 6; the multi-device split
+    [0, bt) + [bt, T); and the whole range twice back to back, each launch
+    from its own cursor at 0.  Each matches the plain version, leaves every slot past an occupied
+    prefix inactive with pid S, and its blocks' live tiles sum to the
+    host's count of tiles with an occupied prefix, every block having
+    ended (``check_g2p2g_kernel``)."""
+    eng, state, _ = _span4_engine(name, tile=32, every=4 if span == 4 else 1,
+                                  hi=(0.55, 0.75, 0.55))
+    cfg, mat = eng.cfg, eng.materials[0]
+    carved = carve_tiles(cfg, stir(state))
+    nt = state.models[0].tiles.tvalid.shape[0]
+    mid = nt - 5 if (nt - 18) % 8 else nt - 6
+    bt = 8 * (nt // 16)
+    for ranges, repeat in (([(0, 13), (13, mid), (mid, nt)], 1),
+                           ([(0, bt), (bt, nt)], 1),
+                           ([(0, nt)], 2)):
+        r = card.check_g2p2g_kernel(cfg, mat, carved, tile_chunk=64, time_it=False,
+                                    ranges=ranges, repeat=repeat)
+        assert 0 < r["streamed_slots"] < repeat * r["slots"]
 
 
 def _multi(mesh, device, overlap=True, **kw):
