@@ -33,7 +33,7 @@ against its plain twin), and drives the port's main paths through
 * several devices through ``MultiChipEngine`` with every shard on the card
   (``multi_paths``): sphere25m on a 2x2 mesh (overlap on and off) and
   dambreak12m on 4 x-slabs, each held to ``MPMEngine`` on the same
-  substeps, with a CUDA-event stage breakdown; a mesh of one on the cube;
+  substeps; a mesh of one on the cube;
   the CLI on ``scenes/cube_4dev.json`` with a resume; ``validate_scale``;
   and ``DistGroup`` over NCCL where two cards are visible, and the 2x2
   sphere with one shard per card where four are (with fewer, a line says
@@ -113,7 +113,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from claymore_tpu_torch.scripts.bench import build
+from claymore_tpu_torch.scripts.prof_k2 import SDF_SLACK
 from claymore_tpu_torch.utils.bounds import bound, dma_bound, g2p2g_bound, grid_bound
+from claymore_tpu_torch.utils.timers import median_ms
 
 SEED = 0
 DEVICE = "cuda"
@@ -138,22 +141,6 @@ def gpu_facts() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 2, batch: int = 1) -> float:
-    """Median milliseconds of ``fn()`` on the device: each of ``reps``
-    samples times ``batch`` back-to-back calls with CUDA events
-    (``utils.timers.device_ms``) and divides by ``batch``.  A batch keeps a
-    short kernel's host-side launch work off the device's clock."""
-    from claymore_tpu_torch.utils.timers import device_ms
-
-    def run():
-        for _ in range(batch):
-            fn()
-
-    for _ in range(warmup):
-        fn()
-    return float(np.median([device_ms(run, DEVICE) for _ in range(reps)])) / batch
 
 
 # --------------------------------------------------------------------------
@@ -213,8 +200,8 @@ def check_grid_kernel(cfg, n_active: int, time_it: bool = True) -> dict:
 
     out = {"max_abs_err": err}
     if time_it:
-        out["ms"] = cuda_ms(lambda: grid_kernel.grid_update(cfg, pool, part, dt))
-        out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt))
+        out["ms"] = median_ms(lambda: grid_kernel.grid_update(cfg, pool, part, dt))
+        out["plain_ms"] = median_ms(lambda: grid.grid_update(cfg, pool, part, dt))
         out.update(grid_bound(cfg, pool, part))
         out.update(grid_info("grid_update"))
     return out
@@ -387,11 +374,11 @@ def check_g2p2g_kernel(cfg, mat, state, tile_chunk: int, time_it: bool = True,
         # into one pool that keeps adding up: its contents do not change the
         # work, and a zeroing pass would add 0.5 GB of stores to the time
         acc = torch.zeros_like(state.grid)
-        out["ms"] = cuda_ms(lambda: kernel(acc), reps=reps)
+        out["ms"] = median_ms(lambda: kernel(acc), reps=reps)
         if time_plain:
-            out["plain_ms"] = cuda_ms(lambda: plain(acc),
-                                      reps=plain_reps or max(3, reps // 4),
-                                      warmup=0 if plain_reps else 1)
+            out["plain_ms"] = median_ms(lambda: plain(acc),
+                                        reps=plain_reps or max(3, reps // 4),
+                                        warmup=0 if plain_reps else 1)
         out.update(g2p2g_bound(cfg, mat, state, model_idx))
         out.update(g2p2g_kernel.kernel_info(mat, cfg.particle_tile, cfg.arena_span))
     return out
@@ -541,14 +528,14 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
     del whole, plain
     src = part.region_source(cfg, rk.home_keys(cfg, model), region_fn)
     ms = {
-        "keys+sort": cuda_ms(lambda: rk.sort_keys(cfg, model, region_fn), reps=reps),
-        "sort": cuda_ms(lambda: torch.sort(src, stable=True), reps=reps),
-        "keys": cuda_ms(lambda: rk.home_keys(cfg, model), reps=reps),
-        "heads": cuda_ms(lambda: rk.launch_heads(cfg, skey, region), reps=reps),
-        "plan": cuda_ms(lambda: rk.launch_plan(cfg, skey, seg_start, meta, nt, region),
-                        reps=reps),
-        "place": cuda_ms(lambda: rk.place(cfg, model, perm, dstart, dlen), reps=reps),
-        "sort_permute": cuda_ms(lambda: rk.sort_permute(cfg, model, nt, region_fn), reps=reps),
+        "keys+sort": median_ms(lambda: rk.sort_keys(cfg, model, region_fn), reps=reps),
+        "sort": median_ms(lambda: torch.sort(src, stable=True), reps=reps),
+        "keys": median_ms(lambda: rk.home_keys(cfg, model), reps=reps),
+        "heads": median_ms(lambda: rk.launch_heads(cfg, skey, region), reps=reps),
+        "plan": median_ms(lambda: rk.launch_plan(cfg, skey, seg_start, meta, nt, region),
+                          reps=reps),
+        "place": median_ms(lambda: rk.place(cfg, model, perm, dstart, dlen), reps=reps),
+        "sort_permute": median_ms(lambda: rk.sort_permute(cfg, model, nt, region_fn), reps=reps),
     }
     plain = {
         "keys": lambda: part.home_keys(cfg, model),
@@ -558,7 +545,7 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
         "place": lambda: part.place(cfg, model, perm, dstart, dlen),
         "sort_permute": lambda: part.sort_permute(cfg, model, nt, region_fn),
     }
-    plain_ms = {k: cuda_ms(f, reps=plain_reps) for k, f in plain.items()}
+    plain_ms = {k: median_ms(f, reps=plain_reps) for k, f in plain.items()}
     del src
     channels = 3 + sum(v.numel() // s_cap for v in model.fields.values()) + 1
     b = rebucket_bound(cfg, s_cap, channels, active=n_act, segments=g)
@@ -670,22 +657,22 @@ def check_partition_kernel(cfg, pool, partition, tile_keys, label: str, facts: s
         p2, _ = part.rebuild(cfg, pool, partition, tile_keys, extra_mask)
         return [part.finalize_tiles(cfg, p2, tk, dropped) for tk in tile_keys]
 
-    ms = {"first_marked": cuda_ms(lambda: pk.first_marked(flags, nb, no), reps=reps),
-          "oct_mask": cuda_ms(lambda: pk.oct_mask(cfg, pool, partition, tile_keys, extra_mask),
-                              reps=reps),
-          "remap": cuda_ms(lambda: pk.remap(cfg, pool, partition, flags), reps=reps),
-          "finalize_tiles": cuda_ms(lambda: [pk.finalize_tiles(cfg, newp, tk, dropped)
+    ms = {"first_marked": median_ms(lambda: pk.first_marked(flags, nb, no), reps=reps),
+          "oct_mask": median_ms(lambda: pk.oct_mask(cfg, pool, partition, tile_keys, extra_mask),
+                                reps=reps),
+          "remap": median_ms(lambda: pk.remap(cfg, pool, partition, flags), reps=reps),
+          "finalize_tiles": median_ms(lambda: [pk.finalize_tiles(cfg, newp, tk, dropped)
                                              for tk in tile_keys], reps=reps),
-          "rebuild+finalize": cuda_ms(kernels, reps=reps)}
+          "rebuild+finalize": median_ms(kernels, reps=reps)}
     plain_ms = {
-        "first_marked": cuda_ms(lambda: part._first_marked(flags, nb, no), reps=plain_reps),
-        "oct_mask": cuda_ms(lambda: part.oct_flags(cfg, pool, partition, tile_keys, extra_mask),
-                            reps=plain_reps),
-        "remap": cuda_ms(lambda: part.remap(cfg, pool, partition, flags), reps=plain_reps),
-        "finalize_tiles": cuda_ms(lambda: [part.finalize_tiles(cfg, refp, tk, dropped)
+        "first_marked": median_ms(lambda: part._first_marked(flags, nb, no), reps=plain_reps),
+        "oct_mask": median_ms(lambda: part.oct_flags(cfg, pool, partition, tile_keys, extra_mask),
+                              reps=plain_reps),
+        "remap": median_ms(lambda: part.remap(cfg, pool, partition, flags), reps=plain_reps),
+        "finalize_tiles": median_ms(lambda: [part.finalize_tiles(cfg, refp, tk, dropped)
                                            for tk in tile_keys], reps=plain_reps),
-        "rebuild+finalize": cuda_ms(plain, reps=plain_reps)}
-    library_ms = cuda_ms(lambda: torch.nonzero(flags)[:nb], reps=reps)
+        "rebuild+finalize": median_ms(plain, reps=plain_reps)}
+    library_ms = median_ms(lambda: torch.nonzero(flags)[:nb], reps=reps)
     b = partition_bound(cfg, res["live_rows"], n_tiles, extra_mask is not None, res["octs"])
     bounds = {"first_marked": first_marked_bound(no, nb)["bound_ms"],
               **{k: v["bound_ms"] for k, v in b["stages"].items()},
@@ -729,9 +716,9 @@ def check_first_marked(n: int, size: int, facts: str, reps: int = 10) -> dict:
         err = _bits_err(idx, want)
         del want
         r = {"n": n, "size": size, "marked": int(total[0]), "max_abs_err": err,
-             "ms": cuda_ms(lambda: pk.first_marked(mark, size, n), reps=reps),
-             "plain_ms": cuda_ms(lambda: part._first_marked(mark, size, n), reps=3),
-             "library_ms": cuda_ms(lambda: torch.nonzero(mark)[:size], reps=reps),
+             "ms": median_ms(lambda: pk.first_marked(mark, size, n), reps=reps),
+             "plain_ms": median_ms(lambda: part._first_marked(mark, size, n), reps=3),
+             "library_ms": median_ms(lambda: torch.nonzero(mark)[:size], reps=reps),
              "bound_ms": first_marked_bound(n, size)["bound_ms"]}
         r["share"] = r["bound_ms"] / r["ms"]
         out[name] = r
@@ -828,9 +815,9 @@ def check_halo_kernel(comm, pools, partitions, models, label: str, facts: str, s
            "halo_add": (lambda: hk.add_rows(cfg, add_k, table, rv),
                         lambda: halo.add_rows(cfg, add_t, table, rv)),
            "migrate_pack": (lambda: hk.migrate_pack(*margs), lambda: halo.migrate_pack(*margs))}
-    ms = {k: cuda_ms(f, reps=reps) for k, (f, _) in fns.items()}
-    plain_ms = {k: cuda_ms(f, reps=plain_reps) for k, (_, f) in fns.items()}
-    library_ms = cuda_ms(lambda: add_t.index_add_(0, slots, rv[0][2]), reps=reps)
+    ms = {k: median_ms(f, reps=reps) for k, (f, _) in fns.items()}
+    plain_ms = {k: median_ms(f, reps=plain_reps) for k, (_, f) in fns.items()}
+    library_ms = median_ms(lambda: add_t.index_add_(0, slots, rv[0][2]), reps=reps)
     hits = sum(int(((k < no) & (table[torch.clamp(k, max=no).long()] != cfg.null_oct)).sum())
                for k, _, _ in rv)
     plan, _ = halo.window_marks(cfg, pt.keys, pt.count, win, h, m)
@@ -974,9 +961,9 @@ def check_collider_kernel(cfg, part, pool, cols, t: float, label: str, baseline=
            "culled_by_collider": [round(1.0 - float(c), 4)
                                   for c in mask.float().mean(dim=0)]}
     if time_it:
-        out["ms"] = cuda_ms(kernel)
-        out["plain_ms"] = cuda_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols, tt),
-                                  reps=plain_reps, warmup=1)
+        out["ms"] = median_ms(kernel)
+        out["plain_ms"] = median_ms(lambda: grid.grid_update(cfg, pool, part, dt, cols, tt),
+                                    reps=plain_reps, warmup=1)
         out.update(grid_bound(cfg, pool, part, cols, t))
         out.update(grid_info(grid_kernel_name(cols), len(cols)))
     return out
@@ -1048,7 +1035,7 @@ def library_laneop_ms(name: str, x, s):
     else:
         lanes = s.long()[:, None] + (112 if name == "dyn_lane_read_wide" else 0) + j
     index = lanes[:, None, :].expand(-1, 16, -1)
-    return cuda_ms(lambda: torch.gather(x, 2, index), batch=LANE_BATCH)
+    return median_ms(lambda: torch.gather(x, 2, index), batch=LANE_BATCH)
 
 
 def check_laneops(tiles: int = PROBE_TILES, time_it: bool = True,
@@ -1091,8 +1078,8 @@ def check_laneops(tiles: int = PROBE_TILES, time_it: bool = True,
             raise AssertionError(f"{name}: wrong result at the shifts {edge.tolist()}")
         res = {"max_abs_err": float((k - p).abs().max()), "tiles": tiles}
         if time_it:
-            res["ms"] = cuda_ms(lambda: kernel(x, s), batch=LANE_BATCH)
-            res["plain_ms"] = cuda_ms(lambda: plain(x, s), batch=LANE_BATCH)
+            res["ms"] = median_ms(lambda: kernel(x, s), batch=LANE_BATCH)
+            res["plain_ms"] = median_ms(lambda: plain(x, s), batch=LANE_BATCH)
             res["library_ms"] = library_laneop_ms(name, x, s)
             res.update(laneop_bound(name, tiles))
             if name in ("dyn_lane_read", "dyn_lane_read_wide"):
@@ -1167,17 +1154,17 @@ def check_dma(time_it: bool = True, rows: int = DMA_ROWS, p5=None, p6=None) -> d
                    "moved_bytes": pk.dma_bytes("dma_gather", pool, idx, r, plan)}
             if time_it:
                 rows_ = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(g, d * r)
-                res["ms"] = cuda_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring))
-                res["ms_batch10"] = cuda_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring),
-                                            batch=DMA_BATCH)
+                res["ms"] = median_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring))
+                res["ms_batch10"] = median_ms(lambda: pk.dma_gather(pool, idx, r, ring=ring),
+                                              batch=DMA_BATCH)
                 if len(plans) > 1:
                     other = plans[1 - plans.index(plan)]
                     res["other_plan"] = other
-                    res["other_plan_ms"] = cuda_ms(
+                    res["other_plan_ms"] = median_ms(
                         lambda: pk._launch_gather(pool, idx, r, ring, other))
-                res["plain_ms"] = cuda_ms(lambda: pk.plain_dma_gather(pool, idx, r),
-                                          reps=5, warmup=1)
-                res["library_ms"] = cuda_ms(lambda: F.embedding_bag(rows_, flat, mode="sum"))
+                res["plain_ms"] = median_ms(lambda: pk.plain_dma_gather(pool, idx, r),
+                                            reps=5, warmup=1)
+                res["library_ms"] = median_ms(lambda: F.embedding_bag(rows_, flat, mode="sum"))
                 res["payload_gbs"] = g * d * r * 8192 / res["ms"] / 1e6
                 res.update(dma_bound(idx, r))
             out[name].append(res)
@@ -1205,10 +1192,10 @@ def check_dma(time_it: bool = True, rows: int = DMA_ROWS, p5=None, p6=None) -> d
             rows_ = (idx.long()[..., None] + torch.arange(r, device=dev)).reshape(-1)
             ones = torch.ones((rows_.numel(), 2048), dtype=torch.float32, device=dev)
             kflat = pk_pool.view(o, 2048)
-            res["ms"] = cuda_ms(lambda: pk.rmw(pk_pool, idx, r))
-            res["ms_batch10"] = cuda_ms(lambda: pk.rmw(pk_pool, idx, r), batch=DMA_BATCH)
-            res["plain_ms"] = cuda_ms(lambda: pk.plain_rmw(pp_pool, idx, r), reps=5, warmup=1)
-            res["library_ms"] = cuda_ms(lambda: kflat.index_add_(0, rows_, ones))
+            res["ms"] = median_ms(lambda: pk.rmw(pk_pool, idx, r))
+            res["ms_batch10"] = median_ms(lambda: pk.rmw(pk_pool, idx, r), batch=DMA_BATCH)
+            res["plain_ms"] = median_ms(lambda: pk.plain_rmw(pp_pool, idx, r), reps=5, warmup=1)
+            res["library_ms"] = median_ms(lambda: kflat.index_add_(0, rows_, ones))
             res["payload_gbs"] = 2 * g * d * r * 8192 / res["ms"] / 1e6
             res.update(dma_bound(idx, r, rmw=True))
             del ones
@@ -1364,27 +1351,8 @@ def check_bench_entry(facts: str) -> dict:
 
 
 # --------------------------------------------------------------------------
-# scenes (bench.py:35-177)
+# main paths on bench.py's scenes (bench.py:35-177, ``scripts/bench.py:build``)
 # --------------------------------------------------------------------------
-
-def scene(name: str):
-    """(cfg, materials, positions, velocities, colliders) of a bench.py
-    scene as ``scripts/bench.py:build`` gives it, but ``dambreak_sdf`` is
-    ``scripts/prof_k2.scene``'s (tile slack 2.5 for its 1,750 substeps);
-    ``config5_shard`` is ``scripts/prof_multichip.config5_shard``'s (one
-    shard of config 5)."""
-    from claymore_tpu_torch.scripts import prof_k2
-    from claymore_tpu_torch.scripts.bench import build
-
-    if name == "dambreak_sdf":
-        return prof_k2.scene(name)
-    if name == "config5_shard":
-        from claymore_tpu_torch.scripts import prof_multichip
-
-        cfg, mat, pos, v0 = prof_multichip.config5_shard()
-        return cfg, [mat], [pos], [v0], ()
-    return build(name, quick=False)
-
 
 def probe(state, n: int = 4096, model_idx: int = 0) -> np.ndarray:
     """Positions [3, n] of particles 0..n-1 of a model, found by id
@@ -1429,8 +1397,11 @@ def grid_kernel_name(colliders) -> str:
 
 
 def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
-          on_step=None, strict: bool = True, warmup: int = 1, **cfg_kw) -> dict:
-    """One main path: build the bench scene ``name`` (its configuration
+          on_step=None, strict: bool = True, warmup: int = 1, slack: float = None,
+          built=None, **cfg_kw) -> dict:
+    """One main path: build the bench scene ``name`` (``built``, when given,
+    in its place: (cfg, materials, positions, velocities, colliders); with
+    ``slack``, tiles sized by ``exact_tiles(slack=)``; then its configuration
     with ``cfg_kw`` replaced), zero the launch counts, init, ``warmup``
     warm-up substeps and ``steps`` timed substeps (each ended by a synchronise, so
     rebuilding substeps are timed apart), read the counts, and check the
@@ -1449,7 +1420,9 @@ def drive(name: str, steps: int, facts: str, tile_chunk: int = 64,
     from claymore_tpu_torch.core.engine import full_rebuild
     from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
 
-    cfg, mats, parts, v0s, cols = scene(name)
+    cfg, mats, parts, v0s, cols = built or build(name, quick=False)
+    if slack is not None:
+        cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=slack))
     cfg = dataclasses.replace(cfg, **cfg_kw)
     n = sum(p.shape[0] for p in parts)
     eng = ct.MPMEngine(cfg, mats, cols, tile_chunk=tile_chunk, device=DEVICE)
@@ -1716,61 +1689,6 @@ def update_material_path(cfg, mat, pos, v0, facts: str, steps: int = 20) -> dict
         raise AssertionError(f"update_material: F diff {f_diff}, mass {mass}, "
                              f"launches {launches}")
     return {"f_diff": f_diff, "mass_rel_err": mass, "launches": launches}
-
-
-def stage_breakdown(cfg, mats, state, reps: int = 10, tile_chunk: int = 64,
-                    colliders=()) -> dict:
-    """Median CUDA-event milliseconds of each stage of a substep on
-    ``state`` (single model): K2 (with ``colliders``), the CFL step, K1
-    (which computes the drift margin in its epilogue), what is left of the
-    drift check, the host read of that margin, and the three parts of a
-    rebuild (``sort_permute`` as the engine runs it, through the rebucket
-    kernels, with its keys and sort alone beside it; ``rebuild`` and
-    ``finalize_tiles`` through the partition kernels).  Not counted."""
-    from claymore_tpu_torch.core import grid
-    from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel, partition_kernel, rebucket_kernel
-
-    mat, model = mats[0], state.models[0]
-    fe = torch.tensor(1e9, device=DEVICE)
-    table = grid_kernel.pack_colliders(colliders, DEVICE) if colliders else None
-    ptrs = grid_kernel.sdf_table_pointers(colliders, DEVICE)
-    pool_v, mvs = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt,
-                                          colliders, state.t, table, ptrs)
-    next_dt = grid.compute_dt(cfg, mvs, state.t + state.dt, fe)
-    acc = torch.zeros_like(state.grid)
-    _, _, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, model,
-                                      state.dt, next_dt, acc, tile_chunk)
-    nt = model.tiles.block.shape[0]
-    pm, tk, dr = rebucket_kernel.sort_permute(cfg, model, nt)
-    part, _ = partition_kernel.rebuild(cfg, state.grid, state.partition, (tk,))
-    stages = {
-        "K2 grid_update": lambda: grid_kernel.grid_update(
-            cfg, state.grid, state.partition, state.dt, colliders, state.t, table, ptrs),
-        "compute_dt": lambda: grid.compute_dt(cfg, mvs, state.t + state.dt, fe),
-        "K1 g2p2g": lambda: g2p2g_kernel.g2p2g(
-            cfg, mat, pool_v, state.partition.table, model, state.dt, next_dt,
-            acc, tile_chunk),
-        "drift check host read": lambda: bool(margin <= 0.0),
-        "sort_permute": lambda: rebucket_kernel.sort_permute(cfg, model, nt),
-        "sort_permute: keys+sort": lambda: rebucket_kernel.sort_keys(cfg, model),
-        "rebuild": lambda: partition_kernel.rebuild(cfg, state.grid, state.partition, (tk,)),
-        "finalize_tiles": lambda: partition_kernel.finalize_tiles(cfg, part, tk, dr),
-    }
-    return {k: cuda_ms(f, reps=reps) for k, f in stages.items()}
-
-
-def scene_stages(run: dict, facts: str) -> dict:
-    """The stage breakdown of a collider scene's final state (``drive``'s
-    result), with its collider kernel's bound on that state."""
-    cfg, state, cols = run["cfg"], run["state"], run["engine"].colliders
-    stages = stage_breakdown(cfg, run["mats"], state, colliders=cols)
-    b = grid_bound(cfg, state.grid, state.partition, cols, float(state.t))
-    name = grid_kernel_name(cols)
-    log(f"{run['name']} stages on its final state (ms, median of 10): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f"; {name} bound on this state {b['bound_ms']:.4f} ms ({b['bound_by']}), "
-        f"{int((state.grid[:, 0:4] > 0.0).sum())} massive cells | {facts}")
-    return {"stages_ms": stages, "k2_bound_ms": b["bound_ms"]}
 
 
 def log_k1(label: str, k1: dict, facts: str) -> None:
@@ -2075,7 +1993,7 @@ def single_reference(name: str, steps: int, facts: str, slack: float = None) -> 
     one does) instead of the scene's capacity."""
     import claymore_tpu_torch as ct
 
-    cfg, mats, parts, v0s, cols = scene(name)
+    cfg, mats, parts, v0s, cols = build(name, quick=False)
     if slack is not None:
         cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=slack))
     eng = ct.MPMEngine(cfg, mats, cols, tile_chunk=64, device=DEVICE)
@@ -2106,10 +2024,7 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     ``steps`` substeps from init with the launch counts zeroed before the
     init and read after the last substep.  ``make()``, when given, builds
     the engine and its initial state in place of the bench scene: it
-    returns (engine, state, positions per model).  Each substep's stages are timed
-    with CUDA events recorded where ``substep_impl`` calls ``on_stage``
-    (on the main stream), and the halo exchange from its start on the main
-    stream to the end of the last shard's side-stream work.  Held to the
+    returns (engine, state, positions per model).  Held to the
     one-device run ``ref`` of the same substeps: dt at every substep, mass
     and momentum (each block on its owner) within MULTI_BOUND relative,
     positions of every particle, paired by pid, within MULTI_BOUND (and of
@@ -2122,7 +2037,7 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     reset_counts()
     if make is None:
-        cfg, mats, parts, v0s, cols = scene(name)
+        cfg, mats, parts, v0s, cols = build(name, quick=False)
         if slack is None:
             slack = 2.5 if name == "dambreak12m" else 1.5      # the column spreads (bench.py)
         eng = ct.MultiChipEngine(cfg, mats, mesh_shape=mesh, device=DEVICE, tile_chunk=64,
@@ -2140,54 +2055,17 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
     comm = eng.comm
     p0 = positions_all(state, n)
     shard0 = torch.from_numpy(eng.shard_of(parts[0])).to(DEVICE)
-    exchange_events, stage_events = [], []
-    plain_exchange = comm.exchange_halo
-
-    def timed_exchange(pools, partitions):
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = plain_exchange(pools, partitions)
-        ends = []
-        for j in range(len(pools)):
-            with comm.group.on_side(j):
-                ends.append(torch.cuda.Event(enable_timing=True))
-                ends[-1].record()
-        exchange_events.append((start, ends))
-        return out
-
-    def on_stage(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        stage_events[-1].append((stage, ev))
-
-    comm.exchange_halo = timed_exchange
     fe = np.float32(1e9)
     dts = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        stage_events.append([("start", start)])
-        state = eng.substep(state, fe, on_stage=on_stage)
+        state = eng.substep(state, fe)
         dts.append(state[0].dt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    comm.exchange_halo = plain_exchange
     launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    stages = {}
-    for evs in stage_events:
-        for (_, a), (stage, b) in zip(evs[:-1], evs[1:]):
-            stages.setdefault(stage, []).append(a.elapsed_time(b))
-    stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
-    each = [evs[0][1].elapsed_time(evs[-1][1]) for evs in stage_events]
-    stage_ms["substep (events)"] = float(np.mean(each))
-    # the init's exchange is not timed (the wrapper went in after it); a
-    # mesh of one exchanges nothing
-    if exchange_events:
-        stage_ms["exchange (start to last side-stream end)"] = float(np.mean(
-            [max(s.elapsed_time(e) for e in ends) for s, ends in exchange_events]))
 
     d = eng.diagnostics(state)
     pos = positions_all(state, n)
@@ -2247,9 +2125,8 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
                st.models[0].tiles.tvalid.shape[0], math.lcm(cfg.group_tiles, 64))
                for st in state[:1]] + [state[0].models[0].tiles.tvalid.shape[0]],
            "ms_per_substep": wall / steps * 1e3, "ref_ms_per_substep": ref["ms_per_substep"],
-           "first_substep_ms": each[0], "later_substep_ms": float(np.mean(each[1:])),
            "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0,
-           "stage_ms": stage_ms, "init_s": init_s, "peak_gib": peak_gib,
+           "init_s": init_s, "peak_gib": peak_gib,
            "launches": used, "rebuilds": eng.rebuilds, "ref_rebuilds": ref["rebuilds"],
            "active_blocks": d["active_blocks"], "halo_capacity": comm.halo_capacity,
            "exchanged_bytes": bytes_, "migrated_by_pid": moved_shard,
@@ -2260,14 +2137,12 @@ def multi_run(name: str, mesh, steps: int, facts: str, ref: dict, overlap: bool 
         f"split {out['split']}, boundary tiles {out['boundary_tiles'][0]} of "
         f"{out['boundary_tiles'][1]}): {n} particles, {steps} substeps, "
         f"{out['ms_per_substep']:.3f} ms/substep (one device "
-        f"{ref['ms_per_substep']:.3f}), stages (ms, mean) "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
-        + f"; rebuilds {eng.rebuilds} (one device {ref['rebuilds']}), blocks per shard "
-        f"{d['active_blocks']}, halo capacity {comm.halo_capacity} octs, exchanged bytes "
-        f"{bytes_}, particles whose shard changed {moved_shard}, init {init_s:.2f} s, peak "
-        f"{peak_gib:.2f} GiB, allocator retries {out['alloc_retries']}, substep events first "
-        f"{each[0]:.3f} ms, later mean {out['later_substep_ms']:.3f}, launches {used}; vs one "
-        f"device: mass {mass_err:.3e}, momentum "
+        f"{ref['ms_per_substep']:.3f}), rebuilds {eng.rebuilds} (one device "
+        f"{ref['rebuilds']}), blocks per shard {d['active_blocks']}, halo capacity "
+        f"{comm.halo_capacity} octs, exchanged bytes {bytes_}, particles whose shard "
+        f"changed {moved_shard}, init {init_s:.2f} s, peak {peak_gib:.2f} GiB, allocator "
+        f"retries {out['alloc_retries']}, launches {used}; vs one device: mass "
+        f"{mass_err:.3e}, momentum "
         f"{mom_err:.3e}, dt {dt_err:.3e}, positions pid<4096 {pos_err:.3e} (all "
         f"{pos_err_all:.3e}), displacement {disp:.3e} | {facts}")
     failed = [c for c, ok in checks.items() if not ok]
@@ -2369,7 +2244,7 @@ def dist_rank(rank: int, port: int, out: str, backend: str = "nccl") -> None:
     distributed.init_multihost(f"tcp://localhost:{port}", world_size=2, rank=rank,
                                backend=backend)
     group = distributed.DistGroup((2,), DEVICE)
-    cfg, mats, parts, v0s, _ = scene("cube")
+    cfg, mats, parts, v0s, _ = build("cube", quick=False)
     eng = ct.MultiChipEngine(cfg, mats, n_devices=2, device=DEVICE, tile_chunk=64,
                              migration_capacity=MIG_CAP, group=group)
     st = eng.run_steps(eng.init_state(parts, v0s), 20, np.float32(1e9))
@@ -2408,7 +2283,7 @@ def dist_path(facts: str) -> dict:
         text, _ = p.communicate(timeout=600)
         if p.returncode != 0:
             raise AssertionError(f"DistGroup rank exited {p.returncode}:\n{text}")
-    cfg, mats, parts, v0s, _ = scene("cube")
+    cfg, mats, parts, v0s, _ = build("cube", quick=False)
     eng = ct.MultiChipEngine(cfg, mats, n_devices=2, device=["cuda:0", "cuda:1"],
                              tile_chunk=64, migration_capacity=MIG_CAP)
     st = eng.run_steps(eng.init_state(parts, v0s), 20, np.float32(1e9))
@@ -2450,7 +2325,7 @@ def cards_path(facts: str, steps: int = 20) -> dict:
     res, pos = {}, {}
     for key, devices in (("one_card", ["cuda:0"] * 4),
                          ("four_cards", [f"cuda:{d}" for d in range(4)])):
-        cfg, mats, parts, v0s, _ = scene("sphere25m")
+        cfg, mats, parts, v0s, _ = build("sphere25m", quick=False)
         eng = ct.MultiChipEngine(cfg, mats, mesh_shape=(2, 2), device=devices,
                                  tile_chunk=64, migration_capacity=MIG_CAP)
         st = eng.run_steps(eng.init_state(parts, v0s), 2, fe)
@@ -2604,7 +2479,11 @@ def config5_shard_path(facts: str) -> dict:
     particles at domain_bits 10) through ``drive``: two warm-up substeps,
     then 20 timed, with every invariant; the JAX script's three keys; then
     K1 held against its plain version on the final state (not counted)."""
-    run = drive("config5_shard", steps=20, facts=facts, warmup=2)
+    from claymore_tpu_torch.scripts.prof_multichip import config5_shard
+
+    cfg, mat, pos, v0 = config5_shard()
+    run = drive("config5_shard", steps=20, facts=facts, warmup=2,
+                built=(cfg, [mat], [pos], [v0], ()))
     m = run["metrics"]
     keys = {"config5_shard_particles": m["particles"],
             "config5_shard_ms_per_step": m["ms_per_substep"],
@@ -2683,14 +2562,15 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
     """Config 5 on one device, as ``load_scene`` builds it from the scene
     file less its device block (tiles of 256, a rebuild every substep):
     load (sampling included), ``steps`` substeps each ended by a
-    synchronise, counted launches, every invariant and the peak; the
-    stage breakdown and K1/K2 beside their bounds on the final state; the
+    synchronise, counted launches, every invariant and the peak; K1/K2
+    beside their bounds on the final state; the
     write A/B on its positions, with substeps run while each queued write
     is in flight (after the reference is taken).  Returns the metrics, the one-device
     reference the mesh is held to, the sampled positions and the initial
     positions in slot order (what the CLI writes as frame -1)."""
     from claymore_tpu_torch.io.scene import load_scene
     from claymore_tpu_torch.ops.g2p2g_kernel import variant_name
+    from claymore_tpu_torch.scripts import prof_k1, prof_k2
 
     path = config5_one_device_scene(work)
     torch.cuda.reset_peak_memory_stats()
@@ -2756,21 +2636,17 @@ def config5_one_device(facts: str, work: Path, steps: int = C5_STEPS) -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"config 5 on one device: checks failed {failed} ({d}, {out})")
-    # where a substep's time goes, and K1/K2 beside their bounds (not counted)
-    stages = stage_breakdown(cfg, [mat], state, reps=5)
-    out["stages_ms"] = stages
-    out["k1"] = {"ms": stages["K1 g2p2g"], **g2p2g_bound(cfg, mat, state)}
-    out["k2"] = {"ms": stages["K2 grid_update"], **grid_bound(cfg, state.grid, state.partition)}
+    # K1/K2 beside their bounds (not counted)
+    out["k1"] = {"ms": prof_k1.k1_ms(cfg, mat, state, reps=5), **g2p2g_bound(cfg, mat, state)}
+    out["k2"] = {"ms": prof_k2.k2_ms(cfg, state.grid, state.partition, (), state.t, 5),
+                 **grid_bound(cfg, state.grid, state.partition)}
     out["partition"] = check_partition_kernel(cfg, *rebuild_inputs(cfg, state),
                                               "config 5 one-device final state", facts,
                                               reps=5, plain_reps=2)
-    log(f"config 5 on one device, through the rebucket kernels: sort_permute "
-        f"{stages['sort_permute']:.3f} ms (keys+sort {stages['sort_permute: keys+sort']:.3f}), "
-        f"peak {out['peak_gib']:.2f} GiB | {facts}")
-    log("config 5 on one device, stages on its final state (ms, median of 5): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f"; K1 bound {out['k1']['bound_ms']:.4f} ms ({out['k1']['bound_by']}), K2 bound "
-        f"{out['k2']['bound_ms']:.4f} ms ({out['k2']['bound_by']}) | {facts}")
+    log(f"config 5 on one device, on its final state (ms, median of 5): K1 "
+        f"{out['k1']['ms']:.3f}, bound {out['k1']['bound_ms']:.4f} ({out['k1']['bound_by']}); "
+        f"K2 {out['k2']['ms']:.3f}, bound {out['k2']['bound_ms']:.4f} "
+        f"({out['k2']['bound_by']}) | {facts}")
     torch.cuda.empty_cache()
     sim = {"state": state}
 
@@ -2957,7 +2833,7 @@ def main() -> int:
     # 3. K2 and K2 with colliders at the flagship pool shape: the check pool
     #    (every oct of the domain) and, for the collider kernels, the
     #    straddle pool (every row crosses a surface of one of their colliders)
-    cfg25, mats25, parts25, v0s25, _ = scene("sphere25m")
+    cfg25, mats25, parts25, v0s25, _ = build("sphere25m", quick=False)
     mat25, pos25, v0 = mats25[0], parts25[0], v0s25[0]
     k2 = check_grid_kernel(cfg25, n_active=cfg25.num_oct_keys)
     log(f"K2 grid_update vs plain, pool {cfg25.max_active_octs + 1}x16x128: "
@@ -2986,7 +2862,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. K1 on the 1.07M cube after init and one grid update
-    cfgc, matsc, partsc, v0sc, _ = scene("cube")
+    cfgc, matsc, partsc, v0sc, _ = build("cube", quick=False)
     matc, posc, v0c = matsc[0], partsc[0], v0sc[0]
     engc = ct.MPMEngine(cfgc, [matc], tile_chunk=64, device=DEVICE)
     sc = engc.init_state([posc], [v0c])
@@ -3111,18 +2987,15 @@ def main() -> int:
            "state", k1r, facts)
     # K1's time against the order of the slots inside the tiles
     k1_order = k1_order_sensitivity(cfg25, mat25, state, k1, facts)
-    # the engine's own stage profile on the same state, beside the CUDA-event
-    # breakdown; it must leave the state as it was
+    # the engine's own stage profile on the same state; it must leave the
+    # state as it was
     before = (state.grid.clone(), state.models[0].pos.clone())
     prof = eng.profile_stages(state, iters=8, reps=2)
-    sb = stage_breakdown(cfg25, [mat25], state)
     if not (torch.equal(before[0], state.grid) and _same(before[1], state.models[0].pos)
             and all(np.isfinite(v) for v in prof.values())):
         raise AssertionError(f"profile_stages: {prof}, or it changed its input state")
     log("sphere25m profile_stages (ms per call, best of 2 x 8): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in prof.items())
-        + "; stage_breakdown (median of 10): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sb.items()) + f" | {facts}")
+        + ", ".join(f"{k} {v:.3f}" for k, v in prof.items()) + f" | {facts}")
     # the rebucket kernels against their plain twins on the final state: as
     # it is, every tile's slots permuted (as K1's order check), every slot
     # shuffled, and half the shuffled slots' tiles (particles dropped)
@@ -3216,9 +3089,6 @@ def main() -> int:
     if db["metrics"]["rebuilds"] == 0:
         raise AssertionError("dambreak12m: no drift-triggered rebuild fired")
     paths["dambreak12m"] = db["metrics"]
-    stages = stage_breakdown(db["cfg"], db["mats"], db["state"])
-    log("dambreak12m stages on its final state (ms, median of 10): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {facts}")
     rebucket_checks["dambreak12m"] = check_rebucket_kernel(
         db["cfg"], db["state"].models[0], "dambreak12m final state", facts)
     partition_checks["dambreak12m"] = check_partition_kernel(
@@ -3269,8 +3139,6 @@ def main() -> int:
             n_model = int(run["state"].models[model_idx].active.sum())
             log_k1(f"{key}, {name} state, model {model_idx}, {n_model} particles",
                    k1v[key], facts)
-        else:
-            paths[name].update(scene_stages(run, facts))
         del run
 
     # 8b. sand, nacc and multimat at span 4 (rebucket_every=4); each
@@ -3304,7 +3172,8 @@ def main() -> int:
             log(f"dambreak_sdf substep {i + 2}: {contact[i + 2]} massive cells "
                 f"touched by the dome")
 
-    sdfrun = drive("dambreak_sdf", steps=SDF_STEPS, facts=facts, on_step=probe_contact)
+    sdfrun = drive("dambreak_sdf", steps=SDF_STEPS, facts=facts, slack=SDF_SLACK,
+                   on_step=probe_contact)
     touched = sdf_contact(sdfrun["cfg"], sdfrun["state"], sdfrun["engine"].colliders)
     paths["dambreak_sdf"] = {**sdfrun["metrics"], "sdf_cells_touched": touched,
                              "contact_by_substep": contact}
@@ -3312,7 +3181,6 @@ def main() -> int:
         f"substep: {contact}; at the end {touched} | {facts}")
     if touched == 0:
         raise AssertionError("dambreak_sdf: the fluid never reached the SDF dome")
-    paths["dambreak_sdf"].update(scene_stages(sdfrun, facts))
     rebucket_checks["dambreak_sdf"] = check_rebucket_kernel(
         sdfrun["cfg"], sdfrun["state"].models[0], "dambreak_sdf final state", facts)
     partition_checks["dambreak_sdf"] = check_partition_kernel(
@@ -3322,7 +3190,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9b. dambreak_sdf with the incremental rebucket (defrag_every=4)
-    sdfi = drive("dambreak_sdf", steps=SDF_STEPS, facts=facts, strict=False, defrag_every=4)
+    sdfi = drive("dambreak_sdf", steps=SDF_STEPS, facts=facts, slack=SDF_SLACK, strict=False,
+                 defrag_every=4)
     if sdfi["failed"]:
         failures["dambreak_sdf defrag_every=4"] = sdfi["failed"]
     paths["dambreak_sdf_incremental"] = sdfi["metrics"]

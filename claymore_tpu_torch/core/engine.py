@@ -184,7 +184,7 @@ def rebucket(cfg: SimConfig, pool: torch.Tensor, partition: Partition, models,
     took the full sort), ``deferred`` the movers each model's plan would
     have deferred (empty for "full" and "stale")."""
     if stale:
-        with span("claymore.rebuild.incremental"):
+        with span("claymore.rebuild.stale"):
             plans = [(dataclasses.replace(m), part.tile_block_keys(cfg, m.tiles),
                       m.tiles.dropped) for m in models]
         kind, deferred = "stale", []
@@ -257,8 +257,7 @@ def time_state_loop(fn, state: SimState, iters: int, reps: int, device) -> float
 
 
 def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
-                 frame_end, collider_tables=None, sdf_pointers=None, comm=None,
-                 on_stage=None):
+                 frame_end, collider_tables=None, sdf_pointers=None, comm=None):
     """One explicit MPM substep of every shard this process holds.
 
     ``states`` is a tuple of shard states (``MPMEngine`` passes one), and
@@ -296,19 +295,13 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
        into the new pool.
 
     Each stage runs inside a ``claymore.*`` range (``utils/timers.py:span``)
-    while ``torch.profiler`` records.  ``on_stage(name)``, when given, is
-    called as each stage's range closes, its work queued for every shard
-    (``chip_smoke.py`` records CUDA events there): "K2", "reduce_max", "K1"
-    (or "K1 boundary", "exchange issued", "K1 interior" under the split;
-    "exchange issued" after "K1" under a live comm without it), "decision",
-    "migrate", "mask", "rebuild", "add_halo"; the comm's stages only under
-    a live comm."""
+    while ``torch.profiler`` records."""
     n = len(states)
     collider_tables = collider_tables or (None,) * n
     sdf_pointers = sdf_pointers or (None,) * n
     comm_live = comm is not None and not comm.trivial
     n3 = cfg.grid_size ** 3
-    with span("claymore.k2", on_stage, "K2"):
+    with span("claymore.k2"):
         grid_out = [grid_kernel.grid_update(cfg, s.grid, s.partition, s.dt, colliders, s.t,
                                             collider_tables[j], sdf_pointers[j])
                     for j, s in enumerate(states)]
@@ -316,7 +309,7 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
         max_vel_sqr = [mv for _, mv in grid_out]
         del grid_out
     if comm_live:
-        with span("claymore.reduce_max", on_stage, "reduce_max"):
+        with span("claymore.reduce_max"):
             max_vel_sqr = comm.reduce_max(max_vel_sqr)
     with span("claymore.dt"):
         t_after = [s.t + s.dt for s in states]
@@ -340,7 +333,7 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
 
     bts = [[m.tiles.tvalid.shape[0] for m in s.models] for s in states]
     if split:
-        with span("claymore.k1.boundary", on_stage, "K1 boundary"):
+        with span("claymore.k1.boundary"):
             next_pools = [torch.zeros_like(s.grid) for s in states]
             mult = math.lcm(cfg.group_tiles, tile_chunk)
             for j, s in enumerate(states):
@@ -356,23 +349,23 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
                         halo_overflow[j] = halo_overflow[j] + bad.sum(dtype=torch.int32).reshape(1)
                     transfer(j, mi, (0, bt))
     else:
-        with span("claymore.k1", on_stage, "K1"):
+        with span("claymore.k1"):
             next_pools = [torch.zeros_like(s.grid) for s in states]
             for j in range(n):
                 for mi in range(len(materials)):
                     transfer(j, mi)
     if comm_live:
-        with span("claymore.exchange", on_stage, "exchange issued"):
+        with span("claymore.exchange"):
             received, overflow = comm.exchange_halo(next_pools, [s.partition for s in states])
             halo_overflow = [h + o for h, o in zip(halo_overflow, overflow)]
     if split:
-        with span("claymore.k1.interior", on_stage, "K1 interior"):
+        with span("claymore.k1.interior"):
             for j, s in enumerate(states):
                 for mi, model in enumerate(s.models):
                     transfer(j, mi, (bts[j][mi], model.tiles.tvalid.shape[0]))
     del pool_vs
 
-    with span("claymore.decision", on_stage, "decision"):
+    with span("claymore.decision"):
         if cfg.rebucket_auto:
             # rebuild when the next advection could push some particle past its
             # tile's arena bound (margin on the advected positions, stale tiles)
@@ -391,7 +384,7 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
             do_rebuild = [(step + 1) % cfg.rebucket_every == 0] * n
     extra = [None] * n
     if comm_live:
-        with span("claymore.migrate", on_stage, "migrate"):
+        with span("claymore.migrate"):
             models, drop, arrived = comm.migrate(models, do_rebuild)
             mig_dropped = [md + d for md, d in zip(mig_dropped, drop)]
             if not all(do_rebuild) and (comm.group.dense or any(do_rebuild)):
@@ -400,11 +393,11 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
                 # free slots of other tiles, whose next transfer drops them)
                 do_rebuild = [d or a for d, a in
                               zip(do_rebuild, comm.read_flags(arrived, "arrived"))]
-        with span("claymore.mask", on_stage, "mask"):
+        with span("claymore.mask"):
             comm.wait_halo()
             extra = [comm.halo_mass_mask(r) for r in received]
 
-    with span("claymore.rebuild", on_stage, "rebuild"):
+    with span("claymore.rebuild"):
         full = any(do_rebuild) and full_rebuild(cfg, states[0].step)
         rebuilt, planned = [], []
         for j, s in enumerate(states):
@@ -425,7 +418,7 @@ def substep_impl(cfg: SimConfig, materials, colliders, tile_chunk: int, states,
             # shard's copies, not every shard's
             models[j] = next_pools[j] = None
     if comm_live:
-        with span("claymore.add_halo", on_stage, "add_halo"):
+        with span("claymore.add_halo"):
             for j, (partition, pool, new_models) in enumerate(planned):
                 planned[j] = (partition, comm.add_halo(pool, partition, received[j]),
                               new_models)
@@ -565,16 +558,13 @@ class MPMEngine:
     def _frame_end(self, frame_end) -> torch.Tensor:
         return torch.as_tensor(frame_end, dtype=torch.float32).to(self.device)
 
-    def substep(self, state: SimState, frame_end, on_stage=None) -> SimState:
+    def substep(self, state: SimState, frame_end) -> SimState:
         """One substep (``substep_impl``, inside a ``claymore.substep``
-        range under ``torch.profiler``); ``on_stage(name)``, when given, is
-        called as each stage's work has been queued ("K2", "K1",
-        "decision", "rebuild")."""
+        range under ``torch.profiler``)."""
         with span("claymore.substep"):
             (state,), (rebuilt,) = substep_impl(
                 self.cfg, self.materials, self.colliders, self.tile_chunk, (state,),
-                (self._frame_end(frame_end),), (self._collider_table,), (self._sdf_pointers,),
-                on_stage=on_stage)
+                (self._frame_end(frame_end),), (self._collider_table,), (self._sdf_pointers,))
         self.substeps += 1
         if rebuilt is not None:
             self.rebuilds += 1

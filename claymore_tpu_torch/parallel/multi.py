@@ -632,14 +632,14 @@ class MultiChipEngine:
         return tuple(torch.as_tensor(frame_end, dtype=torch.float32).to(d)
                      for d in self.devices)
 
-    def substep(self, state, frame_end, on_stage=None):
+    def substep(self, state, frame_end):
         """One substep of every shard (``core/engine.py:substep_impl``,
         inside a ``claymore.substep`` range under ``torch.profiler``)."""
         with span("claymore.substep"):
             fe = frame_end if isinstance(frame_end, tuple) else self._frame_end(frame_end)
             state, rebuilt = engine_mod.substep_impl(
                 self.cfg, self.materials, self.colliders, self.tile_chunk, state, fe,
-                self._collider_tables, self._sdf_pointers, comm=self.comm, on_stage=on_stage)
+                self._collider_tables, self._sdf_pointers, comm=self.comm)
         self.substeps += 1
         self.rebuilds += any(r is not None for r in rebuilt)
         return state

@@ -10,7 +10,5 @@ claymore_tpu_torch.scripts.<name>`` with ``--device`` defaulting to ``cuda``:
   sphere and the transfer's particle-stream floor, the port of
   ``scripts/prof_stages25m.py``;
 * ``prof_rebuild``: the full rebuild's key sort, tile plan and table
-  rebuild on the 1M-particle cube, the port of ``scripts/prof_rebuild.py``;
-* ``ab_paths`` (card only, no ``--device``): ``chip_smoke.py``'s main paths
-  timed in two checkouts of the repository, alternating, on one card.
+  rebuild on the 1M-particle cube, the port of ``scripts/prof_rebuild.py``.
 """

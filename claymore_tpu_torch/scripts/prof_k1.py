@@ -28,7 +28,7 @@ CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
   (``rebucket_every=4``, stirred), each also with every 4th live tile's
   particles spread over the arena (``spread_tiles``), and each state's
   share of wide tiles (``wide_tiles`` on K1's output; with the kernel's own
-  count beside it where the package has ``wide_tile_counter``);
+  count, ``wide_tile_counter``, beside it);
 * the drift check on the sphere25m state (what the substep does after K1
   to decide on a rebuild, host read included) and, on the host clock, its
   drift-only substep (median of 20 synchronised substeps);
@@ -36,11 +36,10 @@ CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
   and ``torch.gather`` with a precomputed index doing the same (each timed
   10 calls back to back).
 
-Prints one JSON line.  Only the package's entry points are used, so the
-script runs against any checkout whose ``g2p2g`` returns ``(model, pool)``
-or ``(model, pool, margin)``: run as a file with another checkout first on
-``PYTHONPATH``, it times that checkout's kernels, and two checkouts compare
-on one card within one call.  Needs a CUDA device (exit 2 without one).
+Prints one JSON line.  Only the package's entry points are used: run as a
+file with another checkout first on ``PYTHONPATH``, it times that
+checkout's kernels, and two checkouts compare on one card within one call.
+Needs a CUDA device (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -54,6 +53,8 @@ import time
 
 import numpy as np
 import torch
+
+from claymore_tpu_torch.utils.timers import median_ms
 
 SEED = 0
 
@@ -196,30 +197,6 @@ def stir(state, scale: float = 0.5, seed: int = SEED):
     return dataclasses.replace(state, grid=grid)
 
 
-def scene(name: str):
-    """(cfg, material, positions, v0) of a one-model scene of ``bench.py``
-    (``scripts/bench.py:build``): sphere25m, dambreak12m, sand, nacc, cube
-    and ``cube_quick`` (``bench.py``'s ``--quick`` cube)."""
-    from claymore_tpu_torch.scripts.bench import build
-
-    quick = name == "cube_quick"
-    cfg, mats, parts, v0s, _ = build("cube" if quick else name, quick)
-    return cfg, mats[0], parts[0], v0s[0]
-
-
-def median_ms(fn, reps: int, batch: int = 1) -> float:
-    """Median over ``reps`` samples of CUDA-event milliseconds per call,
-    each sample ``batch`` calls back to back."""
-    from claymore_tpu_torch.utils.timers import device_ms
-
-    def run():
-        for _ in range(batch):
-            fn()
-
-    fn()
-    return float(np.median([device_ms(run, "cuda") for _ in range(reps)])) / batch
-
-
 def k1_ms(cfg, mat, state, reps: int, dead: bool = False, model_idx: int = 0) -> float:
     """K1 from one grid update of ``state`` into a pool it keeps adding to
     (the accumulator's contents do not change the work)."""
@@ -232,41 +209,35 @@ def k1_ms(cfg, mat, state, reps: int, dead: bool = False, model_idx: int = 0) ->
             model.tiles, tvalid=torch.zeros_like(model.tiles.tvalid)))
     acc = torch.zeros_like(state.grid)
     return median_ms(lambda: g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table,
-                                                model, state.dt, state.dt, acc, 64), reps)
+                                                model, state.dt, state.dt, acc, 64),
+                     reps, warmup=1)
 
 
 def drift_check_ms(cfg, mat, state, reps: int) -> float:
     """What the substep does after K1 to decide on a rebuild: the host read
-    of the margin K1 returned, or ``arena_margin`` and its host read where
-    K1 returns none."""
-    from claymore_tpu_torch.core import partition
+    of the margin K1 returned."""
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
-    out = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, state.models[0],
-                             state.dt, state.dt, torch.zeros_like(state.grid), 64)
-    if len(out) == 3:
-        margin = out[2]
-        return median_ms(lambda: bool(margin <= 0.0), reps)
-    model = out[0]
-    return median_ms(lambda: bool(partition.arena_margin(cfg, model) <= 0.0), reps)
+    _, _, margin = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table,
+                                      state.models[0], state.dt, state.dt,
+                                      torch.zeros_like(state.grid), 64)
+    return median_ms(lambda: bool(margin <= 0.0), reps, warmup=1)
 
 
 def k1_wide(cfg, mat, state, model_idx: int = 0) -> dict:
     """One K1 call on ``state``: ``wide_tiles`` of its output, and the
-    kernel's own count of wide tiles where the package has one."""
+    kernel's own count of wide tiles."""
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
     pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
-    counter = getattr(g2p2g_kernel, "wide_tile_counter", None)
-    if counter is not None:
-        counter("cuda").zero_()
+    g2p2g_kernel.wide_tile_counter("cuda").zero_()
     out = g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table,
                              state.models[model_idx], state.dt, state.dt,
                              torch.zeros_like(state.grid), 64)[0]
     wide, live = wide_tiles(cfg, out)
     return {"wide": wide, "live": live, "share": wide / max(live, 1),
-            "kernel_count": None if counter is None else int(counter("cuda")[0])}
+            "kernel_count": int(g2p2g_kernel.wide_tile_counter("cuda")[0])}
 
 
 def engine(name: str, steps: int, stirred: bool = False, **cfg_kw):
@@ -294,8 +265,9 @@ def jittered_engine(name: str, seed: int = SEED):
     inside its own lattice spacing, and the tile capacity from
     ``exact_tiles`` of those points at the cell's ``CELL_SLACK``."""
     import claymore_tpu_torch as ct
+    from claymore_tpu_torch.scripts.bench import build
 
-    cfg, mat, pos, v0 = scene(name)
+    cfg, (mat,), (pos,), (v0,), _ = build(name, False)
     h = cfg.dx / cfg.ppc ** (1.0 / 3.0)
     rng = np.random.default_rng(seed)
     pos = (pos + (rng.random(pos.shape, dtype=np.float32) - 0.5) * np.float32(h)).astype(
@@ -310,16 +282,16 @@ def tile_counts(cfg, model) -> dict:
     live tiles (valid, an active slot), dead tiles (the rest), overflow
     tiles (live, the second or later tile of their block), and the share
     of the slots in the tiles' occupied prefixes (one past the last active
-    slot rounded up to 16: ``g2p2g_kernel.occupied_slots``, counted here
-    too so that the script runs against a checkout older than it)."""
+    slot rounded up to 16: ``g2p2g_kernel.occupied_slots``)."""
+    from claymore_tpu_torch.ops.g2p2g_kernel import occupied_slots
+
     t, n = model.tiles.tvalid.shape[0], cfg.particle_tile
     act = model.active.reshape(t, n) & model.tiles.tvalid[:, None]
     live = act.any(dim=1)
     block = model.tiles.block
     second = torch.zeros_like(live)
     second[1:] = live[1:] & live[:-1] & (block[1:] == block[:-1])
-    idx = torch.arange(1, n + 1, device=act.device)
-    prefix = (torch.where(act, idx, 0).amax(dim=1) + 15) // 16 * 16
+    prefix = occupied_slots(cfg, model)
     return {"slots": t * n, "active": int(act.sum()), "tiles": t, "live_tiles": int(live.sum()),
             "dead_tiles": int((~live).sum()), "overflow_tiles": int(second.sum()),
             "active_share": int(act.sum()) / (t * n),
@@ -368,14 +340,12 @@ def cell_states(reps: int, substeps: int = 20) -> dict:
     them (``jittered_engine``), at set-up and after ``substeps`` drift
     substeps: ms, the tile counts, the static walks' model of the blocks'
     live tiles (``block_loads``), the kernel's own count of streamed slots
-    as a share of the slots where the package has
-    ``streamed_slot_counter``, and what its blocks did
-    (``block_balance``) where it has ``block_balance_counter`` (each null
-    on an older checkout)."""
+    as a share of the slots (``streamed_slot_counter``), and what its
+    blocks did (``block_balance`` of ``block_balance_counter``)."""
     from claymore_tpu_torch.ops import g2p2g_kernel, grid_kernel
 
-    counter = getattr(g2p2g_kernel, "streamed_slot_counter", None)
-    balance = getattr(g2p2g_kernel, "block_balance_counter", None)
+    counter = g2p2g_kernel.streamed_slot_counter
+    balance = g2p2g_kernel.block_balance_counter
     fe = torch.tensor(1e9, device="cuda")
     out = {}
     for name in CELL_SLACK:
@@ -390,17 +360,13 @@ def cell_states(reps: int, substeps: int = 20) -> dict:
             row["block_live"] = block_loads(live, sms * g2p2g_kernel.kernel_info(
                 mat, cfg.particle_tile, cfg.arena_span)["blocks_per_sm"])
             row["ms"] = k1_ms(cfg, mat, state, reps)
-            row["streamed_share"] = row["block_balance"] = None
-            if counter is not None:
-                pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
-                counter("cuda").zero_()
-                if balance is not None:
-                    balance("cuda").zero_()
-                g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, state.models[0],
-                                   state.dt, state.dt, torch.zeros_like(state.grid), 64)
-                row["streamed_share"] = int(counter("cuda")[0]) / row["slots"]
-                if balance is not None:
-                    row["block_balance"] = block_balance(balance("cuda").tolist())
+            pool_v, _ = grid_kernel.grid_update(cfg, state.grid, state.partition, state.dt)
+            counter("cuda").zero_()
+            balance("cuda").zero_()
+            g2p2g_kernel.g2p2g(cfg, mat, pool_v, state.partition.table, state.models[0],
+                               state.dt, state.dt, torch.zeros_like(state.grid), 64)
+            row["streamed_share"] = int(counter("cuda")[0]) / row["slots"]
+            row["block_balance"] = block_balance(balance("cuda").tolist())
             res[label] = row
         out[name] = res
         del eng, state
@@ -442,9 +408,9 @@ def lane_probe_ms(reps: int, tiles: int = 65536) -> dict:
         kernel = getattr(pk, name)
         index = (s.long()[:, None] + base + torch.arange(32, device="cuda"))[:, None, :]
         index = index.expand(-1, 16, -1)
-        out[name] = {"ms": median_ms(lambda: kernel(x, s), reps * 2, batch=10),
+        out[name] = {"ms": median_ms(lambda: kernel(x, s), reps * 2, warmup=1, batch=10),
                      "gather_ms": median_ms(lambda: torch.gather(x, 2, index), reps * 2,
-                                            batch=10)}
+                                            warmup=1, batch=10)}
     return out
 
 

@@ -1,7 +1,7 @@
 """The grid kernels K2, K2-AC and K2-SDF on one card, at the pools that
 matter to the collider kernels.
 
-    python -m claymore_tpu_torch.scripts.prof_k2 [--reps 20] [--no-bounds]
+    python -m claymore_tpu_torch.scripts.prof_k2 [--reps 20]
     PYTHONPATH=<another checkout> python3 claymore_tpu_torch/scripts/prof_k2.py
 
 CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
@@ -20,15 +20,14 @@ CUDA-event milliseconds (median of ``--reps`` calls after a warm-up) of:
   ``dambreak_sdf`` after 1,750 (the fluid has reached the dome), with each
   scene's drift-only substep on the host clock (median of 20 synchronised
   substeps that did not rebuild), and each state's
-  ``utils/bounds.py:grid_bound`` (``--no-bounds`` leaves it out, for a
-  checkout that predates that module).
+  ``utils/bounds.py:grid_bound``.  ``dambreak_sdf`` runs at tile slack
+  ``SDF_SLACK`` in place of bench.py's 1.25: the spreading fluid keeps
+  every particle for 3,000 substeps, where bench.py runs 81.
 
 Prints one line, ``PROFK2 {json}``.  Only the package's entry points are
-used, so the script runs against any checkout of the port: run as a file
-with another checkout first on ``PYTHONPATH`` (and ``--no-bounds`` where
-that checkout has no ``utils/bounds.py``), it times that checkout's
-kernels, and two checkouts compare on one card within one call.  Needs a
-CUDA device (exit 2 without one).
+used: run as a file with another checkout first on ``PYTHONPATH``, it
+times that checkout's kernels, and two checkouts compare on one card
+within one call.  Needs a CUDA device (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -43,8 +42,11 @@ import time
 import numpy as np
 import torch
 
+from claymore_tpu_torch.utils.timers import median_ms
+
 SEED = 0
 CHECK_T = 0.37
+SDF_SLACK = 2.5           # dambreak_sdf's tile slack for its 1,750 substeps
 
 
 def pallas_colliders():
@@ -152,35 +154,6 @@ def fill(octs: np.ndarray, rows: int) -> np.ndarray:
     return np.resize(octs, rows).astype(np.int32)
 
 
-def scene(name: str):
-    """(cfg, materials, positions, velocities, colliders) of bench.py's
-    collider scenes (``scripts/bench.py:build``): ``dambreak_hs``
-    (bench.py:102-117, a frictional slip half-space ramp) and
-    ``dambreak_sdf`` (bench.py:118-140, 4.3M JFluid moving at 1 m/s onto
-    the dome), the latter with tile slack 2.5 in place of bench.py's 1.25:
-    the spreading fluid keeps every particle for 3,000 substeps, where
-    bench.py runs 81."""
-    import claymore_tpu_torch as ct
-    from claymore_tpu_torch.scripts.bench import build
-
-    if name not in ("dambreak_hs", "dambreak_sdf"):
-        raise ValueError(name)
-    cfg, mats, parts, v0s, colliders = build(name, quick=False)
-    if name == "dambreak_sdf":
-        cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=2.5))
-    return cfg, mats, parts, v0s, colliders
-
-
-def median_ms(fn, reps: int) -> float:
-    """Median CUDA-event milliseconds of ``fn()`` over ``reps`` calls after
-    two warm-up calls."""
-    from claymore_tpu_torch.utils.timers import device_ms
-
-    fn()
-    fn()
-    return float(np.median([device_ms(fn, "cuda") for _ in range(reps)]))
-
-
 def k2_ms(cfg, pool, part, colliders, t, reps: int) -> float:
     from claymore_tpu_torch.ops import grid_kernel
 
@@ -194,24 +167,25 @@ def k2_ms(cfg, pool, part, colliders, t, reps: int) -> float:
                                                      table, ptrs), reps)
 
 
-def scene_run(name: str, steps: int, reps: int, bounds: bool = True) -> dict:
-    """K2 of the scene's kind on its state after ``steps`` substeps, the
-    state's bound (with ``bounds``), and the median drift-only substep of
-    20 more."""
+def scene_run(name: str, steps: int, reps: int) -> dict:
+    """K2 of the scene's kind on bench.py's scene ``name`` after ``steps``
+    substeps, the state's bound, and the median drift-only substep of 20
+    more."""
     import claymore_tpu_torch as ct
+    from claymore_tpu_torch.scripts.bench import build
+    from claymore_tpu_torch.utils.bounds import grid_bound
 
-    cfg, mats, parts, v0s, cols = scene(name)
+    cfg, mats, parts, v0s, cols = build(name, quick=False)
+    if name == "dambreak_sdf":
+        cfg = dataclasses.replace(cfg, max_tiles=ct.exact_tiles(cfg, parts, slack=SDF_SLACK))
     eng = ct.MPMEngine(cfg, mats, cols, tile_chunk=64, device="cuda")
     fe = torch.tensor(1e9, device="cuda")
     state = eng.run_steps(eng.init_state(parts, v0s), steps, fe)
     torch.cuda.synchronize()
     out = {"k2_ms": k2_ms(cfg, state.grid, state.partition, cols, state.t, reps),
-           "massive_cells": int((state.grid[:, 0:4] > 0.0).sum())}
-    if bounds:
-        from claymore_tpu_torch.utils.bounds import grid_bound
-
-        out["bound_ms"] = grid_bound(cfg, state.grid, state.partition, cols,
-                                     float(state.t))["bound_ms"]
+           "massive_cells": int((state.grid[:, 0:4] > 0.0).sum()),
+           "bound_ms": grid_bound(cfg, state.grid, state.partition, cols,
+                                  float(state.t))["bound_ms"]}
     sub = []
     for _ in range(40):
         before = eng.rebuilds
@@ -231,21 +205,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser("prof_k2", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--no-bounds", dest="bounds", action="store_false",
-                    help="leave out the scene states' bounds")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_k2: no CUDA device is available", file=sys.stderr)
         return 2
     import claymore_tpu_torch
     from claymore_tpu_torch.models.boundary import SignedDistanceCollider
-    from claymore_tpu_torch.scripts import prof_k1
+    from claymore_tpu_torch.scripts.bench import build
     from claymore_tpu_torch.utils.timers import device_label
 
     res = {"package": os.path.dirname(os.path.abspath(claymore_tpu_torch.__file__)),
            "device": device_label("cuda")}
     t0 = time.perf_counter()
-    cfg = prof_k1.scene("sphere25m")[0]
+    cfg = build("sphere25m", False)[0]
     part, pool = grid_inputs(cfg, cfg.num_oct_keys)
     res["k2_check"] = k2_ms(cfg, pool, part, (), CHECK_T, args.reps)
     for key, cols in (("ac", pallas_colliders()), ("sdf", sdf_colliders())):
@@ -259,7 +231,7 @@ def main(argv=None) -> int:
     del part, pool
     torch.cuda.empty_cache()
     for key, name, steps in (("ac", "dambreak_hs", 41), ("sdf", "dambreak_sdf", 1750)):
-        res[f"{key}_{name}"] = scene_run(name, steps, args.reps, args.bounds)
+        res[f"{key}_{name}"] = scene_run(name, steps, args.reps)
         torch.cuda.empty_cache()
     res["wall_s"] = time.perf_counter() - t0
     print("PROFK2", json.dumps(res), flush=True)

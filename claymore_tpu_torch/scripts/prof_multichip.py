@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     from ..io.sampler import sample_uniform_box_world
     from ..parallel.multi import HaloComm, LocalGroup
     from ..utils.timers import device_label
-    from .prof_k1 import scene
+    from .bench import build
 
     dev = torch.device(args.device)
     if args.quick and dev.type == "cpu":
@@ -96,7 +96,7 @@ def main(argv=None) -> int:
         pos = sample_uniform_box_world(cfg.dx, [0.35] * 3, [0.6] * 3, cfg.ppc)
         v0, chunk = (0.0, -0.5, 0.0), 4
     else:
-        cfg, mat, pos, v0 = scene("cube_quick" if args.quick else "cube")
+        cfg, (mat,), (pos,), (v0,), _ = build("cube", args.quick)
         chunk = 64
     cfg = dataclasses.replace(cfg, max_tiles=0)
 

@@ -59,10 +59,10 @@ def main(argv=None) -> int:
     from ..ops import partition_kernel as pk
     from ..ops import rebucket_kernel as rk
     from ..utils.timers import best_ms, device_label, device_ops
-    from .prof_k1 import scene
+    from .bench import build
 
     dev = torch.device(args.device)
-    cfg, mat, pos, v0 = scene("cube_quick" if args.quick else "cube")
+    cfg, (mat,), (pos,), (v0,), _ = build("cube", args.quick)
     eng = MPMEngine(cfg, [mat], tile_chunk=64, device=dev)
     state = eng.init_state([pos], [v0])
     model = state.models[0]

@@ -3,10 +3,11 @@
 Port of ``claymore_tpu/utils/timers.py``.  ``tock`` synchronises the CUDA
 device first when asked to, so the time includes the device work queued
 since ``tick`` (the JAX package blocks on a value instead).  ``device_ms``,
-``best_ms`` and ``device_label`` time device work and name the device for
-``MPMEngine.profile_stages`` and the profiling scripts; ``device_ops``
-counts the device operations of a call; ``profile_trace`` records a
-``torch.profiler`` trace (the JAX package's ``jax.profiler`` trace).
+``median_ms``, ``best_ms`` and ``device_label`` time device work and name
+the device for ``MPMEngine.profile_stages``, ``chip_smoke.py`` and the
+profiling scripts; ``device_ops`` counts the device operations of a call;
+``profile_trace`` records a ``torch.profiler`` trace (the JAX package's
+``jax.profiler`` trace).
 
 ``span`` marks the program's own ranges (``claymore.*``: each stage of a
 substep, each step of a rebuild, each host read) in such a trace, at no
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import statistics
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -53,6 +55,20 @@ def device_ms(fn, device) -> float:
     end.record(stream)
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 2, batch: int = 1) -> float:
+    """Median milliseconds per call of ``fn()`` on the CUDA device:
+    ``warmup`` calls, then ``reps`` samples, each ``batch`` calls back to
+    back timed by ``device_ms`` and divided by ``batch``.  A batch keeps a
+    short kernel's host-side launch work off the device's clock."""
+    def run():
+        for _ in range(batch):
+            fn()
+
+    for _ in range(warmup):
+        fn()
+    return statistics.median(device_ms(run, "cuda") for _ in range(reps)) / batch
 
 
 def best_ms(fn, device, iters: int = 10, reps: int = 3) -> float:
@@ -128,16 +144,12 @@ class span:
     event of the trace, as ``record_function`` makes) over the block while
     the profiler records, else nothing (1.0 us a use on an H100 machine's
     host; a bare ``record_function`` costs ~12 us with no profiler
-    running).
-    ``on_stage(stage)``, when given, is called once the block has ended
-    without an exception, outside the range."""
+    running)."""
 
-    __slots__ = ("name", "on_stage", "stage", "_range")
+    __slots__ = ("name", "_range")
 
-    def __init__(self, name: str, on_stage=None, stage: Optional[str] = None):
+    def __init__(self, name: str):
         self.name = name
-        self.on_stage = on_stage
-        self.stage = stage
         self._range = None
 
     def __enter__(self):
@@ -149,8 +161,6 @@ class span:
         if self._range is not None:
             self._range.__exit__(kind, value, tb)
             self._range = None
-        if self.on_stage is not None and kind is None:
-            self.on_stage(self.stage)
 
 
 def span_ops(events):

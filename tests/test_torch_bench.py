@@ -72,11 +72,23 @@ def test_scene_matches_bench_py(scene):
 
 
 def test_profiling_scenes_are_bench_scenes():
-    """``prof_k1``'s quick cube is ``build("cube", quick=True)``."""
-    cfg, mat, pos, v0 = prof_k1.scene("cube_quick")
-    bcfg, bmats, bparts, bv0s, _ = bench.build("cube", True)
-    assert cfg == bcfg and mat == bmats[0] and v0 == bv0s[0]
-    assert np.array_equal(pos, bparts[0])
+    """The profiling scripts build their scenes through ``bench.build``
+    alone; its quick cube (``--quick``, span 0.12) is its cube cut down:
+    the same configuration but the tile count, material and velocity, its
+    particles a subset of the cube's box."""
+    from claymore_tpu_torch.scripts import prof_k2
+
+    assert not hasattr(prof_k1, "scene") and not hasattr(prof_k2, "scene")
+    cfg, mats, parts, v0s, cols = bench.build("cube", True)
+    fcfg, fmats, fparts, fv0s, fcols = bench.build("cube", False)
+    assert cfg == dataclasses.replace(fcfg, max_tiles=cfg.max_tiles)
+    assert 0 < cfg.max_tiles < fcfg.max_tiles
+    assert mats == fmats and v0s == fv0s and cols == fcols == ()
+    (pos,), (fpos,) = parts, fparts
+    assert 0 < pos.shape[0] < fpos.shape[0]
+    assert (pos.min(axis=0) >= fpos.min(axis=0)).all()
+    assert (pos.max(axis=0) <= fpos.max(axis=0)).all()
+    assert np.allclose(pos.max(axis=0) - pos.min(axis=0), 0.12, atol=2 * cfg.dx)
 
 
 @pytest.mark.parametrize("words, want", [

@@ -225,7 +225,6 @@ def test_import_leaves_jax_out():
             "claymore_tpu_torch.scripts.prof_stages25m, "
             "claymore_tpu_torch.scripts.prof_k1, claymore_tpu_torch.scripts.prof_k2, "
             "claymore_tpu_torch.scripts.prof_rebuild, claymore_tpu_torch.io.sampler, "
-            "claymore_tpu_torch.scripts.ab_paths, "
             "claymore_tpu_torch.io.sdf;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'claymore_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")

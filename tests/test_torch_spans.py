@@ -1,7 +1,7 @@
 """The port's ``claymore.*`` profiler ranges: how they nest in a substep,
 that they cost no ``record_function`` while no profiler records, that
-``on_stage`` keeps its names and order, and ``utils/timers.py``'s
-attribution of device operations to the ranges that launched them."""
+the stages open in their order, and ``utils/timers.py``'s attribution of
+device operations to the ranges that launched them."""
 
 from types import SimpleNamespace
 
@@ -16,7 +16,8 @@ from claymore_tpu_torch.utils import timers
 from tests.torch_port_helpers import CPU
 
 FE = torch.tensor(1.0)
-STAGES = ["K2", "K1", "decision", "rebuild"]
+STAGES = ["claymore.k2", "claymore.dt", "claymore.k1", "claymore.decision",
+          "claymore.rebuild"]
 
 
 def _engine(**kw):
@@ -39,6 +40,19 @@ def _parents(prof):
         while p is not None and not p.name.startswith(timers.PREFIX):
             p = p.cpu_parent
         out.setdefault(e.name, set()).add(p.name if p is not None else None)
+    return out
+
+
+def _stages(prof):
+    """The names of the ranges directly inside a ``claymore.substep``, in
+    the order they opened."""
+    out = []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith(timers.PREFIX):
+            p = p.cpu_parent
+        if e.name.startswith(timers.PREFIX) and p is not None and p.name == "claymore.substep":
+            out.append(e.name)
     return out
 
 
@@ -110,32 +124,32 @@ def test_no_profiler_no_record_function(monkeypatch):
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     monkeypatch.setattr(timers, "_Range", refuse)
     eng, st = _engine(rebucket_auto=True, defrag_every=2)
-    stages = []
     for _ in range(4):
-        st = eng.substep(st, FE, on_stage=stages.append)
+        st = eng.substep(st, FE)
     st = eng.run_frame(st, float(st.t) + eng.cfg.default_dt)
+    assert eng.substeps == int(st.step) >= 5
     assert eng.rebuilds >= 1
-    assert stages == STAGES * 4
 
 
 @pytest.mark.parametrize("kw", [dict(rebucket_auto=True), dict(rebucket_every=1)])
 def test_on_stage_names_and_order(kw):
     eng, st = _engine(**kw)
-    stages = []
-    for _ in range(2):
-        st = eng.substep(st, FE, on_stage=stages.append)
-    assert stages == STAGES * 2
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            st = eng.substep(st, FE)
+    assert _stages(prof) == STAGES * 2
 
 
 @pytest.mark.parametrize("overlap, stages", [
-    (True, ["K2", "reduce_max", "K1 boundary", "exchange issued", "K1 interior", "decision",
+    (True, ["k2", "reduce_max", "dt", "k1.boundary", "exchange", "k1.interior", "decision",
             "migrate", "mask", "rebuild", "add_halo"]),
-    (False, ["K2", "reduce_max", "K1", "exchange issued", "decision", "migrate", "mask",
+    (False, ["k2", "reduce_max", "dt", "k1", "exchange", "decision", "migrate", "mask",
              "rebuild", "add_halo"]),
 ])
 def test_mesh_stages_and_spans(overlap, stages):
-    """A live comm on the CPU: ``on_stage`` in today's names and order, and
-    the comm's stages and reads as ranges inside the substep."""
+    """A live comm on the CPU: the comm's stages and reads as ranges inside
+    the substep, in their order, and a shard that keeps its tiles rebuilds
+    its partition under ``claymore.rebuild.stale``."""
     cfg = ct.SimConfig(domain_bits=5, max_active_blocks=128, default_dt=5e-4,
                        rebucket_auto=True)
     mat = ct.FixedCorotated(volume=cfg.default_volume(), e=1e4, nu=0.3)
@@ -143,10 +157,10 @@ def test_mesh_stages_and_spans(overlap, stages):
                              overlap_halo=overlap, device=CPU)
     pos = sample_uniform_box_world(cfg.dx, [0.35] * 3, [0.65] * 3, cfg.ppc)
     st = eng.init_state([pos], [(0.4, -0.2, 0.1)])
-    got = []
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        st = eng.substep(st, 1.0, on_stage=got.append)
-    assert got == stages and eng.substeps == 1
+        st = eng.substep(st, 1.0)
+    assert _stages(prof) == ["claymore." + s for s in stages] and eng.substeps == 1
+    assert eng.rebuilds == 0
     parents = _parents(prof)
     sub = "claymore.substep"
     k1 = ["claymore.k1.boundary", "claymore.k1.interior"] if overlap else ["claymore.k1"]
@@ -157,6 +171,8 @@ def test_mesh_stages_and_spans(overlap, stages):
     assert parents["claymore.sync.flags"] == {"claymore.decision"}
     # every shard rebuilds its partition every substep under a live comm
     assert parents["claymore.rebuild.partition"] == {"claymore.rebuild"}
+    assert parents["claymore.rebuild.stale"] == {"claymore.rebuild"}
+    assert "claymore.rebuild.incremental" not in parents
 
 
 def ev(name, start, end, device=DeviceType.CPU, id=0, **kw):
