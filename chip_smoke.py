@@ -50,9 +50,9 @@ against its plain twin), and drives the port's main paths through
   the one-device file for one frame, both frames through the native
   writer and read back.
 
-The rebucket kernels (``csrc/rebucket.cu``: the home-block keys, the
-segment heads, the tile plan, the placement) are held against their plain
-twins bit for bit (``check_rebucket_kernel``) on the sphere25m final state
+The rebucket kernels (``csrc/rebucket.cu``: the home-block keys, the key
+sort, the segment heads, the tile plan, the placement) are held against
+their plain twins bit for bit (``check_rebucket_kernel``) on the sphere25m final state
 as it is, with every tile's slots permuted, with every slot shuffled and
 in half its tiles (particles dropped), on dambreak12m's and dambreak_sdf's
 final states and on shard 0 of the 2x2 sphere with its region; every path
@@ -122,7 +122,8 @@ SEED = 0
 DEVICE = "cuda"
 SDF_STEPS = 1749          # dambreak_sdf: + 1 warm-up = 1750 substeps
 PEAK_BOUND = 80e9         # bytes of device memory a path may peak at: one card
-REBUCKET_KERNELS = ("rebucket_keys", "rebucket_heads", "rebucket_plan", "rebucket_place")
+REBUCKET_KERNELS = ("rebucket_keys", "rebucket_sort", "rebucket_heads", "rebucket_plan",
+                    "rebucket_place")
 PARTITION_KERNELS = ("first_marked", "oct_mask", "remap", "finalize_tiles")
 HALO_KERNELS = ("halo_pack", "halo_mask", "halo_add", "migrate_pack")
 
@@ -468,13 +469,15 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
                           reps: int = 10, plain_reps: int = 3) -> dict:
     """The rebucket kernels (``ops/rebucket_kernel.py``) against their plain
     twins (``core/partition.py``) on ``model``, bit for bit, each on the
-    same inputs: the keys (``home_keys``), the heads (``segment_heads``),
-    the plan (``segment_bases`` and ``tile_windows``) and the placement
-    (``place``), then the whole ``sort_permute`` against the plain version.
-    Times (CUDA events, median of ``reps``; the plain ones of
-    ``plain_reps``): the keys and the sort, the sort alone, each kernel,
-    the whole and the plain version, beside ``rebucket_bound``.  Not
-    counted."""
+    same inputs: the keys (``home_keys``), the sort (``sort_keys``: the
+    sorted keys, and the index by value, the kernel's int32 against
+    torch.sort's int64), the heads (``segment_heads``), the plan
+    (``segment_bases`` and ``tile_windows``) and the placement (``place``),
+    then the whole ``sort_permute`` against the plain version.  Times (CUDA
+    events, median of ``reps``; the plain ones of ``plain_reps``): the keys
+    and the sort, each kernel (the sort alone: ``key_sort``, with
+    ``torch.sort`` as its plain twin and its library call), the whole and
+    the plain version, beside ``rebucket_bound``.  Not counted."""
     from claymore_tpu_torch.core import partition as part
     from claymore_tpu_torch.ops import rebucket_kernel as rk
     from claymore_tpu_torch.utils.bounds import rebucket_bound
@@ -492,7 +495,7 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
     skey, perm, region = rk.sort_keys(cfg, model, region_fn)
     skey_p, perm_p, _ = part.sort_keys(cfg, model, region_fn)
     expect("sorted keys", skey, skey_p)
-    expect("sort index", perm, perm_p)
+    expect("sort index", perm.long(), perm_p)
     del skey_p, perm_p
     off, sentinel = part.region_offsets(cfg, region)
 
@@ -529,7 +532,7 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
     src = part.region_source(cfg, rk.home_keys(cfg, model), region_fn)
     ms = {
         "keys+sort": median_ms(lambda: rk.sort_keys(cfg, model, region_fn), reps=reps),
-        "sort": median_ms(lambda: torch.sort(src, stable=True), reps=reps),
+        "sort": median_ms(lambda: rk.key_sort(src, sentinel), reps=reps),
         "keys": median_ms(lambda: rk.home_keys(cfg, model), reps=reps),
         "heads": median_ms(lambda: rk.launch_heads(cfg, skey, region), reps=reps),
         "plan": median_ms(lambda: rk.launch_plan(cfg, skey, seg_start, meta, nt, region),
@@ -537,6 +540,7 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
         "place": median_ms(lambda: rk.place(cfg, model, perm, dstart, dlen), reps=reps),
         "sort_permute": median_ms(lambda: rk.sort_permute(cfg, model, nt, region_fn), reps=reps),
     }
+    library_ms = median_ms(lambda: torch.sort(src, stable=True), reps=reps)
     plain = {
         "keys": lambda: part.home_keys(cfg, model),
         "heads": lambda: part.segment_heads(skey, sentinel),
@@ -546,24 +550,26 @@ def check_rebucket_kernel(cfg, model, label: str, facts: str, region_fn=None,
         "sort_permute": lambda: part.sort_permute(cfg, model, nt, region_fn),
     }
     plain_ms = {k: median_ms(f, reps=plain_reps) for k, f in plain.items()}
+    plain_ms["sort"] = library_ms              # the sort's plain twin is torch.sort
     del src
     channels = 3 + sum(v.numel() // s_cap for v in model.fields.values()) + 1
     b = rebucket_bound(cfg, s_cap, channels, active=n_act, segments=g)
+    sb = {**b["stages"], "sort": b["sort"]}
     beyond = ms["sort_permute"] - ms["sort"]
     res = {"label": label, "slots": s_cap, "active": n_act, "segments": g, "tiles": nt,
            "dropped": n_dropped, "region": region, "max_abs_err": max(errs.values()),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-           "sort_bound_ms": b["sort"]["bound_ms"], "beyond_sort_ms": beyond,
-           "share": b["bound_ms"] / beyond if beyond > 0 else None,
-           "stages": {k: {"ms": ms[k], "plain_ms": plain_ms[k],
-                          "bound_ms": b["stages"][k]["bound_ms"],
-                          "share": b["stages"][k]["bound_ms"] / ms[k]}
-                      for k in ("keys", "heads", "plan", "place")}}
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b["bound_ms"], "sort_bound_ms": b["sort"]["bound_ms"],
+           "beyond_sort_ms": beyond, "share": b["bound_ms"] / beyond if beyond > 0 else None,
+           "stages": {k: {"ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": sb[k]["bound_ms"],
+                          "share": sb[k]["bound_ms"] / ms[k]}
+                      for k in ("keys", "sort", "heads", "plan", "place")}}
     share = "n/a" if res["share"] is None else f"{res['share']:.1%}"
     log(f"rebucket kernels vs plain twins, {label}: {s_cap} slots, {n_act} active, {g} "
         f"segments, dropped {n_dropped}: every output equal bit for bit; ms (median of "
         f"{reps}) keys+sort {ms['keys+sort']:.4f}, sort {ms['sort']:.4f} (bound "
-        f"{b['sort']['bound_ms']:.4f}), keys {ms['keys']:.4f}, heads {ms['heads']:.4f}, plan "
+        f"{b['sort']['bound_ms']:.4f}; torch.sort {library_ms:.4f}), keys {ms['keys']:.4f}, "
+        f"heads {ms['heads']:.4f}, plan "
         f"{ms['plan']:.4f}, place {ms['place']:.4f}, sort_permute {ms['sort_permute']:.4f}; "
         f"plain twins keys {plain_ms['keys']:.4f}, heads "
         f"{plain_ms['heads']:.4f}, plan {plain_ms['plan']:.4f}, place "
@@ -3340,7 +3346,7 @@ def main() -> int:
     # beside them, and their launches on the other paths
     rebucket_checks["multi_sphere25m_2x2_shard0"] = paths["multi_sphere25m_2x2"]["rebucket"]
     rb = rebucket_checks["sphere25m"]
-    for name, stage in zip(REBUCKET_KERNELS, ("keys", "heads", "plan", "place")):
+    for name, stage in zip(REBUCKET_KERNELS, ("keys", "sort", "heads", "plan", "place")):
         e = {"name": name, "route": "cuda", "source": src + "rebucket.cu",
              "replaces": "claymore_tpu/core/partition.py:83",
              "tpu_route": "not a TPU kernel: XLA in the JAX package (sort_permute's lax.sort "
@@ -3349,7 +3355,7 @@ def main() -> int:
              "max_abs_err": max(c["max_abs_err"] for c in rebucket_checks.values()),
              "ms": rb["stages"][stage]["ms"], "plain_ms": rb["stages"][stage]["plain_ms"],
              "bound_ms": rb["stages"][stage]["bound_ms"], "bound_by": "bytes",
-             "library_ms": None,
+             "library_ms": rb["library_ms"] if stage == "sort" else None,
              "states": {k: {"slots": c["slots"], "dropped": c["dropped"],
                             "ms": c["stages"][stage]["ms"],
                             "bound_ms": c["stages"][stage]["bound_ms"]}

@@ -123,10 +123,15 @@ def region_source(cfg: SimConfig, key: torch.Tensor, region_fn=None) -> torch.Te
 
 def sort_keys(cfg: SimConfig, model, region_fn=None):
     """The rebucket's sort: ``region_source`` of ``home_keys``, sorted
-    stably.
+    stably by ``torch.sort``, the plain twin of the package's own sort on
+    the card (``ops/rebucket_kernel.py:key_sort``: an LSD radix sort of the
+    active slots alone over the bits below the sentinel, with int32
+    indices; ~1.6 GB of traffic on sphere25m's 69.6M slots where
+    ``torch.sort`` moves ~7 GB).
 
     Returns (skey i32[S], perm i64[S], region): ``perm[i]`` is the slot of
-    the i-th sorted key, ``region`` whether the keys carry the offset."""
+    the i-th sorted key (ties in slot order), ``region`` whether the keys
+    carry the offset."""
     skey, perm = torch.sort(region_source(cfg, home_keys(cfg, model), region_fn), stable=True)
     return skey, perm, region_fn is not None
 
@@ -230,7 +235,8 @@ def place(cfg: SimConfig, model, perm: torch.Tensor, dstart: torch.Tensor,
     """Move every channel into the planned layout: slot ``t * tile + j``
     with ``j < dlen[t]`` takes slot ``perm[dstart[t] + j]`` of ``model``
     (position, each field, id) and is active; any other slot is empty:
-    position and fields 0, id ``S``, inactive."""
+    position and fields 0, id ``S``, inactive.  ``perm`` is int64 (the
+    plain sort's) or int32 (the kernel's)."""
     s_cap = model.pos.shape[1]
     tile = cfg.particle_tile
     j = torch.arange(tile, dtype=torch.int64, device=dstart.device)

@@ -1,29 +1,55 @@
-// The full rebucket on the card: everything of core/partition.py:
-// sort_permute but the stable key sort, which stays torch's.
+// The full rebucket on the card: core/partition.py:sort_permute, the
+// stable key sort included.
 //
 // Replaces no Pallas kernel: the JAX package runs this stage in XLA
 // (claymore_tpu/core/partition.py:83 sort_permute, one lax.sort carrying
 // every channel at :147, then a searchsorted over the monotone destination
 // slots and one window slice per tile).  The port's plain version
-// (core/partition.py: home_keys, segment_heads, segment_bases,
-// tile_windows, place) is what each kernel here is held against, bit for
-// bit: the stage only moves data and does integer arithmetic.
+// (core/partition.py: home_keys, sort_keys' torch.sort, segment_heads,
+// segment_bases, tile_windows, place) is what each kernel here is held
+// against, bit for bit: the stage only moves data and does integer
+// arithmetic.
 //
-// Bound: device memory.  Beyond the sort, an active slot's position (12
-// bytes) for its key, its sorted key (4), its sort index (8) and every
+// Bound: device memory.  The sort: each key read, each sorted key and slot
+// index written, 12 bytes a slot.  Beyond it, an active slot's position (12
+// bytes) for its key, its sorted key (4), its sort index (4) and every
 // 4-byte channel (position 3, the material's fields, the id) read once;
 // every slot's active flag read (1), its key written (4), every channel
-// written and its new flag written: 30 + 8 C bytes a slot for C channels
-// when all are active, 134 for FixedCorotated
+// written and its new flag written: 26 + 8 C bytes a slot for C channels
+// when all are active, 130 for FixedCorotated
 // (utils/bounds.py:rebucket_bound).  Everything else scales with the block
 // segments (at most one per occupied block), not the slots.
 //
 // Design.  The destination slot of sorted element i in block segment g is
 // base[g] + (i - seg_start[g]): monotone in i, so each destination tile is
-// one contiguous window of sorted indices.  Four stages, each a plain C
-// entry point (the stable sort between the first two is torch's):
+// one contiguous window of sorted indices.  Five stages, each a plain C
+// entry point:
 // * cm_rebucket_keys, one thread a slot: its home-block key from its
 //   position (12 bytes in, 4 out), the sentinel for an inactive slot;
+// * cm_rebucket_sort, the stable sort of the keys, this package's own: an
+//   LSD radix sort of the active slots alone (key below the sentinel),
+//   over the bit_length(sentinel - 1) bits they need, in the fewest
+//   passes of at most 10-bit digits (18 bits in 2 passes of 9 at a 64^3
+//   block grid), carrying int32 slot indices.  torch.sort sorts every slot
+//   over all 32 bits with an int64 index.  Each pass is a count, a scan and
+//   a scatter over CTA chunks of kSortChunk keys: the count kernel takes a
+//   histogram of the chunk's digits (a warp's equal digits found by one
+//   vote where the whole warp agrees, as it mostly does on slots near key
+//   order, else by __match_any_sync; one shared atomic each); one CTA a
+//   digit scans that digit's counts over the chunks in place (digit-major,
+//   so each digit's row is contiguous); the scatter kernel starts each digit of its chunk
+//   at the digits below it plus its own row's prefix, ranks each tile of
+//   kSortTile keys stably (per-warp digit counters, a warp's keys in item
+//   then lane order, the warps in order) and writes every key and index
+//   to its destination.  The first pass reads the keys from every slot and
+//   takes the inactive ones as one more digit after the rest: their
+//   indices go, in slot order, straight into perm's tail and their keys
+//   into skey's, and the active count (the tail's start) is written for
+//   the later passes, which cover the active pairs alone and launch over
+//   every slot's chunks, the chunks past the count leaving at once.  The
+//   last pass writes skey[0, A) and perm[0, A).  With A active of S slots
+//   and P passes the sort moves 16 S + 20 A (P - 1) bytes (1.6 GB at
+//   sphere25m's 69.6M slots, 25.1M active; torch.sort ~7 GB).
 // * cm_rebucket_heads, over the S sorted keys, a two-level scan: per-CTA
 //   head counts, one CTA scanning the CTA totals, a CTA-local pass that
 //   writes seg_start[g] (a head: an active key unlike the one before it)
@@ -59,6 +85,14 @@ constexpr int kChunk = kThreads * kRounds;     // sorted keys a CTA
 constexpr int kScanThreads = 1024;
 constexpr int kSegCtas = 512;                  // the segment pass's grid
 constexpr int kMaxChannels = 16;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSortItems = 24;                     // sort: keys a thread a tile
+constexpr int kSortTile = kThreads * kSortItems;   // keys a tile
+constexpr int kSortTiles = 3;                      // tiles a CTA
+constexpr int kSortChunk = kSortTile * kSortTiles; // keys a CTA of each pass
+constexpr int kScanGroup = 8;                      // sort: counts a scan thread loads at once
+constexpr int kMaxDigitBits = 10;
+constexpr int kMaxBuckets = (1 << kMaxDigitBits) + 1;   // a digit's values, the inactive slots
 
 // ---------------------------------------------------------------- keys
 
@@ -86,6 +120,208 @@ keys_kernel(const float* __restrict__ pos, const unsigned char* __restrict__ act
     if (valid) k = (c[0] * g + c[1]) * g + c[2];
   }
   key[i] = k;
+}
+
+// ---------------------------------------------------------------- sort
+
+// One pass of the sort: its keys and slots in and out, its digit.  In the
+// first pass the slot is the position and a key at or above the sentinel
+// is inactive: the last bucket, which goes to skey's and perm's tails.
+struct SortPass {
+  const int* key_in;
+  const int* val_in;     // unused in the first pass
+  int* key_out;
+  int* val_out;
+  int* skey;             // the first pass's inactive slots
+  int* perm;
+  const int* count;      // the keys of a later pass: the active count
+  int n;                 // the first pass's keys: the slots
+  int shift, width;
+  int sentinel;
+};
+
+template <bool First>
+__device__ __forceinline__ int pass_keys(const SortPass& p) {
+  return First ? p.n : *p.count;
+}
+
+template <bool First>
+__device__ __forceinline__ int pass_buckets(const SortPass& p) {
+  return (1 << p.width) + (First ? 1 : 0);
+}
+
+template <bool First>
+__device__ __forceinline__ int bucket_of(const SortPass& p, int key) {
+  if (First && key >= p.sentinel) return 1 << p.width;
+  return (key >> p.shift) & ((1 << p.width) - 1);
+}
+
+// The lanes of the warp whose bucket equals this lane's: all of them when
+// the warp agrees (the common case: slots near key order), else
+// __match_any_sync's answer.
+__device__ __forceinline__ unsigned same_bucket(int b) {
+  if (__all_sync(0xffffffffu, b == __shfl_sync(0xffffffffu, b, 0))) return 0xffffffffu;
+  return __match_any_sync(0xffffffffu, b);
+}
+
+// A thread's item i of a tile lies at item_offset() + 32 i: in a tile,
+// warp w holds kSortItems rounds of 32 consecutive keys, the warps in order.
+__device__ __forceinline__ int item_offset() {
+  return (threadIdx.x >> 5) * (kSortItems * 32) + (threadIdx.x & 31);
+}
+
+// counts[b * nb + c]: the keys of bucket b in chunk c
+template <bool First>
+__global__ void __launch_bounds__(kThreads)
+sort_count_kernel(SortPass p, int nb, int* __restrict__ counts) {
+  __shared__ int hist[kMaxBuckets];
+  const int n = pass_keys<First>(p);
+  const long long chunk0 = (long long)blockIdx.x * kSortChunk;
+  if (chunk0 >= n) return;
+  const int buckets = pass_buckets<First>(p);
+  const int lane = threadIdx.x & 31, off = item_offset();
+  for (int b = threadIdx.x; b < buckets; b += kThreads) hist[b] = 0;
+  __syncthreads();
+  for (int t = 0; t < kSortTiles; ++t) {
+    const long long tile0 = chunk0 + (long long)t * kSortTile;
+    if (tile0 >= n) break;
+    const int rem = (int)min((long long)kSortTile, n - tile0);
+    const int* in = p.key_in + tile0;
+    int key[kSortItems];
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) key[i] = off + 32 * i < rem ? in[off + 32 * i] : 0;
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const bool valid = off + 32 * i < rem;
+      const int b = valid ? bucket_of<First>(p, key[i]) : buckets;
+      const unsigned same = same_bucket(b);
+      if (valid && lane == __ffs(same) - 1) atomicAdd(&hist[b], __popc(same));
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < buckets; b += kThreads)
+    counts[(long long)b * nb + blockIdx.x] = hist[b];
+}
+
+// one CTA a bucket: its row of chunk counts scanned in place, its total;
+// each thread a contiguous run, its loads issued kScanGroup at a time
+__global__ void __launch_bounds__(kThreads)
+sort_scan_kernel(const int* __restrict__ count, int n, int nb, int* counts,
+                 int* __restrict__ totals) {
+  const int keys = count ? *count : n;
+  const int used = (int)(((long long)keys + kSortChunk - 1) / kSortChunk);
+  int* row = counts + (long long)blockIdx.x * nb;
+  const int per = (used + kThreads - 1) / kThreads;
+  const int lo = min(used, (int)threadIdx.x * per), hi = min(used, lo + per);
+  int s = 0;
+  for (int g = lo; g < hi; g += kScanGroup) {
+    int v[kScanGroup];
+#pragma unroll
+    for (int k = 0; k < kScanGroup; ++k) v[k] = g + k < hi ? row[g + k] : 0;
+#pragma unroll
+    for (int k = 0; k < kScanGroup; ++k) s += v[k];
+  }
+  int total;
+  int run = block_exclusive(s, &total);
+  for (int g = lo; g < hi; g += kScanGroup) {
+    int v[kScanGroup];
+#pragma unroll
+    for (int k = 0; k < kScanGroup; ++k) v[k] = g + k < hi ? row[g + k] : 0;
+#pragma unroll
+    for (int k = 0; k < kScanGroup; ++k) {
+      if (g + k < hi) row[g + k] = run;
+      run += v[k];
+    }
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = total;
+}
+
+// Each key of the chunk to its destination: the keys of the buckets below
+// it, of its bucket in the chunks before, in the tiles before, in the
+// warps before, then its rank in its warp.  The first pass writes the
+// active count (where the inactive bucket starts) and adds it to *pairs.
+template <bool First>
+__global__ void __launch_bounds__(kThreads, 2)
+sort_scatter_kernel(SortPass p, int nb, const int* __restrict__ counts,
+                    const int* __restrict__ totals, int* __restrict__ active,
+                    long long* __restrict__ pairs) {
+  __shared__ int cnt[kWarps][kMaxBuckets + 1];   // a tile's per-warp counts, then starts
+  __shared__ int next[kMaxBuckets];               // each bucket's next destination
+  const int n = pass_keys<First>(p);
+  const long long chunk0 = (long long)blockIdx.x * kSortChunk;
+  if (chunk0 >= n) return;
+  const int buckets = pass_buckets<First>(p);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, off = item_offset();
+  {
+    const int per = (buckets + kThreads - 1) / kThreads;
+    const int lo = min(buckets, (int)threadIdx.x * per), hi = min(buckets, lo + per);
+    int s = 0;
+    for (int b = lo; b < hi; ++b) s += totals[b];
+    int all;
+    int run = block_exclusive(s, &all);
+    for (int b = lo; b < hi; ++b) {
+      next[b] = run + counts[(long long)b * nb + blockIdx.x];
+      if (First && b == buckets - 1 && blockIdx.x == 0) {
+        *active = run;
+        atomicAdd(reinterpret_cast<unsigned long long*>(pairs), (unsigned long long)run);
+      }
+      run += totals[b];
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+  for (int t = 0; t < kSortTiles; ++t) {
+    const long long tile0 = chunk0 + (long long)t * kSortTile;
+    if (tile0 >= n) break;
+    const int rem = (int)min((long long)kSortTile, n - tile0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      for (int j = threadIdx.x; j <= buckets; j += kThreads) cnt[w][j] = 0;
+    int key[kSortItems], val[kSortItems], slot[kSortItems];   // slot: bucket | rank << 16
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const int o = off + 32 * i;
+      key[i] = o < rem ? p.key_in[tile0 + o] : 0;
+      if (!First) val[i] = o < rem ? p.val_in[tile0 + o] : 0;
+    }
+    __syncthreads();                              // the zeroed counters
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const int b = off + 32 * i < rem ? bucket_of<First>(p, key[i]) : buckets;
+      const unsigned same = same_bucket(b);
+      const int before = cnt[warp][b];
+      __syncwarp();
+      if (lane == __ffs(same) - 1) cnt[warp][b] = before + __popc(same);
+      __syncwarp();
+      slot[i] = b | ((before + __popc(same & below)) << 16);
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < buckets; b += kThreads) {
+      int run = next[b];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = cnt[w][b];
+        cnt[w][b] = run;
+        run += c;
+      }
+      next[b] = run;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const int b = slot[i] & 0xffff;
+      if (b == buckets) continue;                 // past the keys
+      const int dest = cnt[warp][b] + (slot[i] >> 16);
+      const int v = First ? (int)(tile0 + off + 32 * i) : val[i];
+      if (First && b == buckets - 1) {
+        p.skey[dest] = key[i];
+        p.perm[dest] = v;
+      } else {
+        p.key_out[dest] = key[i];
+        p.val_out[dest] = v;
+      }
+    }
+    __syncthreads();                              // before the next tile's zeroing
+  }
 }
 
 // ---------------------------------------------------------------- heads
@@ -283,7 +519,7 @@ struct Channels {
 };
 
 __global__ void __launch_bounds__(kThreads)
-place_kernel(const long long* __restrict__ perm, const int* __restrict__ dstart,
+place_kernel(const int* __restrict__ perm, const int* __restrict__ dstart,
              const int* __restrict__ dlen, int s_cap, int tile_bits, int n_chan,
              Channels ch, const int* __restrict__ pid_in, int* __restrict__ pid_out,
              unsigned char* __restrict__ active) {
@@ -295,7 +531,7 @@ place_kernel(const long long* __restrict__ perm, const int* __restrict__ dstart,
   float v[kMaxChannels];
   int pid = s_cap;
   if (live) {
-    const long long src = perm[dstart[t] + j];
+    const int src = perm[dstart[t] + j];
 #pragma unroll
     for (int c = 0; c < kMaxChannels; ++c) v[c] = c < n_chan ? __ldg(ch.in[c] + src) : 0.f;
     pid = __ldg(pid_in + src);
@@ -322,6 +558,54 @@ extern "C" int cm_rebucket_keys(const float* pos, const unsigned char* active, i
   const long long blocks = ((long long)n + kThreads - 1) / kThreads;
   keys_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(pos, active, n, dx_inv,
                                                                        block_bits, g, key);
+  return (int)cudaGetLastError();
+}
+
+// The stable sort of the keys src i32[n], each in [0, sentinel]: skey and
+// perm i32[n] equal torch.sort(src, stable=True) bit for bit, perm as int32.
+// bits: bit_length(sentinel - 1); the passes cover digit_bits (<= 10) each,
+// the last the rest (one pass of width 0 where bits is 0).  Scratch: tmp
+// i32[min(passes - 1, 2)][2][n] (null for one pass), counts i32[(2^digit_bits
+// + 1) * ceil(n / 18432)], totals i32[2^digit_bits + 1]; active i32[1] gets
+// the active count, which is also added to pairs i64[1].
+extern "C" int cm_rebucket_sort(const int* src, int n, int sentinel, int bits, int digit_bits,
+                                int* skey, int* perm, int* tmp, int* counts, int* totals,
+                                int* active, long long* pairs, void* stream) {
+  if (n <= 0 || sentinel <= 0 || bits < 0 || bits > 30 || digit_bits < 0 ||
+      digit_bits > kMaxDigitBits || (bits > 0) != (digit_bits > 0) || pairs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int passes = bits == 0 ? 1 : (bits + digit_bits - 1) / digit_bits;
+  if (passes > 1 && tmp == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nb = (int)(((long long)n + kSortChunk - 1) / kSortChunk);
+  auto buffer = [&](int k, int part) { return tmp + (long long)(2 * k + part) * n; };
+  for (int q = 0; q < passes; ++q) {
+    const bool first = q == 0, last = q == passes - 1;
+    SortPass p;
+    p.key_in = first ? src : buffer((q - 1) % 2, 0);
+    p.val_in = first ? nullptr : buffer((q - 1) % 2, 1);
+    p.key_out = last ? skey : buffer(q % 2, 0);
+    p.val_out = last ? perm : buffer(q % 2, 1);
+    p.skey = skey;
+    p.perm = perm;
+    p.count = first ? nullptr : active;
+    p.n = n;
+    p.shift = q * digit_bits;
+    p.width = bits - p.shift < digit_bits ? bits - p.shift : digit_bits;
+    p.sentinel = sentinel;
+    const int buckets = (1 << p.width) + (first ? 1 : 0);
+    if (first) {
+      sort_count_kernel<true><<<nb, kThreads, 0, st>>>(p, nb, counts);
+    } else {
+      sort_count_kernel<false><<<nb, kThreads, 0, st>>>(p, nb, counts);
+    }
+    sort_scan_kernel<<<buckets, kThreads, 0, st>>>(p.count, n, nb, counts, totals);
+    if (first) {
+      sort_scatter_kernel<true><<<nb, kThreads, 0, st>>>(p, nb, counts, totals, active, pairs);
+    } else {
+      sort_scatter_kernel<false><<<nb, kThreads, 0, st>>>(p, nb, counts, totals, active, pairs);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -362,7 +646,7 @@ extern "C" int cm_rebucket_plan(const int* skey, const int* seg_start, const int
 
 // Every channel into the planned layout: in/out hold n_chan (<= 16) pointers
 // to f32[s_cap] rows; pid i32[s_cap]; active u8[s_cap]; tile a power of two.
-extern "C" int cm_rebucket_place(const long long* perm, const int* dstart, const int* dlen,
+extern "C" int cm_rebucket_place(const int* perm, const int* dstart, const int* dlen,
                                  int s_cap, int tile, int n_chan, const void* const* in,
                                  void* const* out, const int* pid_in, int* pid_out,
                                  unsigned char* active, void* stream) {

@@ -70,12 +70,14 @@ SIGNATURES = {
     "cm_g2p2g_info": [_I, _I, _I, _P],
     "cm_prof_laneops_info": [_I, _P],
     # the rebucket (csrc/rebucket.cu): keys (pos, active, n, dx_inv,
-    # block_bits, g, key, stream); heads (skey, n, sentinel, seg_start,
-    # cta_count, cta_off, meta, stream); plan (skey, seg_start, meta, tile,
+    # block_bits, g, key, stream); sort (src, n, sentinel, bits, digit_bits,
+    # skey, perm, tmp, counts, totals, active, pairs, stream); heads (skey,
+    # n, sentinel, seg_start, cta_count, cta_off, meta, stream); plan (skey, seg_start, meta, tile,
     # group_tiles, num_tiles, off, n3, cta_sum, cta_off, base, dstart, dlen,
     # tile_keys, dropped, stream); place (perm, dstart, dlen, s_cap, tile,
     # channels, in pointers, out pointers, pid in, pid out, active, stream)
     "cm_rebucket_keys": [_P, _P, _I, _F, _I, _I, _P, _P],
+    "cm_rebucket_sort": [_P] + [_I] * 4 + [_P] * 8,
     "cm_rebucket_heads": [_P, _I, _I] + [_P] * 5,
     "cm_rebucket_plan": [_P] * 3 + [_I] * 5 + [_P] * 8,
     "cm_rebucket_place": [_P] * 3 + [_I] * 3 + [_P] * 6,

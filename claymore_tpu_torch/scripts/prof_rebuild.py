@@ -10,7 +10,7 @@ another under the JAX script's names:
 
 * ``sort``: the home-block keys and their stable sort, alone
   (``ops/rebucket_kernel.py:sort_keys``: on a card the keys kernel, then
-  torch's sort);
+  the package's radix sort, ``key_sort``);
 * ``sort_permute``: the full rebucket as the engine runs it,
   ``ops/rebucket_kernel.py:sort_permute`` (on a card the sort, then the
   CUDA kernels of ``csrc/rebucket.cu``; on the CPU the plain version);
@@ -24,7 +24,10 @@ events on a card, the host clock on the CPU).  ``permute`` is
 ``sort_permute`` less ``sort``: what the slot plan and the placement add to
 the sort; ``plan`` and ``place`` time those two stages alone on the sorted
 keys (``tile_plan``, ``place``).  ``sort_gkeys_per_s`` is the keys sorted
-per second.  On a card, after the timings, ``device_ops`` counts the
+per second; on a card ``sort_pair_share`` is the share of the slots the
+sort carried through its digit passes (the active ones,
+``sorted_pair_counter`` over ``sort_stats["slots"]``) and ``sort_passes``
+its passes a call.  On a card, after the timings, ``device_ops`` counts the
 device operations (``torch.profiler``) of one partition rebuild +
 ``finalize_tiles`` and of one ``first_marked`` of the slots' free flags
 (into at most 262,144 indices, a mesh's migration capacity), through the
@@ -78,12 +81,19 @@ def main(argv=None) -> int:
         "plan": lambda: rk.tile_plan(cfg, skey, nt),
         "place": lambda: rk.place(cfg, model, perm, dstart, dlen),
     }
+    if dev.type == "cuda":
+        rk.sorted_pair_counter(dev).zero_()
+        for k in rk.sort_stats:
+            rk.sort_stats[k] = 0
     out = {k: best_ms(f, dev, iters=args.iters, reps=args.reps) for k, f in stages.items()}
     out["permute"] = out["sort_permute"] - out["sort"]
     slots = int(model.pos.shape[1])
     out.update(particles=int(pos.shape[0]), slots=slots,
                sort_gkeys_per_s=slots / out["sort"] / 1e6, device=device_label(dev))
     if dev.type == "cuda":
+        out["sort_pair_share"] = (int(rk.sorted_pair_counter(dev)[0])
+                                  / max(rk.sort_stats["slots"], 1))
+        out["sort_passes"] = rk.sort_stats["passes"] / max(rk.sort_stats["calls"], 1)
         free, k = ~model.active, min(262144, slots)
         chains = {
             "rebuild+finalize": lambda m: m[1](cfg, m[0](cfg, state.grid, state.partition,

@@ -125,14 +125,14 @@ def rebucket_bound(cfg, slots: int, channels: int, active: int = None,
     Beyond the sort, per slot: its active flag read, 1 B, its key written,
     4 B, every channel written, 4 C B, and its new active flag, 1 B; per
     active slot: its position read for the key, 12 B, its sorted key, 4 B
-    (the heads pass: the active keys are a prefix), its sort index, 8 B,
-    and every channel read once, 4 C B.  In all
-    ``slots (6 + 4 C) + active (24 + 4 C)`` bytes, 30 + 8 C = 134 a slot
+    (the heads pass: the active keys are a prefix), its sort index, 4 B
+    (int32), and every channel read once, 4 C B.  In all
+    ``slots (6 + 4 C) + active (20 + 4 C)`` bytes, 26 + 8 C = 130 a slot
     for FixedCorotated when every slot is active.  The plan's own traffic
     is added (per segment its start written and read and its key read, per
     tile its window and key written); operations are negligible.  ``sort``
     is the key sort alone, its own line: each key read and each sorted key
-    and index written, 16 B a slot.  ``stages`` splits the bytes over the
+    and int32 index written, 12 B a slot.  ``stages`` splits the bytes over the
     kernels, each kernel's inputs and outputs: ``keys`` (flags and the
     active positions in, keys out), ``heads`` (the active sorted keys in,
     the starts out), ``plan`` (the starts and the heads' keys in, the
@@ -145,10 +145,10 @@ def rebucket_bound(cfg, slots: int, channels: int, active: int = None,
         "keys": 5 * slots + 12 * active,
         "heads": 4 * (active + 1) + 4 * (segments + 1),
         "plan": 4 * (segments + 1) + 4 * segments + 12 * tiles + 4,
-        "place": 8 * tiles + active * (8 + 4 * channels) + slots * (4 * channels + 1),
+        "place": 8 * tiles + active * (4 + 4 * channels) + slots * (4 * channels + 1),
     }
     out = bound(sum(stages.values()), 0)
-    out["sort"] = bound(16 * slots, 0)
+    out["sort"] = bound(12 * slots, 0)
     out["stages"] = {k: bound(v, 0) for k, v in stages.items()}
     return out
 

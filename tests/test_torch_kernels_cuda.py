@@ -514,10 +514,79 @@ def test_rebucket_keys_kernel_at_the_edges(card):
     assert int((got < cfg.grid_size ** 3).sum()) > 0
 
 
+def _sort_keys_case(case, seed=7):
+    """(src i32[S] numpy, sentinel): keys in [0, sentinel], the sentinel an
+    inactive slot, as ``sort_keys`` hands them to the sort."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n3 = 64 ** 3
+    sentinel = {"region": 2 * (n3 + 8), "g256": 256 ** 3,
+                "g256_region": 2 * (256 ** 3 + 8)}.get(case, n3)
+    s = {"single_slot": 1, "ragged": 3 * 8192 + 123, "g256": 40000,
+         "g256_region": 40000}.get(case, 300000)
+    if case == "all_inactive":
+        return np.full(s, sentinel, np.int32), sentinel
+    if case == "one_key":
+        return np.full(s, 12345, np.int32), sentinel
+    if case == "edges":
+        return rng.choice([0, sentinel - 1, sentinel], size=s).astype(np.int32), sentinel
+    if case == "cell_like":
+        # tiles of 512 in ascending block order, each 40-95% full of its
+        # block's key, then 5% of the active slots moved to a neighbour
+        tiles = s // 512 + 1
+        keys = np.sort(rng.choice(n3 - 8192, size=tiles, replace=False)) + 4096
+        fill = rng.integers(205, 487, size=tiles)
+        src = np.where(np.arange(512)[None, :] < fill[:, None], keys[:, None], sentinel)
+        src = src.reshape(-1)[:s].astype(np.int64)
+        act = np.nonzero(src < sentinel)[0]
+        moved = rng.choice(act, size=len(act) // 20, replace=False)
+        src[moved] += rng.choice([-4096, -64, -1, 1, 64, 4096], size=len(moved))
+        return src.astype(np.int32), sentinel
+    if case == "region":
+        key = rng.integers(0, n3, size=s)
+        src = np.where(rng.uniform(size=s) < 0.5, key + n3 + 8, key)
+        return np.where(rng.uniform(size=s) < 0.3, sentinel, src).astype(np.int32), sentinel
+    if case.startswith("g256"):
+        top = 256 ** 3 if case == "g256" else sentinel
+        src = rng.integers(0, top, size=s)
+        return np.where(rng.uniform(size=s) < 0.3, sentinel, src).astype(np.int32), sentinel
+    if case in ("all_active", "ragged"):
+        src = rng.integers(0, sentinel, size=s)
+        if case == "ragged":
+            src = np.where(rng.uniform(size=s) < 0.3, sentinel, src)
+        return src.astype(np.int32), sentinel
+    # uniform, single_slot: every key of the range, the sentinel too
+    return rng.integers(0, sentinel + 1, size=s).astype(np.int32), sentinel
+
+
+@pytest.mark.parametrize("case", ["all_inactive", "all_active", "single_slot", "one_key",
+                                  "edges", "uniform", "cell_like", "region", "g256",
+                                  "g256_region", "ragged"])
+def test_key_sort_equals_torch_sort(card, case):
+    """The sort kernels equal ``torch.sort(src, stable=True)`` bit for bit:
+    the sorted keys, and the index by value (int32 against torch's int64),
+    the inactive tail in slot order too; the pairs counter adds the active
+    count and ``sort_stats`` the plan's passes."""
+    from claymore_tpu_torch.ops import rebucket_kernel as rk
+
+    src_np, sentinel = _sort_keys_case(case)
+    src = torch.from_numpy(src_np).cuda()
+    pairs = rk.sorted_pair_counter(src.device)
+    before, passes = int(pairs[0]), rk.sort_stats["passes"]
+    skey, perm = rk.key_sort(src, sentinel)
+    ref = torch.sort(src, stable=True)
+    assert skey.dtype == perm.dtype == torch.int32
+    assert torch.equal(skey, ref.values)
+    assert torch.equal(perm.long(), ref.indices)
+    assert int(pairs[0]) - before == int((src < sentinel).sum())
+    assert rk.sort_stats["passes"] - passes == len(rk.sort_plan(sentinel)[1])
+
+
 def test_engine_rebuilds_through_the_rebucket_kernels(card):
     """An engine on the card that rebuilds every substep launches each
-    rebucket kernel once a rebuild (and once for the init's sort), and loses
-    no particle."""
+    rebucket kernel, the sort too, once a rebuild (and once for the init's
+    sort), and loses no particle."""
     from claymore_tpu_torch.ops import rebucket_kernel
 
     cfg = ct.SimConfig(domain_bits=6, max_active_blocks=512, default_dt=2e-4,

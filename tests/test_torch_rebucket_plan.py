@@ -175,3 +175,70 @@ def test_tile_plan_windows_equal_jax_searchsorted(case):
     seg = torch.searchsorted(heads[:-1].long(), dstart[live].long(), right=True) - 1
     slot = base[seg] + dstart[live].long() - heads[seg].long()
     np.testing.assert_array_equal(slot.numpy(), (torch.nonzero(live).flatten() * TILE).numpy())
+
+
+@pytest.mark.parametrize("domain_bits,region,bits,widths", [
+    (8, False, 18, (9, 9)),            # G = 64: sentinel G^3
+    (8, True, 20, (10, 10)),           # G = 64 with a region: 2 (G^3 + 8)
+    (10, False, 24, (8, 8, 8)),        # G = 256 (config 5)
+    (10, True, 26, (9, 9, 8)),
+    (5, False, 9, (9,)),               # G = 8: one pass
+])
+def test_sort_plan_follows_the_sentinel(domain_bits, region, bits, widths):
+    """The hand sort's passes: the active keys' bits in the fewest digits of
+    at most 10 bits, as even as they go."""
+    cfg = configs(domain_bits=domain_bits, max_active_blocks=256)[1]
+    sentinel = partition.region_offsets(cfg, region)[1]
+    assert rebucket_kernel.sort_plan(sentinel) == (bits, widths)
+    assert sum(widths) == bits == (sentinel - 1).bit_length()
+
+
+def test_sort_plan_at_its_edges():
+    """A sentinel of 1 (every active key 0) takes one pass of width 0; the
+    plan refuses sentinels outside 1 .. 2^30."""
+    assert rebucket_kernel.sort_plan(1) == (0, (0,))
+    assert rebucket_kernel.sort_plan(2) == (1, (1,))
+    assert rebucket_kernel.sort_plan(1 << 30) == (30, (10, 10, 10))
+    for bad in (0, (1 << 30) + 1):
+        with pytest.raises(ValueError):
+            rebucket_kernel.sort_plan(bad)
+
+
+@pytest.mark.parametrize("sentinel", [1, 2 ** 18, 2 * (2 ** 18 + 8), 2 ** 24, 2 * (2 ** 24 + 8)])
+def test_sort_plan_passes_equal_torch_sort(sentinel):
+    """The kernel's passes written out in torch: a stable split of the
+    active keys (below the sentinel) from the inactive ones, then one
+    stable counting pass of the active pairs a digit of the plan, low digit
+    first, equal ``torch.sort(src, stable=True)`` in keys and index."""
+    rng = np.random.default_rng(sentinel)
+    s = 5000
+    src = torch.from_numpy(np.where(rng.uniform(size=s) < 0.3, sentinel,
+                                    rng.integers(0, sentinel, size=s)).astype(np.int32))
+    bits, widths = rebucket_kernel.sort_plan(sentinel)
+    act = src < sentinel
+    key, val = src[act], torch.nonzero(act).flatten()
+    shift = 0
+    for w in widths:
+        digit = (key >> shift) & ((1 << w) - 1)
+        order = torch.argsort(digit * s + torch.arange(len(key)))   # stable by digit
+        key, val, shift = key[order], val[order], shift + w
+    ref = torch.sort(src, stable=True)
+    skey = torch.cat([key, src[~act]])
+    perm = torch.cat([val, torch.nonzero(~act).flatten()])
+    assert torch.equal(skey, ref.values) and torch.equal(perm, ref.indices)
+
+
+@pytest.mark.parametrize("case", ["scattered", "tight", "region"])
+def test_plain_place_takes_an_int32_perm(case):
+    """The plain ``place`` moves the same model from the kernel's int32 sort
+    index as from the plain sort's int64 one."""
+    _, cfg, _, m, nt = _models(case, "fixed_corotated", seed=2)
+    region = _region(case, cfg.grid_size)
+    skey, perm, is_region = partition.sort_keys(cfg, m, region and region[1])
+    dstart, dlen, _, _ = partition.tile_plan(cfg, skey, nt, is_region)
+    a = partition.place(cfg, m, perm, dstart, dlen)
+    b = partition.place(cfg, m, perm.to(torch.int32), dstart, dlen)
+    assert perm.dtype == torch.int64
+    for x, y in ((a.pos, b.pos), (a.active, b.active), (a.pid, b.pid),
+                 *((a.fields[k], b.fields[k]) for k in m.fields)):
+        assert torch.equal(x, y)
